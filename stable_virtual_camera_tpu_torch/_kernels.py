@@ -1,0 +1,145 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each `csrc/<name>.cu` holds one kernel behind a plain C entry point (no
+PyTorch headers, so `nvcc` takes seconds per file). It compiles for `sm_90a`
+into its own shared library under `build/kernels/` at the repository root,
+named after a hash of its source and flags, so an edited source rebuilds and
+an unchanged one is reused. All sources build in parallel, one `nvcc` each,
+the first time any kernel is launched. The libraries load with `ctypes`.
+
+Every C entry point returns `cudaGetLastError()` after its launch; `launch`
+raises if that is not 0. Each `Kernel` keeps a plain integer count of its
+launches, which a run can read to show that a path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+
+
+class Kernel:
+    """One CUDA source, its C entry point and its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes: list):
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.source = CSRC / f"{name}.cu"
+        self.launches = 0
+        self._fn = None
+
+    def library(self) -> Path:
+        digest = hashlib.sha256(
+            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        return BUILD_DIR / f"{self.name}-{digest}.so"
+
+    def _load(self):
+        if self._fn is None:
+            with _LOCK:
+                if self._fn is None:
+                    lib_path = self.library()
+                    if not lib_path.exists():
+                        build_all()
+                    lib = ctypes.CDLL(str(lib_path))
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = _I
+                    err = lib.svc_error_string
+                    err.argtypes = [_I]
+                    err.restype = ctypes.c_char_p
+                    self._err = err
+                    self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Call the C entry point (which enqueues the kernel on the given
+        stream) and raise if the launch was refused."""
+        fn = self._load()
+        code = fn(*args)
+        if code != 0:
+            raise RuntimeError(
+                f"{self.name}: kernel launch failed with CUDA error {code} "
+                f"({self._err(code).decode()})"
+            )
+        self.launches += 1
+
+
+_LOCK = threading.RLock()
+
+FLASH_ATTENTION = Kernel(
+    "flash_attention",
+    "svc_flash_attention_fwd",
+    # q, k, v, o, B, H, L, then (batch, head, row) strides of q, k, v, o,
+    # scale*log2(e), stream
+    [_P, _P, _P, _P, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P],
+)
+TIME_ATTENTION = Kernel(
+    "time_attention",
+    "svc_time_attention_fwd",
+    # q, k, v, o, b, T, H, S, then (frame, head, channel) strides of q, k, v,
+    # o, scale, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P],
+)
+KERNELS = {k.name: k for k in (FLASH_ATTENTION, TIME_ATTENTION)}
+
+
+def build_all() -> None:
+    """Compile every kernel whose library is missing, one `nvcc` per source,
+    all at once. Raises with the compiler output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for k in KERNELS.values():
+        out = k.library()
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
+        procs[k.name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+            tmp,
+            out,
+        )
+    failed = []
+    for name, (p, tmp, out) in procs.items():
+        stdout, stderr = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{name}:\n{stdout}{stderr}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def counts() -> dict[str, int]:
+    return {k.name: k.launches for k in KERNELS.values()}

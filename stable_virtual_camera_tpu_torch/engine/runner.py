@@ -1,0 +1,561 @@
+"""The scene engine: chunked, two-pass, autoregressive sampling.
+
+Counterpart of stable_virtual_camera_tpu/engine/runner.py (`VaeApplier`,
+`ClipApplier`, `ModelBundle`, `build_chunk_conditioning`, `sample_chunk`,
+`SceneEngine.run_one_scene`) for the two-pass trajectory-prior render: the
+same chunk plans (engine/planner.py, engine/prior.py and
+engine/value_dict.py, copies of the JAX package's host code), the same
+conditioning, dense-economy anchors and anchor delivery.
+
+Differences by design: VAE/CLIP en/decode chunk with a Python loop over
+`encoding_t`/`decoding_t` (0 = one batch); chunks run one after another; PNG
+and mp4 writes are synchronous and happen only when a `save_path` is given.
+Without one, `run_one_scene` yields each pass's uint8 frames instead of file
+paths. Initial and churn noise come from `noise_fn` (sampling/sampler.py).
+"""
+
+from __future__ import annotations
+
+import copy
+import hashlib
+import os.path as osp
+from dataclasses import dataclass, field
+from functools import partial
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+
+from stable_virtual_camera_tpu_torch.config import EngineOptions, SevaSpec, VersionConfig
+from stable_virtual_camera_tpu_torch.core.transforms import transform_img_and_K, transform_K
+from stable_virtual_camera_tpu_torch.engine import planner
+from stable_virtual_camera_tpu_torch.engine.saving import (
+    decode_output,
+    extend_dict,
+    get_k_from_dict,
+    replace_or_include_input_for_dict,
+    save_output,
+    to_uint8,
+    update_kv_for_dict,
+)
+from stable_virtual_camera_tpu_torch.engine.value_dict import ChunkValues, build_chunk_values
+from stable_virtual_camera_tpu_torch.models.clip import ClipVisionTower, preprocess
+from stable_virtual_camera_tpu_torch.models.unet import SevaUNet, assemble_network_input
+from stable_virtual_camera_tpu_torch.models.vae import DOWNSAMPLE, AutoEncoderKL
+from stable_virtual_camera_tpu_torch.sampling import guidance
+from stable_virtual_camera_tpu_torch.sampling.discretization import DDPMDiscretization
+from stable_virtual_camera_tpu_torch.sampling.sampler import (
+    ChunkConditioning,
+    NoiseFn,
+    SamplingPlan,
+    euler_edm_sample,
+    make_sampling_plan,
+    torch_noise,
+)
+
+
+def _device(module: torch.nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def _frame_keys(imgs: np.ndarray) -> list[bytes]:
+    return [hashlib.md5(np.ascontiguousarray(im).tobytes()).digest() for im in imgs]
+
+
+def _chunked(fn, x: torch.Tensor, chunk_size: int | None) -> torch.Tensor:
+    step = chunk_size or x.shape[0]
+    return torch.cat([fn(x[i : i + step]) for i in range(0, x.shape[0], step)])
+
+
+class VaeApplier:
+    """VAE encode/decode over numpy or device batches, optionally chunked,
+    with a per-scene content cache for encodes."""
+
+    def __init__(self, module: AutoEncoderKL):
+        self.module = module
+        self._enc_cache: dict[bytes, np.ndarray] = {}
+
+    @torch.inference_mode()
+    def encode(self, imgs: np.ndarray, chunk_size: int | None = None) -> np.ndarray:
+        """(N, H, W, 3) in [-1, 1] -> (N, H/8, W/8, 4) latents."""
+        N, H, W, _ = imgs.shape
+        if N == 0:
+            return np.zeros((0, H // DOWNSAMPLE, W // DOWNSAMPLE, 4), np.float32)
+        x = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(_device(self.module))
+        return _chunked(self.module.encode, x, chunk_size).cpu().numpy()
+
+    def encode_cached(self, imgs: np.ndarray, chunk_size: int | None = None) -> np.ndarray:
+        """`encode`, reusing the latents of frames already encoded this scene
+        (input and anchor frames recur across chunks)."""
+        if imgs.shape[0] == 0:
+            return self.encode(imgs, chunk_size)
+        keys = _frame_keys(imgs)
+        missing = [i for i, k in enumerate(keys) if k not in self._enc_cache]
+        if missing:
+            lat = self.encode(imgs[missing], chunk_size)
+            for j, i in enumerate(missing):
+                self._enc_cache[keys[i]] = lat[j]
+        return np.stack([self._enc_cache[k] for k in keys])
+
+    def clear_cache(self) -> None:
+        self._enc_cache.clear()
+
+    @torch.inference_mode()
+    def decode(self, z: torch.Tensor, chunk_size: int | None = None, uint8: bool = False) -> np.ndarray:
+        """Latents -> (N, H, W, 3) images: fp32 in [-1, 1], or uint8 with the
+        host writer's quantisation."""
+        fn = self.module.decode_uint8 if uint8 else self.module.decode
+        return _chunked(fn, torch.as_tensor(z).to(_device(self.module)), chunk_size).cpu().numpy()
+
+
+class ClipApplier:
+    """CLIP image embedding (preprocess + tower) with a per-scene cache."""
+
+    def __init__(self, module: ClipVisionTower):
+        self.module = module
+        self._emb_cache: dict[bytes, np.ndarray] = {}
+
+    @torch.inference_mode()
+    def embed(self, imgs: np.ndarray) -> np.ndarray:
+        x = torch.from_numpy(np.ascontiguousarray(imgs, np.float32)).to(_device(self.module))
+        return self.module(preprocess(x, self.module.spec.image_size)).cpu().numpy()
+
+    def embed_cached(self, imgs: np.ndarray) -> np.ndarray:
+        if imgs.shape[0] == 0:
+            return self.embed(imgs)
+        keys = _frame_keys(imgs)
+        missing = [i for i, k in enumerate(keys) if k not in self._emb_cache]
+        if missing:
+            emb = self.embed(imgs[missing])
+            for j, i in enumerate(missing):
+                self._emb_cache[keys[i]] = emb[j]
+        return np.stack([self._emb_cache[k] for k in keys])
+
+    def clear_cache(self) -> None:
+        self._emb_cache.clear()
+
+
+@dataclass
+class ModelBundle:
+    """Everything the engine needs to run a scene."""
+
+    spec: SevaSpec
+    unet: SevaUNet
+    vae: VaeApplier
+    clip: ClipApplier
+    discretization: DDPMDiscretization = field(default_factory=DDPMDiscretization)
+
+    _plans: dict[int, SamplingPlan] = field(default_factory=dict)
+
+    @property
+    def device(self) -> torch.device:
+        return _device(self.unet)
+
+    def plan(self, num_steps: int) -> SamplingPlan:
+        if num_steps not in self._plans:
+            self._plans[num_steps] = make_sampling_plan(self.discretization, num_steps)
+        return self._plans[num_steps]
+
+    def network(self, x, concat, t_vec, crossattn, dense, num_frames):
+        return self.unet(assemble_network_input(x, concat), t_vec, crossattn, dense, num_frames)
+
+
+def build_chunk_conditioning(
+    bundle: ModelBundle,
+    values: ChunkValues,
+    *,
+    cfg: float,
+    guider_type: int,
+    cfg_min: float,
+    encoding_t: int | None = None,
+    latent_downsample: int = 8,
+) -> tuple[ChunkConditioning, tuple[int, int, int, int]]:
+    """One chunk's CFG-doubled conditioning on the device: VAE-encoded input
+    views, the mean CLIP embedding, mask/Plücker maps and the per-frame
+    guidance scale. Returns (cond, (T, h, w, C))."""
+    T, H, W = values.imgs.shape[:3]
+    h, w = H // latent_downsample, W // latent_downsample
+    mask = values.input_frame_mask
+
+    latents = bundle.vae.encode_cached(values.imgs[mask], encoding_t)
+    clip_emb = bundle.clip.embed_cached(values.imgs_clip[mask]).mean(0)
+
+    C = latents.shape[-1]
+    replace_c = np.zeros((T, h, w, C + 1), np.float32)
+    replace_c[mask] = np.concatenate([latents, np.ones((*latents.shape[:-1], 1), np.float32)], axis=-1)
+    crossattn_c = np.tile(clip_emb[None, None], (T, 1, 1)).astype(np.float32)
+    mask_map = np.broadcast_to(mask[:, None, None, None].astype(np.float32), (T, h, w, 1))
+    plucker = np.asarray(values.plucker, np.float32)
+    concat_c = np.concatenate([mask_map, plucker], axis=-1)
+    concat_u = np.concatenate([np.zeros_like(mask_map), plucker], axis=-1)
+    scale_vec = guidance.compute_scale_vector(
+        guider_type, cfg, T, values.c2w, values.K, mask, cfg_min
+    )
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(bundle.device)
+
+    cond = ChunkConditioning(
+        crossattn=dev(np.concatenate([np.zeros_like(crossattn_c), crossattn_c], 0)),
+        concat=dev(np.concatenate([concat_u, concat_c], 0)),
+        dense=dev(np.concatenate([plucker, plucker], 0)),
+        replace=dev(np.concatenate([np.zeros_like(replace_c), replace_c], 0)),
+        scale=dev(scale_vec),
+    )
+    return cond, (T, h, w, C)
+
+
+def sample_chunk(
+    bundle: ModelBundle,
+    values: ChunkValues,
+    *,
+    num_steps: int,
+    cfg: float,
+    guider_type: int,
+    cfg_min: float,
+    noise_fn: NoiseFn,
+    pass_id: int = 0,
+    chunk_id: int = 0,
+    encoding_t: int | None = None,
+    decoding_t: int | None = None,
+    latent_downsample: int = 8,
+    progress_cb=None,
+    abort_event=None,
+    output_uint8: bool = False,
+) -> np.ndarray | None:
+    """One chunk: conditioning, denoising loop, decode. `noise_fn(pass_id,
+    chunk_id, step, shape, device)` supplies the noise. Returns the decoded
+    frames (uint8 with `output_uint8`), or None when aborted."""
+    cond, shape = build_chunk_conditioning(
+        bundle, values, cfg=cfg, guider_type=guider_type, cfg_min=cfg_min,
+        encoding_t=encoding_t, latent_downsample=latent_downsample,
+    )
+    dev = bundle.device
+
+    def draw(step):
+        return noise_fn(pass_id, chunk_id, step, shape, dev).to(dev, torch.float32)
+
+    x = euler_edm_sample(
+        bundle.network, draw(None), bundle.plan(num_steps), cond, shape[0],
+        step_noise=draw, progress_cb=progress_cb, abort_event=abort_event,
+    )
+    if x is None:
+        return None
+    return bundle.vae.decode(x, decoding_t, uint8=output_uint8)
+
+
+def _resolve_guiders(guider_types) -> list[int]:
+    if not isinstance(guider_types, (list, tuple)):
+        return [int(guider_types)]
+    return [int(g) for g in guider_types]
+
+
+def _cfg_at(cfg, i: int) -> float:
+    if isinstance(cfg, (list, tuple)):
+        return float(cfg[i]) if len(cfg) > i else float(cfg[0])
+    return float(cfg)
+
+
+class SceneEngine:
+    """Runs `run_one_scene` over a ModelBundle. The options are copied, so a
+    run never sees later changes to the caller's object (engine/prior.py
+    rewrites `deliver_anchors` in place)."""
+
+    def __init__(
+        self,
+        bundle: ModelBundle,
+        version: VersionConfig,
+        options: EngineOptions,
+        noise_fn: NoiseFn = torch_noise,
+    ):
+        self.bundle = bundle
+        self.version = version
+        self.options = copy.deepcopy(options)
+        self.noise_fn = noise_fn
+
+    def _prepare_images(self, image_cond, camera_cond):
+        """Transform all scene images (uint8, or float in [-1, 1] / [0, 255])
+        to the render size and normalise their Ks, one batch per input size."""
+        W, H = self.version.W, self.version.H
+        imgs: list = []
+        pending: dict = {}
+        img_size = None
+        for i, (img, K) in enumerate(zip(image_cond["img"], camera_cond["K"])):
+            if not isinstance(img, np.ndarray):
+                raise TypeError(
+                    f"image {i}: the port's engine takes in-memory arrays, got {type(img)}"
+                )
+            img_size = img.shape[:2]
+            if img.dtype == np.uint8:
+                arr = img.astype(np.float32)[None] / 255.0 * 2.0 - 1.0
+            else:
+                arr = np.asarray(img, np.float32)[None]
+                if arr.max() > 1.5:  # 0..255 float
+                    arr = arr / 255.0 * 2.0 - 1.0
+            pending.setdefault(arr.shape[1:3], []).append((i, arr, np.asarray(K)))
+            imgs.append(None)
+        for items in pending.values():
+            batch = np.concatenate([a for _, a, _ in items], 0)
+            Ks_in = np.stack([k for _, _, k in items], 0)
+            batch_t, Ks_t = transform_img_and_K(batch, (W, H), K=Ks_in)
+            for j, (i, _, _) in enumerate(items):
+                imgs[i] = batch_t[j : j + 1]
+                Kj = Ks_t[j]
+                Kj[0] /= W
+                Kj[1] /= H
+                camera_cond["K"][i] = Kj
+        out = np.concatenate(imgs, 0)
+        return out, out.copy(), img_size
+
+    def _prepare_prior_Ks(self, traj_prior_Ks, img_size):
+        """Anchor Ks as the JAX engine derives them from a blank image of the
+        scene's size (load, then transform), computed without the image."""
+        opts, W, H = self.options, self.version.W, self.version.H
+        h, w = img_size
+        out = []
+        for prior_k in traj_prior_Ks:
+            K = np.asarray(prior_k, np.float64).copy()
+            cxcy = K[:2, -1]
+            if np.all(cxcy >= 0) and np.all(cxcy <= 1):  # normalised: to pixels
+                K[:2] *= np.array([w, h], np.float64)[:, None]
+            K = transform_K(
+                (h, w), (W, H), K[None],
+                mode=opts.get("transform_target", "crop"),
+                scale=opts.get("transform_scale", 1.0),
+            )[0]
+            K[0] /= W
+            K[1] /= H
+            out.append(K)
+        return np.stack(out)
+
+    def run_one_scene(
+        self,
+        task: str,
+        image_cond: dict,
+        camera_cond: dict,
+        save_path: str | None = None,
+        use_traj_prior: bool = True,
+        traj_prior_Ks: np.ndarray | None = None,
+        traj_prior_c2ws: np.ndarray | None = None,
+        seed: int = 23,
+        abort_event=None,
+        first_pass_pbar: Callable | None = None,
+        second_pass_pbar: Callable | None = None,
+    ) -> Iterator[str | np.ndarray]:
+        """Two-pass trajectory-prior render: anchors first, then every target
+        conditioned on inputs and anchors. Yields after the first pass (when
+        saved) and at the end: file paths with a `save_path`, else the uint8
+        frames (anchors, then all targets in order)."""
+        if not use_traj_prior:
+            raise NotImplementedError("the port runs the two-pass (use_traj_prior) render only")
+        assert traj_prior_c2ws is not None, "`traj_prior_c2ws` must be set for 2-pass sampling."
+        options, version, bundle = self.options, self.version, self.bundle
+        T = version.T
+        F = version.f
+        noise = partial(self.noise_fn, seed)
+        bundle.vae.clear_cache()
+        bundle.clip.clear_cache()
+
+        camera_cond = dict(camera_cond)
+        camera_cond["K"] = [np.asarray(k) for k in camera_cond["K"]]
+        imgs, imgs_clip, img_size = self._prepare_images(image_cond, camera_cond)
+        camera_cond["K"] = np.stack(camera_cond["K"]).astype(np.float32)
+        all_c2ws = np.asarray(camera_cond["c2w"], np.float32)
+        if traj_prior_Ks is not None:
+            traj_prior_Ks = self._prepare_prior_Ks(traj_prior_Ks, img_size)
+
+        input_indices = list(image_cond["input_indices"])
+        input_imgs, input_imgs_clip = imgs[input_indices], imgs_clip[input_indices]
+        input_c2ws, input_Ks = all_c2ws[input_indices], camera_cond["K"][input_indices]
+        test_indices = [i for i in range(len(imgs)) if i not in input_indices]
+        test_imgs, test_imgs_clip = imgs[test_indices], imgs_clip[test_indices]
+        test_c2ws, test_Ks = all_c2ws[test_indices], camera_cond["K"][test_indices]
+
+        if save_path is not None and options.get("save_input", True):
+            save_output({"/image": input_imgs}, save_path=osp.join(save_path, "input"), video_save_fps=2)
+
+        guiders = _resolve_guiders(options.get("guider_types", 1))
+        num_steps = options.get("num_steps", 50)
+        cfg_min = options.get("cfg_min", 1.0)
+        cfg_opt = options.get("cfg", 2.0)
+        camera_scale = options.get("camera_scale", 2.0)
+        enc_t = options.get("encoding_t", 1)
+        dec_t = options.get("decoding_t", 1)
+
+        def chunk_values_for(curr_imgs, curr_imgs_clip, frame_inds, curr_c2ws, curr_Ks, cam_inds):
+            return build_chunk_values(
+                curr_imgs, curr_imgs_clip, frame_inds, curr_c2ws, curr_Ks, cam_inds,
+                all_c2ws=all_c2ws, camera_scale=camera_scale,
+                latent_hw=(version.H // F, version.W // F),
+            )
+
+        traj_prior_c2ws = np.asarray(traj_prior_c2ws, np.float32)
+        if traj_prior_Ks is None:
+            traj_prior_Ks = np.repeat(test_Ks[:1], traj_prior_c2ws.shape[0], 0)
+        traj_prior_imgs = np.zeros((traj_prior_c2ws.shape[0],) + imgs.shape[1:], np.float32)
+        traj_prior_imgs_clip = traj_prior_imgs.copy()
+        T_first, T_second = (T[0], T[1]) if isinstance(T, (list, tuple)) else (T, T)
+
+        # ---------------- first pass: generate anchors ----------------
+        strategy1 = options.get("chunk_strategy_first_pass", "gt-nearest")
+        plan1 = planner.chunk_input_and_test(
+            T_first, input_c2ws, traj_prior_c2ws, input_indices, image_cond["prior_indices"],
+            options=options, task=task, chunk_strategy=strategy1,
+            gt_input_inds=list(range(input_c2ws.shape[0])),
+        )
+        print(
+            f"Two passes (first) - chunking with `{strategy1}` strategy: total "
+            f"{len(plan1.input_inds_per_chunk)} forward(s) ..."
+        )
+        all_samples: dict = {}
+        all_prior_inds: list[int] = []
+        for i, (c_in_inds, c_in_sels, c_pri_inds, c_pri_sels) in enumerate(
+            zip(plan1.input_inds_per_chunk, plan1.input_sels_per_chunk,
+                plan1.test_inds_per_chunk, plan1.test_sels_per_chunk)
+        ):
+            curr_input_sels, _, curr_input_maps, curr_prior_maps = planner.pad_indices(
+                c_in_sels, c_pri_sels, T=T_first,
+                padding_mode=options.get("t_padding_mode", "last"),
+            )
+            gen = get_k_from_dict(all_samples, "samples-rgb")
+            pool_imgs = np.concatenate([input_imgs, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
+            pool_clip = np.concatenate([input_imgs_clip, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
+            pool_c2ws = np.concatenate([input_c2ws, traj_prior_c2ws[all_prior_inds]], 0)
+            pool_Ks = np.concatenate([input_Ks, traj_prior_Ks[all_prior_inds]], 0)
+            curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
+                planner.assemble(input=x[c_in_inds], test=y[c_pri_inds],
+                                 input_maps=curr_input_maps, test_maps=curr_prior_maps)
+                for x, y in zip(
+                    [pool_imgs, pool_clip, pool_c2ws, pool_Ks],
+                    [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
+                )
+            ]
+            values = chunk_values_for(
+                curr_imgs, curr_imgs_clip, curr_input_sels, curr_c2ws, curr_Ks, list(range(T_first))
+            )
+            use_second_sampler = (
+                len(guiders) > 1 and options.get("ltr_first_pass", False)
+                and strategy1 != "gt" and i > 0
+            )
+            samples = sample_chunk(
+                bundle, values, num_steps=num_steps, cfg=_cfg_at(cfg_opt, 0),
+                guider_type=guiders[1] if use_second_sampler else guiders[0],
+                cfg_min=cfg_min, noise_fn=noise, pass_id=1, chunk_id=i,
+                encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
+                abort_event=abort_event, progress_cb=first_pass_pbar,
+            )
+            if samples is None:
+                return
+            extend_dict(all_samples, decode_output(samples, T_first, c_pri_sels))
+            all_prior_inds.extend(c_pri_inds)
+
+        if options.get("save_first_pass", True):
+            if save_path is None:
+                yield to_uint8(get_k_from_dict(all_samples, "samples-rgb"))
+            else:
+                save_output(all_samples, save_path=osp.join(save_path, "first-pass"), video_save_fps=5)
+                yield osp.join(save_path, "first-pass", "samples-rgb.mp4")
+
+        # ------------- second pass: interpolate all targets -------------
+        prior_indices = image_cond["prior_indices"]
+        assert prior_indices is not None
+        prior_argsort = np.argsort(list(input_indices) + list(prior_indices), kind="stable").tolist()
+        prior_indices = np.array(list(input_indices) + list(prior_indices))[prior_argsort].tolist()
+        gt_input_inds = [prior_argsort.index(i) for i in range(input_c2ws.shape[0])]
+
+        gen = get_k_from_dict(all_samples, "samples-rgb")
+        traj_prior_imgs = np.concatenate([input_imgs, gen], axis=0)[prior_argsort]
+        traj_prior_imgs_clip = np.concatenate([input_imgs_clip, gen], axis=0)[prior_argsort]
+        traj_prior_c2ws = np.concatenate([input_c2ws, traj_prior_c2ws], axis=0)[prior_argsort]
+        traj_prior_Ks = np.concatenate([input_Ks, traj_prior_Ks], axis=0)[prior_argsort]
+        update_kv_for_dict(all_samples, "samples-rgb", traj_prior_imgs)
+        update_kv_for_dict(all_samples, "samples-c2ws", traj_prior_c2ws)
+        update_kv_for_dict(all_samples, "samples-intrinsics", traj_prior_Ks)
+
+        strategy2 = options.get("chunk_strategy", "nearest")
+        keep, delivered = list(range(len(test_indices))), []
+        if options.get("deliver_anchors", False) and strategy2.startswith("interp"):
+            # a target whose pose and K equal an anchor's is delivered from
+            # the first pass instead of being denoised again
+            prior_rows = {
+                int(round(p)): j for j, p in enumerate(prior_indices) if abs(p - round(p)) < 1e-9
+            }
+            keep = []
+            for j, t in enumerate(test_indices):
+                r = prior_rows.get(t)
+                if (
+                    r is not None
+                    and np.allclose(traj_prior_c2ws[r], test_c2ws[j], atol=1e-5)
+                    and np.allclose(traj_prior_Ks[r], test_Ks[j], atol=1e-5)
+                ):
+                    delivered.append((j, r))
+                else:
+                    keep.append(j)
+        test_indices2 = [test_indices[j] for j in keep]
+        test_imgs2, test_imgs_clip2 = test_imgs[keep], test_imgs_clip[keep]
+        test_c2ws2, test_Ks2 = test_c2ws[keep], test_Ks[keep]
+        plan2 = planner.chunk_input_and_test(
+            T_second, traj_prior_c2ws, test_c2ws2, prior_indices, test_indices2,
+            options=options, task=task, chunk_strategy=strategy2,
+            gt_input_inds=gt_input_inds,
+        )
+        print(
+            f"Two passes (second) - chunking with `{strategy2}` strategy: total "
+            f"{len(plan2.input_inds_per_chunk)} forward(s) ..."
+        )
+        guider2 = guiders[1] if len(guiders) > 1 else guiders[0]
+        cfg2 = _cfg_at(cfg_opt, 1)
+        all_samples = {}
+        all_test_inds: list[int] = []
+        for i, (c_pri_inds, c_pri_sels, c_test_inds, c_test_sels) in enumerate(
+            zip(plan2.input_inds_per_chunk, plan2.input_sels_per_chunk,
+                plan2.test_inds_per_chunk, plan2.test_sels_per_chunk)
+        ):
+            curr_prior_sels, _, curr_prior_maps, curr_test_maps = planner.pad_indices(
+                c_pri_sels, c_test_sels, T=T_second, padding_mode="last"
+            )
+            curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
+                planner.assemble(input=x[c_pri_inds], test=y[c_test_inds],
+                                 input_maps=curr_prior_maps, test_maps=curr_test_maps)
+                for x, y in zip(
+                    [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
+                    [test_imgs2, test_imgs_clip2, test_c2ws2, test_Ks2],
+                )
+            ]
+            values = chunk_values_for(
+                curr_imgs, curr_imgs_clip, curr_prior_sels, curr_c2ws, curr_Ks, list(range(T_second))
+            )
+            samples = sample_chunk(
+                bundle, values, num_steps=num_steps, cfg=cfg2, guider_type=guider2,
+                cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
+                encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
+                abort_event=abort_event, progress_cb=second_pass_pbar, output_uint8=True,
+            )
+            if samples is None:
+                return
+            samples = decode_output(samples, T_second, c_test_sels)
+            if save_path is not None and options.get("save_second_pass", False):
+                save_output(
+                    replace_or_include_input_for_dict(samples, c_test_sels, curr_imgs, curr_c2ws, curr_Ks),
+                    save_path=osp.join(save_path, "second-pass", f"forward_{i}"),
+                    video_save_fps=2,
+                )
+            extend_dict(all_samples, samples)
+            all_test_inds.extend(keep[k] for k in c_test_inds)
+        if delivered:
+            rows = [r for _, r in delivered]
+            extend_dict(all_samples, {"samples-rgb/image": to_uint8(traj_prior_imgs[rows])})
+            all_test_inds.extend(j for j, _ in delivered)
+        order = np.argsort(all_test_inds, kind="stable")
+        all_samples = {key: value[order] for key, value in all_samples.items()}
+
+        if options.get("replace_or_include_input", False):
+            all_samples = replace_or_include_input_for_dict(
+                all_samples, test_indices, imgs.copy(),
+                np.asarray(camera_cond["c2w"]).copy(), camera_cond["K"].copy(),
+            )
+        if save_path is None:
+            yield to_uint8(all_samples["samples-rgb/image"])
+            return
+        save_output(all_samples, save_path=save_path, video_save_fps=options.get("video_save_fps", 2))
+        yield osp.join(save_path, "samples-rgb.mp4")

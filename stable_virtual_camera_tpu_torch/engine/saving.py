@@ -1,0 +1,125 @@
+"""Output writers and media-keyed sample-dict helpers.
+
+Counterpart of stable_virtual_camera_tpu/engine/saving.py. The helpers are
+the same numpy code; the writers import their image libraries (imageio for
+PNGs, OpenCV for mp4) only when called, so the engine runs, and keeps its
+frames in memory, on a machine without them.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+
+import numpy as np
+
+
+def to_uint8(value: np.ndarray) -> np.ndarray:
+    """(N, H, W, 3) [-1, 1] float -> uint8; uint8 frames pass through."""
+    value = np.asarray(value)
+    if value.dtype == np.uint8:
+        return value
+    v = (value.astype(np.float32) + 1.0) / 2.0
+    return np.clip(v * 255.0, 0, 255).astype(np.uint8)
+
+
+def write_video(path: str, frames: np.ndarray, fps: float) -> None:
+    """(N, H, W, 3) uint8 RGB frames -> mp4 through OpenCV, as
+    stable_virtual_camera_tpu/utils/video.py writes them."""
+    import cv2
+
+    assert frames.ndim == 4 and frames.shape[-1] == 3, frames.shape
+    h, w = frames.shape[1:3]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), max(float(fps), 1.0), (w, h))
+    if not writer.isOpened():
+        raise IOError(f"Could not open video writer for {path}")
+    for frame in frames:
+        writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+    writer.release()
+
+
+def save_output(samples: dict, save_path: str, video_save_fps: float = 2) -> None:
+    """Write each "name/image" entry as name.mp4 plus name/NNN.png, each
+    "name/video" as name.mp4 and each "name/raw" as name.npy."""
+    os.makedirs(save_path, exist_ok=True)
+    for sample, value in samples.items():
+        name, media = sample.split("/") if "/" in sample else (sample, "video")
+        value = np.asarray(value)
+        if media in ("image", "video"):
+            frames = to_uint8(value)
+            write_video(
+                osp.join(save_path, f"{name}.mp4") if name else f"{save_path}.mp4",
+                frames,
+                fps=video_save_fps,
+            )
+            if media == "image":
+                import imageio.v3 as iio
+
+                os.makedirs(osp.join(save_path, name), exist_ok=True)
+                for i, frame in enumerate(frames):
+                    iio.imwrite(osp.join(save_path, name, f"{i:03d}.png"), frame)
+        elif media == "raw":
+            np.save(osp.join(save_path, f"{name}.npy"), value)
+
+
+def get_k_from_dict(d: dict, k: str) -> np.ndarray:
+    media_d = {}
+    for key, value in d.items():
+        if key == k:
+            return value
+        if key.startswith(k):
+            media = key.split("/")[-1]
+            if media == "raw":
+                return value
+            media_d[media] = value
+    if len(media_d) == 0:
+        return np.zeros((0,))
+    assert len(media_d) == 1, f"multiple media found for key {k}: {media_d.keys()}"
+    return next(iter(media_d.values()))
+
+
+def update_kv_for_dict(d: dict, k: str, v) -> dict:
+    for key in d:
+        if key.startswith(k):
+            d[key] = v
+    return d
+
+
+def extend_dict(ds: dict, d: dict) -> dict:
+    for key, value in d.items():
+        if key in ds:
+            ds[key] = np.concatenate([ds[key], value], axis=0)
+        else:
+            ds[key] = value
+    return ds
+
+
+def replace_or_include_input_for_dict(
+    samples: dict, test_indices, imgs: np.ndarray, c2w: np.ndarray, K: np.ndarray
+) -> dict:
+    """Splice ground-truth input frames back into output sequences."""
+    samples_new = {}
+    for sample, value in samples.items():
+        if "rgb" in sample:
+            imgs = to_uint8(imgs) if value.dtype == np.uint8 else imgs.copy()
+            imgs[test_indices] = value[test_indices] if value.shape[0] == imgs.shape[0] else value
+            samples_new[sample] = imgs
+        elif "c2w" in sample:
+            c2w = c2w.copy()
+            c2w[test_indices] = value[test_indices] if value.shape[0] == c2w.shape[0] else value
+            samples_new[sample] = c2w
+        elif "intrinsics" in sample:
+            K = K.copy()
+            K[test_indices] = value[test_indices] if value.shape[0] == K.shape[0] else value
+            samples_new[sample] = K
+        else:
+            samples_new[sample] = value
+    return samples_new
+
+
+def decode_output(samples, T: int, indices=None) -> dict:
+    """Sampler output as a media-keyed dict, selecting the test frames."""
+    samples = np.asarray(samples)
+    if indices is not None and samples.shape[0] == T:
+        samples = samples[indices]
+    return {"samples-rgb/image": samples}

@@ -1,0 +1,425 @@
+"""The Seva multiview diffusion UNet in PyTorch, NHWC at its public interface.
+
+Counterpart of stable_virtual_camera_tpu/models/unet.py. Modules are named
+after the flax parameter tree (models/weights.py only flattens and
+transposes), convs run on NHWC tensors through channels_last weights, and
+norms, softmax and the time embedding keep the JAX package's fp32 islands.
+
+Attention dispatch follows the JAX package exactly:
+  * self-attention with dim_head 64 and L >= 1024 -> kernel K1
+    (ops/flash_upstream.flash_attention_upstream_bhld) on the (B, H, L, 64)
+    views of the packed qkv projection;
+  * temporal attention over T <= 32 frames -> kernel K2
+    (ops/time_attention.time_attention_bhds) on the (b*T, H, 64, S) layout
+    the projection writes directly;
+  * everything else -> the plain ops/attention.sdpa_packed.
+On CPU tensors the kernel wrappers run their plain versions.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from stable_virtual_camera_tpu_torch.config import SevaSpec
+from stable_virtual_camera_tpu_torch.ops.attention import sdpa_packed
+from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
+    HEAD_DIM as FLASH_HEAD_DIM,
+    flash_attention_upstream_bhld,
+)
+from stable_virtual_camera_tpu_torch.ops.norms import group_norm_nhwc, layer_norm_fp32
+from stable_virtual_camera_tpu_torch.ops.resize import (
+    conv_nhwc,
+    resize_bilinear_align_corners,
+    upsample_2x_conv3x3,
+)
+from stable_virtual_camera_tpu_torch.ops.time_attention import (
+    MAX_FRAMES as TIME_MAX_FRAMES,
+    time_attention_bhds,
+)
+
+FLASH_MIN_LEN = 1024
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
+    """Sinusoidal timestep embedding, fp32, [cos | sin] packing."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    )
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+class Affine(nn.Module):
+    """Per-channel scale (`weight`) and bias of a norm layer."""
+
+    def __init__(self, n: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(n))
+        self.bias = nn.Parameter(torch.zeros(n))
+
+
+class GroupNorm32(nn.Module):
+    """GroupNorm with fp32 statistics, output in the input dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, groups: int = 32):
+        super().__init__()
+        self.gn = Affine(channels)
+        self.eps = eps
+        self.groups = groups
+
+    def forward(self, x):
+        return group_norm_nhwc(x, self.gn.weight, self.gn.bias, self.groups, self.eps)
+
+
+class LayerNorm32(nn.Module):
+    """LayerNorm with single-pass fp32 statistics."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.ln = Affine(channels)
+        self.eps = eps
+
+    def forward(self, x):
+        return layer_norm_fp32(x, self.ln.weight, self.ln.bias, self.eps)
+
+
+class Conv(nn.Conv2d):
+    """k x k SAME conv on NHWC tensors."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, bias: bool = True):
+        super().__init__(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
+
+    def forward(self, x):
+        return conv_nhwc(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class SelfAttention(nn.Module):
+    """Fused-qkv multi-head self-attention (spatial, joint or temporal)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        inner = heads * dim_head
+        self.qkv = nn.Linear(query_dim, 3 * inner, bias=False)
+        self.to_out = nn.Linear(inner, query_dim)
+
+    def forward(self, x, time_frames: int | None = None):
+        if time_frames is not None:
+            return self._temporal(x, time_frames)
+        B, L, _ = x.shape
+        H, D = self.heads, self.dim_head
+        qkv = F.linear(x, self.qkv.weight)  # (B, L, 3 * inner)
+        if D == FLASH_HEAD_DIM and L >= FLASH_MIN_LEN:
+            # (B, H, L, D) strided views of the packed projection; the kernel
+            # writes (B, L, H, D), so to_out reads it with no copy
+            q, k, v = qkv.view(B, L, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
+            o = flash_attention_upstream_bhld(q, k, v)
+            return self.to_out(o.transpose(1, 2).reshape(B, L, H * D))
+        q, k, v = qkv.chunk(3, dim=-1)
+        return self.to_out(sdpa_packed(q, k, v, H))
+
+    def _temporal(self, x, T: int):
+        B, S, C = x.shape
+        H, D = self.heads, self.dim_head
+        inner = H * D
+        if T <= TIME_MAX_FRAMES:
+            # W x^T writes the kernel's (b*T, H, D, S) layout (S contiguous)
+            # straight from the GEMM; to_out reads it back transposed
+            qkv = torch.matmul(self.qkv.weight, x.transpose(1, 2))  # (B, 3*inner, S)
+            q, k, v = qkv.view(B, 3, H, D, S).unbind(1)
+            o = time_attention_bhds(q, k, v, T)
+            return self.to_out(o.reshape(B, inner, S).transpose(1, 2))
+        b = B // T
+        q, k, v = (
+            t.reshape(b, T, S, H, D) for t in F.linear(x, self.qkv.weight).chunk(3, dim=-1)
+        )
+        s = torch.einsum("bqshd,bkshd->bshqk", q.float(), k.float()) * D**-0.5
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        o = torch.einsum("bshqk,bkshd->bqshd", p, v).reshape(B, S, inner)
+        return self.to_out(o)
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention over a single context token: softmax over one key is
+    exactly 1, so the output is to_out(to_v(context)) for every query."""
+
+    def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.to_v = nn.Linear(context_dim, inner, bias=False)
+        self.to_out = nn.Linear(inner, query_dim)
+
+    def forward(self, context):  # (B, 1, ctx) -> (B, 1, query_dim)
+        return self.to_out(self.to_v(context))
+
+
+class FeedForward(nn.Module):
+    """GEGLU MLP; GELU is tanh in bf16 and exact (erf) otherwise."""
+
+    def __init__(self, dim: int, dim_out: int | None = None, mult: int = 4):
+        super().__init__()
+        inner = int(dim * mult)
+        self.proj_gate = nn.Linear(dim, 2 * inner)
+        self.proj_out = nn.Linear(inner, dim_out or dim)
+
+    def forward(self, x):
+        val, gate = self.proj_gate(x).chunk(2, dim=-1)
+        approx = "tanh" if gate.dtype == torch.bfloat16 else "none"
+        return self.proj_out(val * F.gelu(gate, approximate=approx))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN self-attn + single-token cross-attn + GEGLU FF."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+        super().__init__()
+        self.norm1 = LayerNorm32(dim)
+        self.attn1 = SelfAttention(dim, heads, dim_head)
+        self.norm2 = LayerNorm32(dim)
+        self.attn2 = CrossAttention(dim, context_dim, heads, dim_head)
+        self.norm3 = LayerNorm32(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context):
+        x = self.attn1(self.norm1(x)) + x
+        # norm2 feeds only the (dead) query projection of single-token
+        # cross-attention; it is kept for the checkpoint and not evaluated
+        x = self.attn2(context) + x
+        return self.ff(self.norm3(x)) + x
+
+
+class TransformerBlockTimeMix(nn.Module):
+    """Temporal attention block; the final FF has no residual."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+        super().__init__()
+        self.norm_in = LayerNorm32(dim)
+        self.ff_in = FeedForward(dim, dim_out=dim)
+        self.norm1 = LayerNorm32(dim)
+        self.attn1 = SelfAttention(dim, heads, dim_head)
+        self.norm2 = LayerNorm32(dim)  # unused: carried for the checkpoint
+        self.attn2 = CrossAttention(dim, context_dim, heads, dim_head)
+        self.norm3 = LayerNorm32(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, time_context, num_frames: int):
+        B, S, C = x.shape
+        b = B // num_frames
+        x = self.ff_in(self.norm_in(x)) + x
+        x = self.attn1(self.norm1(x), time_frames=num_frames) + x
+        cross = self.attn2(time_context)  # (b, 1, C), one row per scene
+        x = x + cross[:, None].expand(b, num_frames, 1, C).reshape(B, 1, C)
+        return self.ff(self.norm3(x))
+
+
+class MultiviewTransformer(nn.Module):
+    """The 3D attention block: spatial self-attention per frame, or over the
+    fused (T*h*w)-token sequence for `unflatten` layers, plus a time-mix
+    block at each depth."""
+
+    def __init__(self, channels: int, heads: int, dim_head: int, depth: int,
+                 unflatten: bool, context_dim: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.depth = depth
+        self.unflatten = unflatten
+        self.norm = GroupNorm32(channels, eps=1e-6)
+        self.proj_in = nn.Linear(channels, inner)
+        for d in range(depth):
+            self.add_module(f"spatial_{d}", TransformerBlock(inner, heads, dim_head, context_dim))
+            self.add_module(
+                f"temporal_{d}", TransformerBlockTimeMix(inner, heads, dim_head, context_dim)
+            )
+        self.proj_out = nn.Linear(inner, channels)
+
+    def forward(self, x, context, num_frames: int):
+        B, h, w, C = x.shape
+        b = B // num_frames
+        time_context = context[::num_frames]
+        ctx = time_context if self.unflatten else context
+        y = self.proj_in(self.norm(x).reshape(B, h * w, C))
+        inner = y.shape[-1]
+        for d in range(self.depth):
+            if self.unflatten:
+                y = y.reshape(b, num_frames * h * w, inner)
+            y = getattr(self, f"spatial_{d}")(y, ctx)
+            if self.unflatten:
+                y = y.reshape(B, h * w, inner)
+            y = y + getattr(self, f"temporal_{d}")(y, time_context, num_frames)
+        return x + self.proj_out(y).reshape(B, h, w, C)
+
+
+class ResBlock(nn.Module):
+    """Residual block with time-embedding and dense Plücker FiLM conditioning."""
+
+    def __init__(self, channels: int, out_channels: int, emb_dim: int, dense_in: int):
+        super().__init__()
+        self.in_gn = GroupNorm32(channels)
+        self.dense_proj = Conv(dense_in, 2 * channels, 1)
+        self.in_conv = Conv(channels, out_channels, 3)
+        self.emb_proj = nn.Linear(emb_dim, out_channels)
+        self.out_gn = GroupNorm32(out_channels)
+        self.out_conv = Conv(out_channels, out_channels, 3)
+        self.skip = Conv(channels, out_channels, 1) if out_channels != channels else None
+
+    def forward(self, x, emb, dense_emb):
+        h = F.silu(self.in_gn(x))
+        dense = resize_bilinear_align_corners(dense_emb, (x.shape[1], x.shape[2]))
+        scale, shift = self.dense_proj(dense).to(h.dtype).chunk(2, dim=-1)
+        h = self.in_conv(h * (1 + scale) + shift)
+        e = self.emb_proj(F.silu(emb.float()).to(h.dtype))
+        h = h + e[:, None, None, :]
+        h = self.out_conv(F.silu(self.out_gn(h)))
+        skip = x if self.skip is None else self.skip(x)
+        return skip + h
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = Conv(channels, channels, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample(nn.Module):
+    """Nearest-2x upsample + 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return upsample_2x_conv3x3(x, self.conv.weight, self.conv.bias)
+
+
+class SevaUNet(nn.Module):
+    """The full denoiser UNet, NHWC.
+
+    forward(x (B, h, w, 11), t_idx (B,), context (B, 1, ctx),
+    dense_emb (B, h, w, 6), num_frames) -> (B, h, w, 4) fp32, B = b * T.
+    Computes in the dtype of its parameters.
+    """
+
+    def __init__(self, spec: SevaSpec):
+        super().__init__()
+        self.spec = sp = spec
+        mc = sp.model_channels
+        emb_dim = 4 * mc
+        self.time_embed_0 = nn.Linear(mc, emb_dim)
+        self.time_embed_2 = nn.Linear(emb_dim, emb_dim)
+
+        n_levels = len(sp.channel_mult)
+
+        def depth(level: int) -> int:
+            return sp.transformer_depth[min(level, len(sp.transformer_depth) - 1)]
+
+        def mvt(name: str, ch: int, level_name: str, level: int):
+            self.add_module(name, MultiviewTransformer(
+                ch, ch // sp.num_head_channels, sp.num_head_channels, depth(level),
+                level_name in sp.unflatten_names, sp.context_dim,
+            ))
+
+        def res(name: str, cin: int, cout: int):
+            self.add_module(name, ResBlock(cin, cout, emb_dim, sp.dense_in_channels))
+
+        # encoder: (res name, mvt name or None) per stage; None res = downsample
+        self.input_blocks_0_0 = Conv(sp.in_channels, mc, 3)
+        skip_ch = [mc]
+        self._encoder: list[tuple[str, str | None, bool]] = []
+        ch, ds, idx = mc, 1, 1
+        for level, mult in enumerate(sp.channel_mult):
+            for _ in range(sp.num_res_blocks):
+                res(f"input_blocks_{idx}_0", ch, mult * mc)
+                ch = mult * mc
+                attn = None
+                if ds in sp.attention_resolutions:
+                    attn = f"input_blocks_{idx}_1"
+                    mvt(attn, ch, f"input_ds{ds}", level)
+                self._encoder.append((f"input_blocks_{idx}_0", attn, False))
+                skip_ch.append(ch)
+                idx += 1
+            if level != n_levels - 1:
+                self.add_module(f"input_blocks_{idx}_0", Downsample(ch))
+                self._encoder.append((f"input_blocks_{idx}_0", None, True))
+                ds *= 2
+                skip_ch.append(ch)
+                idx += 1
+
+        res("middle_block_0", ch, ch)
+        mvt("middle_block_1", ch, f"middle_ds{ds}", n_levels - 1)
+        res("middle_block_2", ch, ch)
+
+        # decoder: (res name, mvt name or None, upsample name or None)
+        self._decoder: list[tuple[str, str | None, str | None]] = []
+        idx = 0
+        for level, mult in list(enumerate(sp.channel_mult))[::-1]:
+            for i in range(sp.num_res_blocks + 1):
+                res(f"output_blocks_{idx}_0", ch + skip_ch.pop(), mult * mc)
+                ch = mult * mc
+                layer = 1
+                attn = up = None
+                if ds in sp.attention_resolutions:
+                    attn = f"output_blocks_{idx}_{layer}"
+                    mvt(attn, ch, f"output_ds{ds}", level)
+                    layer += 1
+                if level and i == sp.num_res_blocks:
+                    up = f"output_blocks_{idx}_{layer}"
+                    self.add_module(up, Upsample(ch))
+                    ds //= 2
+                self._decoder.append((f"output_blocks_{idx}_0", attn, up))
+                idx += 1
+
+        self.out_gn = GroupNorm32(ch)
+        self.out_conv = Conv(ch, sp.out_channels, 3)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.out_conv.weight.dtype
+
+    def forward(self, x, t_idx, context, dense_emb, num_frames: int):
+        dt = self.dtype
+        x, context, dense_emb = x.to(dt), context.to(dt), dense_emb.to(dt)
+        temb = self.time_embed_0(timestep_embedding(t_idx, self.spec.model_channels).to(dt))
+        temb = self.time_embed_2(F.silu(temb.float()).to(dt))
+
+        h = self.input_blocks_0_0(x)
+        hs = [h]
+        for name, attn, is_down in self._encoder:
+            if is_down:
+                h = getattr(self, name)(h)
+            else:
+                h = getattr(self, name)(h, temb, dense_emb)
+                if attn is not None:
+                    h = getattr(self, attn)(h, context, num_frames)
+            hs.append(h)
+
+        h = self.middle_block_0(h, temb, dense_emb)
+        h = self.middle_block_1(h, context, num_frames)
+        h = self.middle_block_2(h, temb, dense_emb)
+
+        for name, attn, up in self._decoder:
+            h = getattr(self, name)(torch.cat([h, hs.pop()], dim=-1), temb, dense_emb)
+            if attn is not None:
+                h = getattr(self, attn)(h, context, num_frames)
+            if up is not None:
+                h = getattr(self, up)(h)
+
+        return self.out_conv(F.silu(self.out_gn(h))).float()
+
+
+def assemble_network_input(latents: torch.Tensor, concat: torch.Tensor) -> torch.Tensor:
+    """Latent (4) ++ input mask (1) ++ Plücker (6) channels, NHWC."""
+    return torch.cat([latents, concat.to(latents.dtype)], dim=-1)

@@ -1,0 +1,169 @@
+"""Euler-EDM sampling as a Python loop over a precomputed sigma schedule.
+
+Counterpart of stable_virtual_camera_tpu/sampling/sampler.py
+(`SamplingPlan`, `make_sampling_plan`, `ChunkConditioning`, `euler_edm_step`,
+`euler_edm_sample`). The schedule is the same host-side numpy plan; each step
+is one CFG-doubled UNet forward. Where the JAX sampler runs one jitted scan
+with `io_callback` ticks, this loop calls `progress_cb(step, total)` and polls
+`abort_event` after every step.
+
+Noise is drawn through a `noise_fn(seed, pass_id, chunk_id, step, shape,
+device)`: `step=None` is a chunk's initial noise, `step=i` the churn noise of
+step i. The churn noise is small but not zero: `make_sampling_plan` adds 1e-6
+to every sigma_hat, so noise_coeff = sqrt(2e-6 sigma + 1e-12) (0.013 at the
+first of 4 steps). The default `torch_noise` seeds a `torch.Generator` from
+(seed, pass, chunk, step); tests replay the JAX package's threefry draws.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from stable_virtual_camera_tpu_torch.sampling.discretization import (
+    DDPMDiscretization,
+    sigma_to_idx,
+)
+
+NoiseFn = Callable[..., torch.Tensor]
+NetworkFn = Callable[..., torch.Tensor]
+# network_fn(x_2T (4ch), concat_2T (7ch), t_vec, crossattn, dense, num_frames)
+#   -> (2T, h, w, 4) fp32; the concat channels are appended to the
+#   preconditioned latent (models/unet.assemble_network_input)
+
+
+def torch_noise(seed: int, pass_id: int, chunk_id: int, step: int | None, shape, device) -> torch.Tensor:
+    """Standard normal noise from a generator seeded by (seed, pass, chunk,
+    step), so every draw is reproducible on its own."""
+    mixed = 0
+    for v in (seed, pass_id, chunk_id, -1 if step is None else step):
+        mixed = (mixed * 1_000_003 + v + 1) % (2**63 - 1)
+    g = torch.Generator(device=device).manual_seed(mixed)
+    return torch.randn(tuple(shape), generator=g, device=device, dtype=torch.float32)
+
+
+@dataclass(frozen=True)
+class SamplingPlan:
+    """Host-precomputed per-step schedule arrays (all shape (n,))."""
+
+    sigma_hat_raw: np.ndarray  # churned sigma used in the Euler update
+    sigma_hat_quant: np.ndarray  # quantized sigma used for preconditioning
+    t_indices: np.ndarray  # discrete timestep index fed to the network
+    sigma_next: np.ndarray  # next sigma in the schedule
+    noise_coeff: np.ndarray  # per-step injected-noise std (churn)
+    init_scale: float  # sqrt(1 + sigma_0^2) initial noise scaling
+
+    @property
+    def num_steps(self) -> int:
+        return len(self.t_indices)
+
+
+def make_sampling_plan(
+    discretization: DDPMDiscretization,
+    num_steps: int,
+    s_churn: float = 0.0,
+    s_tmin: float = 0.0,
+    s_tmax: float = 999.0,
+    s_noise: float = 1.0,
+) -> SamplingPlan:
+    """Precompute the whole sigma schedule (same numbers as the JAX package)."""
+    sigmas = discretization(num_steps)  # descending, with appended 0
+    registered = discretization.registered_sigmas()
+    n = num_steps
+
+    sigma = sigmas[:n].astype(np.float64)
+    gamma = np.where(
+        (s_tmin <= sigma) & (sigma <= s_tmax),
+        min(s_churn / max(n - 1, 1), 2**0.5 - 1),
+        0.0,
+    )
+    sigma_hat_raw = sigma * (gamma + 1.0) + 1e-6
+    t_indices = sigma_to_idx(sigma_hat_raw.astype(np.float32), registered)
+    sigma_hat_quant = registered[t_indices]
+    noise_coeff = np.sqrt(np.maximum(sigma_hat_raw**2 - sigma**2, 0.0)) * s_noise
+    return SamplingPlan(
+        sigma_hat_raw=sigma_hat_raw.astype(np.float32),
+        sigma_hat_quant=sigma_hat_quant.astype(np.float32),
+        t_indices=t_indices.astype(np.int32),
+        sigma_next=sigmas[1 : n + 1].astype(np.float32),
+        noise_coeff=noise_coeff.astype(np.float32),
+        init_scale=float(np.sqrt(1.0 + sigmas[0].astype(np.float64) ** 2)),
+    )
+
+
+@dataclass
+class ChunkConditioning:
+    """One T-frame chunk's conditioning on the device, CFG-doubled along axis
+    0 ([uncond | cond]).
+
+    crossattn: (2T, 1, ctx)   CLIP embedding (zeros in the uncond half)
+    concat:    (2T, h, w, 7)  input-mask ++ Plücker (mask zeroed in uncond)
+    dense:     (2T, h, w, 6)  Plücker FiLM map (same in both halves)
+    replace:   (2T, h, w, 5)  input latents ++ replace mask (zeros in uncond)
+    scale:     (T,)           per-frame CFG scale
+    """
+
+    crossattn: torch.Tensor
+    concat: torch.Tensor
+    dense: torch.Tensor
+    replace: torch.Tensor
+    scale: torch.Tensor
+
+
+def euler_edm_step(
+    network_fn: NetworkFn,
+    x: torch.Tensor,
+    plan: SamplingPlan,
+    i: int,
+    cond: ChunkConditioning,
+    eps: torch.Tensor,
+    num_frames: int,
+) -> torch.Tensor:
+    """Step i of the churned Euler loop, fp32. Scalar arithmetic is done in
+    float32 as the JAX step does."""
+    f32 = np.float32
+    s_raw, s_quant = f32(plan.sigma_hat_raw[i]), f32(plan.sigma_hat_quant[i])
+    C = x.shape[-1]
+    rep_lat, rep_mask = cond.replace[..., :C], cond.replace[..., C:]
+    x = x + eps * float(plan.noise_coeff[i])
+
+    xin = torch.cat([x, x], dim=0)
+    # replace conditioning: input-view latents overwrite their slots every call
+    xin = xin * (1 - rep_mask) + rep_lat * rep_mask
+    c_in = float(f32(1.0) / np.sqrt(s_quant * s_quant + f32(1.0)))
+    t_vec = torch.full((2 * num_frames,), int(plan.t_indices[i]), dtype=torch.int64, device=x.device)
+    out = network_fn(xin * c_in, cond.concat, t_vec, cond.crossattn, cond.dense, num_frames)
+    denoised = out * float(-s_quant) + xin  # c_out, c_skip (eps scaling)
+
+    uncond, condit = denoised.chunk(2, dim=0)
+    denoised = uncond + cond.scale[:, None, None, None] * (condit - uncond)
+
+    d = (x - denoised) / float(s_raw)
+    return x + float(f32(plan.sigma_next[i]) - s_raw) * d
+
+
+@torch.inference_mode()
+def euler_edm_sample(
+    network_fn: NetworkFn,
+    noise: torch.Tensor,  # (T, h, w, 4) standard normal
+    plan: SamplingPlan,
+    cond: ChunkConditioning,
+    num_frames: int,
+    step_noise: Callable[[int], torch.Tensor],
+    progress_cb=None,
+    abort_event=None,
+) -> torch.Tensor | None:
+    """The full denoising loop. `step_noise(i)` gives step i's churn noise.
+    Returns None when `abort_event` is set during the loop."""
+    x = noise * float(np.float32(plan.init_scale))
+    n = plan.num_steps
+    for i in range(n):
+        x = euler_edm_step(network_fn, x, plan, i, cond, step_noise(i), num_frames)
+        if progress_cb is not None:
+            progress_cb(i + 1, n)
+        if abort_event is not None and abort_event.is_set():
+            return None
+    return x
