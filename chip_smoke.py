@@ -9,23 +9,38 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      shape of a 576x576 render, on the packed-qkv views the UNet passes;
   3. K2 (temporal attention) against its plain version at every time-mix
      shape of a 576x576 render (T=21, b=2);
-  4. one full-width SevaUNet forward (bf16 random weights, 42 frames,
+  4. `k1_bwd` and `k1_lse`: K1-dKV and K1-dQ against the plain backward, and
+     K1's log-sum-exp against the plain one, at every self-attention shape
+     of a 576x576 training chunk (T=21, b=1);
+  5. one full-width SevaUNet forward (bf16 random weights, 42 frames,
      576x576) through the kernels and through the plain versions;
-  5. the main path: HeadlessRenderer.render in Basic mode at full width
+  6. the render path: HeadlessRenderer.render in Basic mode at full width
      (SevaSpec(), ClipVisionSpec(), SD2.1 VAE, bf16 random weights) on one
      seeded 576x576 image along the `orbit` preset, both passes, with the
      kernels' launch counts read around it;
-  6. a `kernels` summary line, then the final `ok` line.
-Every phase prints one JSON line. Cuts against a real render are printed in
-phase 5. Any failed phase exits non-zero without the final line; so does a
-machine with no CUDA device, or a directory without the port.
+  7. `train_grad`: one full-width loss and backward (T=21, 576x576) through
+     the kernels, with per-block and whole-network rematerialisation, and
+     through the plain versions, with peak memory;
+  8. `train_profile`: the device time of one train step by kernel class;
+  9. the training path, `train_path`: the train CLI's loop
+     (apps/train_cli.train) at full width on an in-memory scene, then one
+     LoRA step, with checkpoint round trips and the kernels' launch counts
+     read around it;
+ 10. a `kernels` summary line, then the final `ok` line.
+Every phase prints one JSON line. Cuts against a real render and a real
+fine-tune are printed in phases 6 and 9. Any failed phase exits non-zero
+without the final line; so does a machine with no CUDA device, or a
+directory without the port.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -43,6 +58,17 @@ K2_SHAPES = [(5184, 5), (1296, 10), (324, 20), (81, 20)]
 K1_MAX_ABS, K1_MEAN_ABS = 2e-2, 2e-3
 K2_MAX_ABS = 8e-3  # one bf16 ulp at 1
 UNET_REL_L2 = 3e-2
+# training: T=21 frames of one scene, (L, B, H) of every self-attention
+TRAIN_T = 21
+K1_TRAIN_SHAPES = [(5184, 21, 5), (1296, 21, 10), (27216, 1, 10), (6804, 1, 20), (1701, 1, 20)]
+K1_LSE_MAX_ABS = 1e-2
+K1_BWD_REL_L2 = 2e-2  # P and dS rounded to bf16 for the products, bf16 outputs
+TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-2, 5e-2
+REMAT_LOSS_REL, REMAT_GRAD_REL_L2 = 1e-6, 1e-3
+TRAIN_STEPS, TRAIN_INPUTS, TRAIN_LR, LORA_RANK = 4, 3, 1e-3, 16
+# published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def emit(obj: dict) -> None:
@@ -62,6 +88,20 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for this work, and which
+    of the two rates bounds it."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sum_bounds(rows: list[dict], prefix: str = "") -> tuple[float, str]:
+    """The summed bound of several calls, and the rate that bounds most of it."""
+    ms = sum(r[prefix + "bound_ms"] for r in rows)
+    ops = sum(r[prefix + "bound_ms"] for r in rows if r[prefix + "bound_by"] == "operations")
+    return ms, ("operations" if ops >= ms / 2 else "bytes")
 
 
 def check_k1(gen) -> dict:
@@ -88,8 +128,11 @@ def check_k1(gen) -> dict:
             "finite": bool(torch.isfinite(out).all()),
             "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v), 10),
             "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10),
         }
-        row["tflops"] = 4.0 * L * L * 64 * H * B / (row["ms"] * 1e-3) / 1e12
+        flops = 4.0 * L * L * 64 * H * B
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        row["bound_ms"], row["bound_by"] = bound(flops, 4 * B * H * L * 64 * 2)
         rows.append(row)
         worst = max(worst, row["max_abs_err"])
         ms += row["ms"]
@@ -101,7 +144,10 @@ def check_k1(gen) -> dict:
           "shapes": rows})
     if not ok:
         raise AssertionError("K1 disagrees with its plain version")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    bound_ms, bound_by = sum_bounds(rows)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": sum(r["library_ms"] for r in rows),
+            "library": "torch.nn.functional.scaled_dot_product_attention on the same views"}
 
 
 def check_k2(gen) -> dict:
@@ -129,7 +175,12 @@ def check_k2(gen) -> dict:
             "finite": bool(torch.isfinite(out).all()),
             "ms": cuda_ms(lambda: time_attention_cuda(q, k, v, T), 10),
             "plain_ms": cuda_ms(lambda: time_attention_plain(q, k, v, T), 3),
+            "library_ms": cuda_ms(lambda: time_sdpa(q, k, v), 10),
         }
+        # q, k, v read once, o written once; 4 T^2 64 fp32 FLOP per (scene,
+        # position, head)
+        row["bound_ms"], row["bound_by"] = bound(4.0 * T * T * 64 * b * S * H,
+                                                 4 * b * T * H * 64 * S * 2)
         rows.append(row)
         worst = max(worst, row["max_abs_err"])
         ms += row["ms"]
@@ -138,7 +189,104 @@ def check_k2(gen) -> dict:
     emit({"phase": "k2_time_attention", "ok": ok, "bar": {"max_abs": K2_MAX_ABS}, "shapes": rows})
     if not ok:
         raise AssertionError("K2 disagrees with its plain version")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    bound_ms, bound_by = sum_bounds(rows)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": sum(r["library_ms"] for r in rows),
+            "library": "scaled_dot_product_attention on (b, S, H, T, 64) permuted views; their "
+                       "head dim is strided, so the call includes the copy it makes"}
+
+
+def time_sdpa(q, k, v):
+    """K2's function as one PyTorch call: SDPA over the frame axis on
+    permuted views of the (b*T, H, 64, S) operands."""
+    import torch
+
+    BT, H, D, S = q.shape
+
+    def view(t):
+        return t.view(BT // T, T, H, D, S).permute(0, 4, 2, 1, 3)
+
+    return torch.nn.functional.scaled_dot_product_attention(view(q), view(k), view(v))
+
+
+def check_k1_bwd(gen) -> dict:
+    """K1's LSE and K1-dKV / K1-dQ against the plain versions at the
+    training shapes, with the SDPA backward as the one-call yardstick."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
+        flash_attention_bwd_dkv_cuda,
+        flash_attention_bwd_dq_cuda,
+        flash_attention_bwd_plain,
+        flash_attention_cuda,
+        flash_attention_plain,
+    )
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    rows = []
+    for L, B, H in K1_TRAIN_SHAPES:
+        qkv = torch.randn((B, L, 3, H, 64), generator=gen, device=DEVICE).to(torch.bfloat16)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        do = torch.randn((B, L, H, 64), generator=gen, device=DEVICE).to(torch.bfloat16).transpose(1, 2)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        _, lse_ref = flash_attention_plain(q, k, v, return_lse=True)
+        delta = (o.float() * do.float()).sum(-1)
+        dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+        dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+        pq, pk, pv = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        row = {
+            "L": L, "B": B, "H": H,
+            "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
+            "rel_l2": {"dq": rel(dq, pq), "dk": rel(dk, pk), "dv": rel(dv, pv)},
+            "max_abs_err": {"dq": (dq.float() - pq.float()).abs().max().item(),
+                            "dkv": max((dk.float() - pk.float()).abs().max().item(),
+                                       (dv.float() - pv.float()).abs().max().item())},
+            "finite": bool(all(torch.isfinite(t).all() for t in (dq, dk, dv, lse))),
+            "fwd_lse_ms": cuda_ms(lambda: flash_attention_cuda(q, k, v, return_lse=True), 5),
+            "dkv_ms": cuda_ms(lambda: flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta), 5),
+            "dq_ms": cuda_ms(lambda: flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), 5),
+            "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), 1),
+        }
+        del pq, pk, pv, dq, dk, dv
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        row["sdpa_bwd_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 5)
+        del out, leaves
+        n = 64 * B * H
+        row["tflops"] = 14.0 * L * L * n / ((row["dkv_ms"] + row["dq_ms"]) * 1e-3) / 1e12
+        # K1-dKV: S, dP, dV, dK products; reads q k v dO lse D, writes dk dv.
+        # K1-dQ: S, dP, dQ; reads the same, writes dq.
+        row["dkv_bound_ms"], row["dkv_bound_by"] = bound(8.0 * L * L * n,
+                                                         (6 * L * 64 * 2 + 2 * L * 4) * B * H)
+        row["dq_bound_ms"], row["dq_bound_by"] = bound(6.0 * L * L * n,
+                                                       (5 * L * 64 * 2 + 2 * L * 4) * B * H)
+        rows.append(row)
+        del qkv, q, k, v, do, o, lse, lse_ref, delta
+        torch.cuda.empty_cache()
+    lse_ok = all(r["finite"] and r["lse_max_abs_err"] <= K1_LSE_MAX_ABS for r in rows)
+    emit({"phase": "k1_lse", "ok": lse_ok, "bar": {"max_abs": K1_LSE_MAX_ABS},
+          "shapes": [{k: r[k] for k in ("L", "B", "H", "lse_max_abs_err", "fwd_lse_ms")} for r in rows]})
+    bwd_ok = all(r["finite"] and max(r["rel_l2"].values()) <= K1_BWD_REL_L2 for r in rows)
+    emit({"phase": "k1_bwd", "ok": bwd_ok, "bar": {"rel_l2": K1_BWD_REL_L2},
+          "shapes": [{k: v for k, v in r.items() if k != "fwd_lse_ms"} for r in rows]})
+    if not (lse_ok and bwd_ok):
+        raise AssertionError("K1's LSE or its backward kernels disagree with the plain versions")
+    plain_ms = sum(r["plain_ms"] for r in rows)
+    sdpa_ms = sum(r["sdpa_bwd_ms"] for r in rows)
+    common = {"plain_ms": plain_ms, "library_ms": sdpa_ms,
+              "plain_and_library_cover": "K1-dKV and K1-dQ together (the plain backward and the "
+                                         "SDPA backward each compute dq, dk and dv)"}
+    out = {}
+    for name, part in (("flash_attention_bwd_dkv", "dkv"), ("flash_attention_bwd_dq", "dq")):
+        bound_ms, bound_by = sum_bounds(rows, f"{part}_")
+        out[name] = {"max_abs_err": max(r["max_abs_err"][part] for r in rows),
+                     "ms": sum(r[f"{part}_ms"] for r in rows),
+                     "bound_ms": bound_ms, "bound_by": bound_by, **common}
+    return out
 
 
 def check_unet(bundle, gen) -> None:
@@ -223,13 +371,284 @@ def run_main_path(bundle) -> dict:
         and frames.shape == (NUM_TARGETS, RES, RES, 3)
         and anchors.shape[1:] == (RES, RES, 3)
         and float(frames.std()) > 0.0
-        and all(c > 0 for c in counts.values())
+        and counts["flash_attention"] > 0 and counts["time_attention"] > 0
     )
     emit({"phase": "main_path", "ok": ok, "frames": list(frames.shape), "dtype": str(frames.dtype),
           "anchor_frames": list(anchors.shape), "frame_std": float(frames.std()),
           "first_pass_s": t1 - t0, "second_pass_s": t2 - t1, "launches": counts})
     if not ok:
         raise AssertionError("main path output or kernel launch counts are wrong")
+    return counts
+
+
+def plain_attention_functions():
+    """K1 and K2 with their plain forward and backward, as autograd
+    Functions on CUDA tensors: the reference the kernels' gradients are
+    held against."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+    from stable_virtual_camera_tpu_torch.ops.time_attention import (
+        time_attention_bwd_plain,
+        time_attention_plain,
+    )
+
+    class PlainFlash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = flash_attention_plain(q, k, v, return_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            return flash_attention_bwd_plain(*ctx.saved_tensors, do)
+
+    class PlainTime(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, num_frames):
+            ctx.save_for_backward(q, k, v)
+            ctx.num_frames = num_frames
+            return time_attention_plain(q, k, v, num_frames)
+
+        @staticmethod
+        def backward(ctx, do):
+            return (*time_attention_bwd_plain(*ctx.saved_tensors, do, ctx.num_frames), None)
+
+    return PlainFlash.apply, PlainTime.apply
+
+
+def train_inputs(bundle, gen):
+    """A full-width training batch (T=21 frames of one scene, 576x576) and
+    a fixed draw (timestep 500, seeded noise)."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.training.train_step import synthetic_batch
+
+    h = RES // 8
+    batch = synthetic_batch(bundle.spec, TRAIN_T, h, h, gen)
+    t_idx = torch.tensor(500, device=DEVICE)
+    eps = torch.randn(tuple(batch.latents.shape), generator=gen, device=DEVICE)
+    return batch, lambda shape: (t_idx, eps)
+
+
+def check_train_grad(bundle, gen) -> dict:
+    """One full-width loss and backward: through the kernels, with
+    per-block and with whole-network rematerialisation, and through the
+    plain versions of K1/K2 (forward and backward) on the same batch and
+    draw. Bars: loss and global gradient against the plain path, remat
+    against no remat, and nonzero gradients on every attention qkv weight."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.models import unet as unet_mod
+    from stable_virtual_camera_tpu_torch.training.train_step import make_loss_fn
+
+    unet = bundle.unet
+    batch, draw = train_inputs(bundle, gen)
+
+    def run(loss_of_batch):
+        unet.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = loss_of_batch()
+        loss.backward()
+        torch.cuda.synchronize()
+        out = {"loss": loss.item(), "s": time.perf_counter() - t0,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        grads = {n: p.grad for n, p in unet.named_parameters() if p.grad is not None}
+        unet.zero_grad(set_to_none=True)
+        return out, grads
+
+    def gnorm(grads):
+        return torch.stack([g.float().norm() for g in grads.values()]).norm().item()
+
+    def gdiff(a, b):
+        return torch.stack([(a[n].float() - b[n].float()).norm() for n in b]).norm().item() / gnorm(b)
+
+    loss_fn = make_loss_fn(unet, TRAIN_T)
+    run(lambda: loss_fn(batch, draw))  # warm-up
+    # whole-network checkpoint first: its peak is near the plain backward's,
+    # with no gradients of another run held beside it
+    whole, _ = run(lambda: checkpoint(loss_fn, batch, draw, use_reentrant=False))
+    _kernels.reset_counts()
+    kern, g_kern = run(lambda: loss_fn(batch, draw))
+    kern["launches"] = _kernels.counts()
+    qkv = [n for n in g_kern if n.endswith("attn1.qkv.weight")]
+    qkv_nonzero = len(qkv) > 0 and all(g_kern[n].abs().max().item() > 0 for n in qkv)
+    n_attn = sum(1 for n, _ in unet.named_parameters() if n.endswith("attn1.qkv.weight"))
+    remat, g_remat = run(lambda: make_loss_fn(unet, TRAIN_T, remat=True)(batch, draw))
+    remat["grad_rel_l2"] = gdiff(g_remat, g_kern)
+    del g_remat
+    # the plain path holds 2 GB score chunks on top of the activations: it
+    # runs with per-block remat, which changes no number (checked above)
+    saved = unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds
+    unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds = plain_attention_functions()
+    try:
+        plain, g_plain = run(lambda: make_loss_fn(unet, TRAIN_T, remat=True)(batch, draw))
+    finally:
+        unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds = saved
+    loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    grad_rel = gdiff(g_kern, g_plain)
+    ok = (
+        loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2 and qkv_nonzero
+        and len(qkv) == n_attn and all(c > 0 for c in kern["launches"].values())
+        and abs(remat["loss"] - kern["loss"]) <= REMAT_LOSS_REL * abs(kern["loss"])
+        and remat["grad_rel_l2"] <= REMAT_GRAD_REL_L2
+        and all(torch.isfinite(g).all() for g in g_kern.values())
+    )
+    emit({"phase": "train_grad", "ok": ok, "frames": TRAIN_T, "latent": [RES // 8, RES // 8],
+          "bar": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2,
+                  "remat_loss_rel": REMAT_LOSS_REL, "remat_grad_rel_l2": REMAT_GRAD_REL_L2},
+          "loss_rel": loss_rel, "grad_rel_l2": grad_rel, "grad_norm": gnorm(g_kern),
+          "qkv_weights_with_grad": f"{len(qkv)}/{n_attn}", "kernels": kern,
+          "remat_per_block": remat, "remat_whole_network": whole, "plain": plain})
+    if not ok:
+        raise AssertionError("the backward through the kernels disagrees with the plain one")
+    return {"peak_gb": {"remat_off": kern["peak_gb"], "remat_per_block": remat["peak_gb"],
+                        "remat_whole_network": whole["peak_gb"]}}
+
+
+_KERNEL_CLASSES = [
+    ("K1 flash attention", r"flash_fwd_kernel"),
+    ("K1-dKV", r"flash_bwd_dkv_kernel"),
+    ("K1-dQ", r"flash_bwd_dq_kernel"),
+    ("K2 temporal attention", r"time_attn_kernel"),
+    ("convolution (cuDNN)", r"conv|Conv|cudnn|dgrad|wgrad|fprop|implicit"),
+    ("GEMM (cuBLAS)", r"gemm|Gemm|cutlass|xmma|nvjet|sm90_|sm80_"),
+    ("optimizer", r"multi_tensor|adam|Adam|foreach"),
+    ("reductions", r"reduce|Reduce|norm"),
+    ("elementwise and copies", r"elementwise|Elementwise|vectorized|CatArray|copy|fill|index|Memcpy|Memset"),
+]
+
+
+def profile_train_step(bundle, gen) -> None:
+    """Device time of one full-width train step (loss, backward, AdamW) by
+    kernel class, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_virtual_camera_tpu_torch.training.optim import AdamW
+    from stable_virtual_camera_tpu_torch.training.train_step import make_train_step
+
+    batch, draw = train_inputs(bundle, gen)
+    step = make_train_step(bundle.unet, AdamW(bundle.unet.parameters(), TRAIN_LR), TRAIN_T)
+    step(batch, draw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch, draw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        cls = next((c for c, rx in _KERNEL_CLASSES if re.search(rx, e.key)), "other")
+        classes[cls] = classes.get(cls, 0.0) + us / 1e3
+    busy = sum(classes.values())
+    emit({"phase": "train_profile", "ok": True, "step_wall_s": wall, "device_busy_ms": busy,
+          "idle_share": (1 - busy / (wall * 1e3)) if busy else "not measured",
+          "device_ms_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1]))})
+
+
+def orbit_scene(n: int = 24):
+    """An in-memory scene: n seeded 576x576 images on a circular orbit
+    around the origin, looking at it, with pixel intrinsics."""
+    import numpy as np
+
+    from stable_virtual_camera_tpu_torch.core.trajectories import get_lookat_w2cs
+    from stable_virtual_camera_tpu_torch.data import Dataset, DirectParser
+
+    rng = np.random.default_rng(SEED)
+    theta = np.linspace(0.0, 2 * np.pi, n, endpoint=False)
+    positions = np.stack([2.0 * np.cos(theta), np.full(n, -0.3), 2.0 * np.sin(theta)], -1)
+    c2ws = np.linalg.inv(get_lookat_w2cs(positions, np.zeros(3), np.array([0.0, -1.0, 0.0])))
+    K = np.array([[500.0, 0.0, RES / 2], [0.0, 500.0, RES / 2], [0.0, 0.0, 1.0]])
+    imgs = [im for im in rng.integers(0, 256, (n, RES, RES, 3), dtype=np.uint8)]
+    return Dataset(DirectParser(imgs, c2ws[:, :3].astype(np.float32), np.repeat(K[None], n, 0)))
+
+
+def run_train_path(bundle) -> dict:
+    """The train CLI's loop at full width on the card, then one LoRA step;
+    each run's checkpoint restored and held against the live state."""
+    import math
+
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps.train_cli import train
+    from stable_virtual_camera_tpu_torch.training.checkpoint import restore_train_state
+
+    dataset = orbit_scene()
+    cli = dict(num_input_frames=TRAIN_INPUTS, image_size=(RES, RES), weight_decay=1e-2, grad_accum=1,
+               remat=True, lora_alpha=None, lora_pattern=None, save_merged=False,
+               ckpt_every=500, log_every=1, resume=False, seed=SEED, prefetch=2, encoding_t=0)
+    unet = bundle.unet
+    before = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_counts()
+        full = train(bundle, dataset, work_dir=f"{tmp}/full", num_steps=TRAIN_STEPS, lr=TRAIN_LR,
+                     warmup_steps=1, ema_decay=0.999, lora_rank=None, **cli)
+        torch.cuda.synchronize()
+        counts = _kernels.counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        changed = sum(int(not torch.equal(p, before[n])) for n, p in unet.named_parameters())
+        del before
+        t0 = time.perf_counter()
+        params, opt_state, step, ema = restore_train_state(full["ckpt_path"])
+        restore_s = time.perf_counter() - t0
+        live = dict(unet.named_parameters())
+        restored_equal = (
+            step == TRAIN_STEPS
+            and all(torch.equal(t, live[n].detach().cpu()) for n, t in params.items())
+            and all(torch.equal(t, full["ema_params"][n].cpu()) for n, t in ema.items())
+            and opt_state["schedule"]["last_epoch"] == TRAIN_STEPS
+        )
+        del params, opt_state, ema, live
+        ckpt_gb = os.path.getsize(full["ckpt_path"]) / 1e9
+
+        lora = train(bundle, dataset, work_dir=f"{tmp}/lora", num_steps=1, lr=TRAIN_LR,
+                     warmup_steps=0, ema_decay=None, lora_rank=LORA_RANK, **cli)
+        adapters, _, lora_step, _ = restore_train_state(lora["ckpt_path"])
+        lora_restored = lora_step == 1 and all(
+            torch.equal(adapters[p][k], t.detach().cpu()) for p, ab in lora["lora"].items()
+            for k, t in ab.items())
+        b_moved = all(ab["b"].abs().max().item() > 0 for ab in lora["lora"].values())
+    losses = full["losses"] + lora["losses"]
+    ok = (
+        all(math.isfinite(x) for x in losses)
+        and changed > 0 and restored_equal and lora_restored and b_moved
+        and all(c > 0 for c in counts.values())
+    )
+    emit({"phase": "train_path", "ok": ok, "losses": full["losses"], "lora_loss": lora["losses"],
+          "s_per_step_2_to_4": sum(full["step_seconds"][1:]) / (TRAIN_STEPS - 1),
+          "step_seconds": full["step_seconds"], "lora_step_s": lora["step_seconds"],
+          "peak_gb_cli_loop": peak_gb, "params_changed": f"{changed}/{len(dict(unet.named_parameters()))}",
+          "checkpoint_gb": ckpt_gb, "checkpoint_restore_s": restore_s,
+          "restored_equal": restored_equal, "lora_restored_equal": lora_restored,
+          "lora_adapters": len(lora["lora"]), "lora_b_moved": b_moved, "launches": counts,
+          "cuts": {
+              "num_steps": f"{TRAIN_STEPS} (CLI default 1000), then 1 LoRA rank-{LORA_RANK} step",
+              "lr": f"{TRAIN_LR} (CLI default 1e-5: bf16 weights lose 1e-5 updates below one ulp)",
+              "warmup_steps": "1 (CLI default 100); 0 for the LoRA step so its one update moves",
+              "ema_decay": "0.999 (CLI default none)",
+              "remat": "True (CLI default False): without it the T=21 backward's activations "
+                       "and the AdamW, EMA and gradient state do not fit in 80 GB",
+              "scene": "24 seeded random 576x576 images on an orbit, in memory (DirectParser)",
+              "weights": "random bf16 (flax-default init, seed 0), full width",
+          }})
+    if not ok:
+        raise AssertionError("the training path failed its checks")
     return counts
 
 
@@ -268,19 +687,24 @@ def main() -> int:
     t0 = time.perf_counter()
     _kernels.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": [k.library().name for k in _kernels.KERNELS.values()]})
+          "libraries": sorted({k.library().name for k in _kernels.KERNELS.values()})})
 
     failures: list[str] = []
     results: dict = {}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    for key, fn in (("flash_attention", check_k1), ("time_attention", check_k2)):
+    for key, fn in (("flash_attention", check_k1), ("time_attention", check_k2),
+                    ("k1_bwd", check_k1_bwd)):
         try:
-            results[key] = fn(gen)
+            out = fn(gen)
+            if key == "k1_bwd":
+                results.update(out)
+            else:
+                results[key] = out
         except Exception:  # noqa: BLE001 - report every phase, then fail
             traceback.print_exc()
             failures.append(key)
 
-    counts = {}
+    counts: dict[str, dict] = {"render": {}, "train": {}}
     try:
         t0 = time.perf_counter()
         bundle = random_bundle(SevaSpec(), ClipVisionSpec(), dtype=torch.bfloat16, device=DEVICE,
@@ -289,11 +713,16 @@ def main() -> int:
         emit({"phase": "weights", "seconds": time.perf_counter() - t0,
               "unet_params": sum(p.numel() for p in bundle.unet.parameters())})
         for key, fn in (("unet_forward", lambda: check_unet(bundle, gen)),
-                        ("main_path", lambda: run_main_path(bundle))):
+                        ("main_path", lambda: run_main_path(bundle)),
+                        ("train_grad", lambda: check_train_grad(bundle, gen)),
+                        ("train_profile", lambda: profile_train_step(bundle, gen)),
+                        ("train_path", lambda: run_train_path(bundle))):
             try:
                 out = fn()
                 if key == "main_path":
-                    counts = out
+                    counts["render"] = out
+                elif key == "train_path":
+                    counts["train"] = out
             except Exception:  # noqa: BLE001
                 traceback.print_exc()
                 failures.append(key)
@@ -301,23 +730,40 @@ def main() -> int:
         traceback.print_exc()
         failures.append("weights")
 
+    upstream = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     replaces = {
         "flash_attention": "stable_virtual_camera_tpu/ops/flash_upstream.py:74",
+        "flash_attention_bwd_dkv": "stable_virtual_camera_tpu/ops/flash_upstream.py:74 under grad: "
+                                   f"{upstream}:1121 (_flash_attention_bwd_dkv)",
+        "flash_attention_bwd_dq": "stable_virtual_camera_tpu/ops/flash_upstream.py:74 under grad: "
+                                  f"{upstream}:1456 (_flash_attention_bwd_dq)",
         "time_attention": "stable_virtual_camera_tpu/ops/time_attention.py:134",
     }
-    emit({"kernels": [
-        {
+    # the render path launches K1 and K2, the training path all four; a
+    # kernel's `launches` is the count on the path that measures it here
+    # (render shapes for K1 and K2, training shapes for the backward pair)
+    home = {"flash_attention": "render", "time_attention": "render",
+            "flash_attention_bwd_dkv": "train", "flash_attention_bwd_dq": "train"}
+    rows = []
+    for k in _kernels.KERNELS.values():
+        r = results.get(k.name, {})
+        rows.append({
             "name": k.name,
             "route": "cuda",
-            "source": f"stable_virtual_camera_tpu_torch/csrc/{k.name}.cu",
+            "source": f"stable_virtual_camera_tpu_torch/csrc/{k.source.name}",
             "replaces": replaces[k.name],
-            "launches": counts.get(k.name, 0),
-            "max_abs_err": results.get(k.name, {}).get("max_abs_err"),
-            "ms": results.get(k.name, {}).get("ms"),
-            "plain_ms": results.get(k.name, {}).get("plain_ms"),
-        }
-        for k in _kernels.KERNELS.values()
-    ]})
+            "launches": counts[home[k.name]].get(k.name, 0),
+            "launches_by_path": {path: c.get(k.name, 0) for path, c in counts.items()},
+            **{key: r.get(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+            **{key: r[key] for key in ("library", "plain_and_library_cover") if key in r},
+        })
+    emit({"kernels": rows})
+    missing = [f"{k}@{path}" for path, ks in (("render", ("flash_attention", "time_attention")),
+                                               ("train", tuple(home)))
+               for k in ks if counts[path].get(k, 0) == 0]
+    if missing and not failures:
+        failures.append(f"kernels not launched on their path: {missing}")
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1

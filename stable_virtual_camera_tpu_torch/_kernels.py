@@ -1,11 +1,13 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` holds one kernel behind a plain C entry point (no
-PyTorch headers, so `nvcc` takes seconds per file). It compiles for `sm_90a`
-into its own shared library under `build/kernels/` at the repository root,
-named after a hash of its source and flags, so an edited source rebuilds and
-an unchanged one is reused. All sources build in parallel, one `nvcc` each,
-the first time any kernel is launched. The libraries load with `ctypes`.
+Each `csrc/<source>.cu` holds one or more kernels, each behind a plain C
+entry point (no PyTorch headers, so `nvcc` takes seconds per file). A source
+compiles for `sm_90a` into its own shared library under `build/kernels/` at
+the repository root, named after a hash of its source, the shared
+`csrc/*.cuh` headers and the flags, so an edited source rebuilds and an
+unchanged one is reused. All sources build in
+parallel, one `nvcc` each, the first time any kernel is launched. The
+libraries load with `ctypes`.
 
 Every C entry point returns `cudaGetLastError()` after its launch; `launch`
 raises if that is not 0. Each `Kernel` keeps a plain integer count of its
@@ -42,21 +44,23 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source, its C entry point and its launch count."""
+    """One kernel: its C entry point in a CUDA source (`csrc/<name>.cu`
+    unless `source` names another) and its launch count."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list, source: str | None = None):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.launches = 0
         self._fn = None
 
     def library(self) -> Path:
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{digest}.so"
+        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
 
     def _load(self):
         if self._fn is None:
@@ -94,9 +98,25 @@ _LOCK = threading.RLock()
 FLASH_ATTENTION = Kernel(
     "flash_attention",
     "svc_flash_attention_fwd",
-    # q, k, v, o, B, H, L, then (batch, head, row) strides of q, k, v, o,
-    # scale*log2(e), stream
-    [_P, _P, _P, _P, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P],
+    # q, k, v, o, lse (fp32 (B, H, L) or null), B, H, L, then (batch, head,
+    # row) strides of q, k, v, o, scale*log2(e), stream
+    [_P, _P, _P, _P, _P, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P],
+)
+FLASH_ATTENTION_BWD_DKV = Kernel(
+    "flash_attention_bwd_dkv",
+    "svc_flash_attention_bwd_dkv",
+    # q, k, v, do, lse, delta, dk, dv, B, H, L, then (batch, head, row)
+    # strides of q, k, v, do, dk, dv, scale, stream
+    [_P] * 8 + [_I, _I, _I] + [_LL] * 18 + [ctypes.c_float, _P],
+    source="flash_attention_bwd",
+)
+FLASH_ATTENTION_BWD_DQ = Kernel(
+    "flash_attention_bwd_dq",
+    "svc_flash_attention_bwd_dq",
+    # q, k, v, do, lse, delta, dq, B, H, L, then (batch, head, row) strides
+    # of q, k, v, do, dq, scale, stream
+    [_P] * 7 + [_I, _I, _I] + [_LL] * 15 + [ctypes.c_float, _P],
+    source="flash_attention_bwd",
 )
 TIME_ATTENTION = Kernel(
     "time_attention",
@@ -105,22 +125,25 @@ TIME_ATTENTION = Kernel(
     # o, scale, stream
     [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P],
 )
-KERNELS = {k.name: k for k in (FLASH_ATTENTION, TIME_ATTENTION)}
+KERNELS = {
+    k.name: k
+    for k in (FLASH_ATTENTION, FLASH_ATTENTION_BWD_DKV, FLASH_ATTENTION_BWD_DQ, TIME_ATTENTION)
+}
 
 
 def build_all() -> None:
-    """Compile every kernel whose library is missing, one `nvcc` per source,
+    """Compile every source whose library is missing, one `nvcc` per source,
     all at once. Raises with the compiler output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for k in KERNELS.values():
         out = k.library()
-        if out.exists():
+        if out.exists() or k.source.stem in procs:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
-        procs[k.name] = (
+        procs[k.source.stem] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
             tmp,
             out,

@@ -24,70 +24,28 @@
 //     zero-filled), query rows >= L are not stored. No padded copies.
 //   * q, k, v and o are read and written through (batch, head, row) strides
 //     with a contiguous head dimension, so the caller can pass views of the
-//     packed qkv projection and take the output as (B, L, H, 64).
+//     packed qkv projection and take the output as (B, L, H, 64);
+//   * when the caller passes an lse buffer (training), the epilogue also
+//     writes each row's log-sum-exp, m ln2 + ln l in natural-log units, for
+//     the backward kernels in flash_attention_bwd.cu.
 // Left for later: cp.async/TMA double buffering and wgmma.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;      // head dim
-constexpr int kBQ = 64;     // query rows per block (4 warps x 16)
-constexpr int kBK = 64;     // keys per tile
-constexpr int kLds = kD + 8;  // padded shared-memory row (bf16 elements)
-constexpr int kThreads = 128;
+using namespace svc;
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
-  unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows [row0, row0 + 64) of a (L, 64) slab into shared memory, zero
-// filling rows >= L. 512 16-byte chunks, 4 per thread.
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kLds],
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0, int L) {
-#pragma unroll
-  for (int c = threadIdx.x; c < kBK * (kD / 8); c += kThreads) {
-    const int r = c >> 3;
-    const int col = (c & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L) {
-      v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + col);
-    }
-    *reinterpret_cast<uint4*>(&dst[r][col]) = v;
-  }
-}
+constexpr int kBQ = kTile;  // query rows per block (4 warps x 16)
+constexpr int kBK = kTile;  // keys per tile
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int H, int L,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int L,
                  long long qsb, long long qsh, long long qsl,
                  long long ksb, long long ksh, long long ksl,
                  long long vsb, long long vsh, long long vsl,
@@ -116,14 +74,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   // A fragments of this warp's 16 query rows, 4 k-steps over the head dim.
   const int r0 = warp * 16 + g;
   uint32_t qa[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const int c = ks * 16 + t4 * 2;
-    qa[ks][0] = lds32(&sQ[r0][c]);
-    qa[ks][1] = lds32(&sQ[r0 + 8][c]);
-    qa[ks][2] = lds32(&sQ[r0][c + 8]);
-    qa[ks][3] = lds32(&sQ[r0 + 8][c + 8]);
-  }
+  load_a_rows(qa, sQ, r0, t4);
 
   float acc[8][4];
 #pragma unroll
@@ -141,16 +92,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
     // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys.
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const int key = n * 8 + g;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const int c = ks * 16 + t4 * 2;
-        mma_bf16_16816(s[n], qa[ks], lds32(&sK[key][c]), lds32(&sK[key][c + 8]));
-      }
-    }
+    mma_a_xt(s, qa, sK, g, t4);
 
     // scale into the log2 domain, mask keys >= L, tile row max
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -197,28 +139,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       acc[n][3] *= corr1;
     }
 
-    // O += P V: 4 k-steps of 16 keys; the S accumulators of n-tiles 2kk and
-    // 2kk+1 are exactly the A fragment of k-step kk.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int n = 0; n < 8; n += 2) {
-        // matrices: (keys +0..7, d n), (keys +8..15, d n),
-        //           (keys +0..7, d n+1), (keys +8..15, d n+1)
-        const int mi = lane >> 3;
-        const int key = kk * 16 + (mi & 1) * 8 + (lane & 7);
-        const int d = (n + (mi >> 1)) * 8;
-        uint32_t vb4[4];
-        ldmatrix_x4_trans(vb4, &sV[key][d]);
-        mma_bf16_16816(acc[n], pa, vb4[0], vb4[1]);
-        mma_bf16_16816(acc[n + 1], pa, vb4[2], vb4[3]);
-      }
-    }
+    // O += P V: the S accumulators of n-tiles 2kk and 2kk+1 are exactly
+    // the A fragment of k-step kk (4 k-steps of 16 keys).
+    mma_c_y(acc, s, sV, lane);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -229,6 +152,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const float inv1 = 1.f / l1;
   const int row0 = q0 + r0;
   const int row1 = row0 + 8;
+  if (lse != nullptr && t4 == 0) {
+    // log-sum-exp in natural-log units: ln(2^m * l) with m in the base-2,
+    // scale-folded domain of the loop
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (row0 < L) lse[(long long)blockIdx.y * L + row0] = m0 * kLn2 + logf(l0);
+    if (row1 < L) lse[(long long)blockIdx.y * L + row1] = m1 * kLn2 + logf(l1);
+  }
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int d = n * 8 + t4 * 2;
@@ -245,14 +175,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
-extern "C" const char* svc_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 // q, k, v, o: (B, H, L, 64) bf16 addressed through (batch, head, row) element
 // strides, head dim contiguous; base pointers and strides 16-byte aligned.
+// lse: contiguous fp32 (B, H, L), or null when no log-sum-exp is wanted.
 extern "C" int svc_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H, int L,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int L,
     long long qsb, long long qsh, long long qsl,
     long long ksb, long long ksh, long long ksl,
     long long vsb, long long vsh, long long vsl,
@@ -261,7 +188,8 @@ extern "C" int svc_flash_attention_fwd(
   dim3 grid((L + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H, L,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), H, L,
       qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

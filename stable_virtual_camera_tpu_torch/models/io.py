@@ -78,12 +78,13 @@ def random_bundle(
     spec: SevaSpec | None = None,
     clip_spec: ClipVisionSpec | None = None,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device="cuda",
     generator: torch.Generator | None = None,
 ):
-    """A ModelBundle with flax-default random weights (tests, smoke runs).
-    Weights are drawn in fp32 on `device` from `generator` (seed 0 on that
-    device when omitted), then cast to `dtype`."""
+    """A ModelBundle with flax-default random weights (tests, smoke runs),
+    on the card unless `device` says otherwise. Weights are drawn in fp32 on
+    `device` from `generator` (seed 0 on that device when omitted), then
+    cast to `dtype`."""
     spec = spec or SevaSpec.tiny()
     clip_spec = clip_spec or ClipVisionSpec.tiny()
     if generator is None:

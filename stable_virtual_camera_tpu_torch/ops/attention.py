@@ -36,11 +36,14 @@ def attention_chunked(
 
 
 def online_softmax_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_chunk: int = 1024
-) -> torch.Tensor:
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_chunk: int = 1024,
+    return_lse: bool = False,
+):
     """(B, H, L, D) x (B, H, S, D) online-softmax attention in fp32, one key
     chunk at a time; returns (B, H, L, D) in q's dtype. Slicing the last
-    chunk short is the same as masking padded keys to -inf."""
+    chunk short is the same as masking padded keys to -inf. With
+    `return_lse`, also the fp32 (B, H, L) log-sum-exp of the scaled scores,
+    ln sum_j exp(q.k_j / sqrt(D)), which the attention backward reads."""
     B, H, L, D = q.shape
     S = k.shape[2]
     qf = q.float() * D**-0.5
@@ -57,7 +60,10 @@ def online_softmax_attention(
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.matmul(p, v_i)
         m = m_new
-    return (acc / l).to(q.dtype)
+    out = (acc / l).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).squeeze(-1)
+    return out
 
 
 def scaled_dot_product_attention(

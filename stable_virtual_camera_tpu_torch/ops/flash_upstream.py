@@ -1,10 +1,20 @@
-"""Self-attention on the (B, H, L, D) layout: kernel K1 and its plain twin.
+"""Self-attention on the (B, H, L, D) layout: kernel K1, its backward
+kernels K1-dKV and K1-dQ, and their plain twins.
 
 Counterpart of stable_virtual_camera_tpu/ops/flash_upstream.py::
-flash_attention_upstream_bhld. On a CUDA tensor it launches the hand-written
-Hopper kernel in csrc/flash_attention.cu; on a CPU tensor it runs
-`flash_attention_plain`, the chunked online-softmax form of the same math
-(a materialised fp32 score tensor at L=27216, B=2, H=10 would take 59 GB).
+flash_attention_upstream_bhld, whose upstream Pallas kernel is a custom VJP
+with a forward kernel and two backward kernels (dK/dV and dQ). Here
+`FlashAttentionFn` is the autograd Function: on CUDA tensors its forward
+launches the hand-written Hopper kernel in csrc/flash_attention.cu (which also
+writes the log-sum-exp when a gradient is needed) and its backward launches
+the two kernels of csrc/flash_attention_bwd.cu; on CPU tensors it runs
+`flash_attention_plain` and `flash_attention_bwd_plain`, chunked fp32 forms
+of the same math (a materialised fp32 score tensor at L=27216, B=2, H=10
+would take 59 GB).
+
+The log-sum-exp `lse` is stored in natural-log units, ln sum_j exp(s_j)
+with s = q.k / sqrt(D), in both paths; the kernels convert it to their base-2
+state by multiplying with log2(e).
 """
 
 from __future__ import annotations
@@ -17,14 +27,46 @@ from stable_virtual_camera_tpu_torch import _kernels
 from stable_virtual_camera_tpu_torch.ops.attention import online_softmax_attention
 
 HEAD_DIM = 64
-_SCALE_LOG2 = HEAD_DIM**-0.5 * math.log2(math.e)
+_SCALE = HEAD_DIM**-0.5
+_SCALE_LOG2 = _SCALE * math.log2(math.e)
+_BWD_CHUNK = 1024
 
 
 def flash_attention_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v over (B, H, L, D), fp32 online softmax."""
-    return online_softmax_attention(q, k, v)
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool = False
+):
+    """softmax(q k^T / sqrt(D)) v over (B, H, L, D), fp32 online softmax;
+    with `return_lse` also the fp32 (B, H, L) log-sum-exp."""
+    return online_softmax_attention(q, k, v, return_lse=return_lse)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, chunk: int = _BWD_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The FlashAttention-2 backward in fp32, chunked over keys and queries
+    so no (L, L) score tensor is held: P = exp(S - lse), dV = P^T dO,
+    dP = dO V^T, dS = P (dP - D) with D = rowsum(o dO), dK = dS^T Q / sqrt(D),
+    dQ = dS K / sqrt(D). Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    L, D = q.shape[-2], q.shape[-1]
+    scale = D**-0.5
+    delta = (o.float() * do.float()).sum(-1)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, L, chunk):
+        kc = k[:, :, k0 : k0 + chunk].float()
+        vc = v[:, :, k0 : k0 + chunk].float()
+        for q0 in range(0, L, chunk):
+            rows = slice(q0, q0 + chunk)
+            qc = q[:, :, rows].float()
+            doc = do[:, :, rows].float()
+            p = torch.exp(torch.matmul(qc, kc.transpose(-1, -2)) * scale - lse[:, :, rows, None])
+            dv[:, :, k0 : k0 + chunk] += torch.matmul(p.transpose(-1, -2), doc)
+            ds = p * (torch.matmul(doc, vc.transpose(-1, -2)) - delta[:, :, rows, None])
+            dk[:, :, k0 : k0 + chunk] += torch.matmul(ds.transpose(-1, -2), qc) * scale
+            dq[:, :, rows] += torch.matmul(ds, kc) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(name: str, t: torch.Tensor, shape) -> None:
@@ -39,36 +81,161 @@ def _check(name: str, t: torch.Tensor, shape) -> None:
         )
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch K1. q, k, v: (B, H, L, 64) bf16 views with a contiguous head
-    dim (any batch/head/row strides that keep 16-byte rows). Returns a
-    (B, H, L, 64) view of a (B, L, H, 64) buffer, so `o.transpose(1, 2)`
-    is the packed (B, L, H*64) layout for free."""
+def _check_inputs(q: torch.Tensor, *named) -> tuple[int, int, int, int]:
     B, H, L, D = q.shape
     if D != HEAD_DIM:
         raise ValueError(f"flash attention needs head dim {HEAD_DIM}, got {D}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), *named):
         _check(name, t, (B, H, L, D))
         if t.device != q.device:
-            raise ValueError("flash attention: q, k and v must be on one device")
-    o = torch.empty((B, L, H, D), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+            raise ValueError("flash attention: all operands must be on one device")
+    return B, H, L, D
+
+
+def _check_rows(name: str, t: torch.Tensor, B: int, H: int, L: int, device) -> None:
+    if t.dtype != torch.float32 or tuple(t.shape) != (B, H, L) or not t.is_contiguous():
+        raise ValueError(
+            f"flash attention: {name} must be a contiguous fp32 (B, H, L) = {(B, H, L)}, "
+            f"got {t.dtype} {tuple(t.shape)} strides {t.stride()}"
+        )
+    if t.device != device:
+        raise ValueError("flash attention: all operands must be on one device")
+
+
+def _empty_like_bhld(q: torch.Tensor) -> torch.Tensor:
+    """A (B, H, L, 64) bf16 view of a fresh (B, L, H, 64) buffer, the layout
+    the packed projections read without a copy."""
+    B, H, L, D = q.shape
+    return torch.empty((B, L, H, D), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+
+
+def _strides(*ts: torch.Tensor) -> list[int]:
+    return [s for t in ts for s in t.stride()[:3]]
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool = False
+):
+    """Launch K1. q, k, v: (B, H, L, 64) bf16 views with a contiguous head
+    dim (any batch/head/row strides that keep 16-byte rows). Returns a
+    (B, H, L, 64) view of a (B, L, H, 64) buffer, so `o.transpose(1, 2)`
+    is the packed (B, L, H*64) layout for free; with `return_lse` also the
+    fp32 (B, H, L) log-sum-exp, which the kernel writes in its epilogue."""
+    B, H, L, D = _check_inputs(q, ("k", k), ("v", v))
+    o = _empty_like_bhld(q)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _kernels.FLASH_ATTENTION.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, H, L, *strides, _SCALE_LOG2, stream,
+            lse.data_ptr() if return_lse else None,
+            B, H, L, *_strides(q, k, v, o), _SCALE_LOG2, stream,
         )
-    return o
+    return (o, lse) if return_lse else o
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> tuple[int, int, int]:
+    B, H, L, _ = _check_inputs(q, ("k", k), ("v", v), ("do", do))
+    _check_rows("lse", lse, B, H, L, q.device)
+    _check_rows("delta", delta, B, H, L, q.device)
+    return B, H, L
+
+
+def flash_attention_bwd_dkv_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch K1-dKV: (dk, dv) as (B, H, L, 64) bf16 views of (B, L, H, 64)
+    buffers. q, k, v, do: (B, H, L, 64) bf16 views with a contiguous head
+    dim; lse: K1's fp32 (B, H, L) log-sum-exp; delta: fp32 (B, H, L)
+    rowsum(o do)."""
+    B, H, L = _check_bwd(q, k, v, do, lse, delta)
+    dk, dv = _empty_like_bhld(q), _empty_like_bhld(q)
+    with torch.cuda.device(q.device):
+        _kernels.FLASH_ATTENTION_BWD_DKV.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, L, *_strides(q, k, v, do, dk, dv), _SCALE,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    return dk, dv
+
+
+def flash_attention_bwd_dq_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor,
+) -> torch.Tensor:
+    """Launch K1-dQ: dq as a (B, H, L, 64) bf16 view of a (B, L, H, 64)
+    buffer; operands as for `flash_attention_bwd_dkv_cuda`."""
+    B, H, L = _check_bwd(q, k, v, do, lse, delta)
+    dq = _empty_like_bhld(q)
+    with torch.cuda.device(q.device):
+        _kernels.FLASH_ATTENTION_BWD_DQ.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, H, L, *_strides(q, k, v, do, dq), _SCALE,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    return dq
+
+
+def flash_attention_bwd_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's backward: D = rowsum(o dO) as a plain fp32 reduction (the
+    upstream TPU kernel computes it outside its kernels too, from the same
+    bf16 o the forward wrote), then K1-dKV and K1-dQ. Returns (dq, dk, dv)."""
+    _check("o", o, q.shape)
+    delta = (o.float() * do.float()).sum(-1)
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    return flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), dk, dv
+
+
+def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
+    """The incoming gradient in a layout the kernels take: a contiguous head
+    dim and 16-byte aligned rows (a copy only when autograd hands over
+    another layout)."""
+    if t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0:
+        return t
+    return t.contiguous()
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Non-causal attention with scale 1/sqrt(D) and its gradient. CUDA
+    tensors go through K1 (forward, with the LSE when a gradient is needed)
+    and K1-dKV + K1-dQ (backward); CPU tensors through the plain versions.
+    q, k, v, o and lse are saved only when a gradient is needed, so a call
+    under `inference_mode` or `no_grad` runs exactly the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        needs_grad = any(ctx.needs_input_grad)
+        if q.device.type == "cpu":
+            out = flash_attention_plain(q, k, v, return_lse=needs_grad)
+        elif q.device.type == "cuda":
+            out = flash_attention_cuda(q, k, v, return_lse=needs_grad)
+        else:
+            raise RuntimeError(f"flash attention has no kernel for device {q.device}")
+        if not needs_grad:
+            return out
+        o, lse = out
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            return flash_attention_bwd_plain(q, k, v, o, lse, do)
+        return flash_attention_bwd_cuda(q, k, v, o, lse, _kernel_layout(do))
 
 
 def flash_attention_upstream_bhld(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> torch.Tensor:
-    """Non-causal attention over (B, H, L, D) with scale 1/sqrt(D): the plain
-    version for CPU tensors, kernel K1 for CUDA tensors (or an error)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash attention has no kernel for device {q.device}")
-    return flash_attention_cuda(q, k, v)
+    """Non-causal attention over (B, H, L, D) with scale 1/sqrt(D),
+    differentiable: the plain versions for CPU tensors, kernels K1 / K1-dKV /
+    K1-dQ for CUDA tensors (or an error)."""
+    return FlashAttentionFn.apply(q, k, v)

@@ -1,5 +1,7 @@
-"""The hand-written CUDA kernels (K1 flash attention, K2 temporal attention)
-against their plain versions on the card, and the wrappers' refusals.
+"""The hand-written CUDA kernels (K1 flash attention with its log-sum-exp,
+K1-dKV and K1-dQ, K2 temporal attention) against their plain versions on
+the card, the wrappers' refusals, and a backward through SevaUNet on the
+card that reaches the attention weights.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
 neither jax nor the test conftest, so on a machine with the card and no JAX
@@ -7,7 +9,9 @@ it runs as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 Inputs are unit-normal bf16 from numpy with a fixed seed. Tolerances: K1 is
 bf16 out with P rounded to bf16 before P.V (max 2e-2, mean 2e-3); K2 keeps
-all arithmetic in fp32 and rounds only its output (one bf16 ulp at 1, 8e-3).
+all arithmetic in fp32 and rounds only its output (one bf16 ulp at 1, 8e-3);
+K1's LSE is fp32 (1e-2); K1-dKV/K1-dQ round P and dS to bf16 for their
+products and their outputs to bf16 (relative L2 2e-2).
 """
 
 import numpy as np
@@ -15,7 +19,13 @@ import pytest
 import torch
 
 from stable_virtual_camera_tpu_torch import _kernels
+from stable_virtual_camera_tpu_torch.config import SevaSpec
+from stable_virtual_camera_tpu_torch.models.io import init_flax_defaults
+from stable_virtual_camera_tpu_torch.models.unet import SevaUNet
 from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
+    flash_attention_bwd_cuda,
+    flash_attention_bwd_plain,
+    flash_attention_cuda,
     flash_attention_plain,
     flash_attention_upstream_bhld,
 )
@@ -57,6 +67,79 @@ def test_flash_kernel_matches_plain(cuda, B, H, L, packed):
     assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
 
 
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (3, 1, 1296)])
+def test_flash_backward_kernels_match_plain(cuda, B, H, L):
+    """K1's LSE, then K1-dKV and K1-dQ, against the plain versions on the
+    UNet's packed-qkv views, with the incoming gradient in K1's output
+    layout; ragged L included."""
+    rng = np.random.default_rng(L + 7 * H)
+    q, k, v = _bf16(rng, (B, L, 3, H, 64), cuda).permute(2, 0, 3, 1, 4).unbind(0)
+    do = _bf16(rng, (B, L, H, 64), cuda).transpose(1, 2)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    _, lse_ref = flash_attention_plain(q, k, v, return_lse=True)
+    before = _kernels.counts()
+    grads = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    after = _kernels.counts()
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (lse - lse_ref).abs().max().item() <= 1e-2
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert after[name] == before[name] + 1
+    for g, r in zip(grads, refs):
+        assert g.shape == (B, H, L, 64) and g.dtype == torch.bfloat16
+        assert torch.isfinite(g).all() and _rel(g, r) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_function_takes_the_kernels_both_ways(cuda):
+    """Under grad, FlashAttentionFn's forward writes the LSE and its
+    backward launches K1-dKV and K1-dQ once each; under inference_mode it
+    launches K1 alone."""
+    rng = np.random.default_rng(3)
+    q, k, v = (_bf16(rng, (1, 2, 1030, 64), cuda).requires_grad_() for _ in range(3))
+    before = _kernels.counts()
+    out = flash_attention_upstream_bhld(q, k, v)
+    out.float().square().sum().backward()
+    after = _kernels.counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
+        "time_attention": 0}
+    assert all(torch.isfinite(t.grad).all() and t.grad.abs().max() > 0 for t in (q, k, v))
+    with torch.inference_mode():
+        flash_attention_upstream_bhld(q, k, v)
+    assert _kernels.counts()["flash_attention_bwd_dkv"] == after["flash_attention_bwd_dkv"]
+
+
+@pytest.mark.cuda
+def test_unet_backward_reaches_attention_weights(cuda):
+    """A loss through SevaUNet on the card (bf16, per-frame self-attention
+    at L = 32 x 32 = 1024 takes K1, time-mix takes K2) backpropagates into
+    the qkv weights of both attentions: the kernels are autograd Functions,
+    not calls that cut the graph."""
+    spec = SevaSpec(model_channels=64, num_frames=2, num_head_channels=64, context_dim=64,
+                    channel_mult=(1, 1), transformer_depth=(1, 1), attention_resolutions=(1,))
+    unet = init_flax_defaults(SevaUNet(spec), torch.Generator().manual_seed(0))
+    unet = unet.to(cuda, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n = 2
+    x = torch.randn((n, 32, 32, 11), generator=g, device=cuda)
+    ctx = torch.randn((n, 1, 64), generator=g, device=cuda)
+    dense = torch.randn((n, 32, 32, 6), generator=g, device=cuda)
+    before = _kernels.counts()
+    out = unet(x, torch.full((n,), 500, device=cuda), ctx, dense, n)
+    out.square().mean().backward()
+    after = _kernels.counts()
+    assert all(after[name] > before[name] for name in after)
+    blk = unet.input_blocks_1_1
+    for w in (blk.spatial_0.attn1.qkv.weight, blk.temporal_0.attn1.qkv.weight):
+        assert w.grad is not None and torch.isfinite(w.grad).all() and w.grad.abs().max() > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,T,H,S", [(1, 1, 1, 7), (2, 5, 3, 33), (2, 21, 2, 81), (1, 32, 1, 100)])
 def test_time_kernel_matches_plain(cuda, b, T, H, S):
@@ -82,6 +165,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     t = torch.zeros((33, 1, 64, 8), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         time_attention_bhds(t, t, t, 33)  # T > 32
+    lse = torch.zeros((1, 1, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_cuda(q, q, q, q, lse, q)  # fp32
+    with pytest.raises(ValueError):
+        flash_attention_bwd_cuda(h, h, h, h, lse.double(), h)  # lse not fp32
 
 
 @pytest.mark.parametrize("fn,shape,args", [

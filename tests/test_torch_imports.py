@@ -1,11 +1,11 @@
-"""The port's main path imports no JAX, nothing of the JAX package and no
-image library.
+"""The port's main path and its fine-tuning path import no JAX, nothing of
+the JAX package and no image library.
 
 The machine with the card has PyTorch but no JAX, and no `imageio` (so the
-port keeps its own image transforms and imports its writers' libraries only
-when they write). A fresh interpreter blocks those packages, then imports
-the port's entry points and `chip_smoke`; any import of a blocked package
-fails the import.
+port keeps its own image transforms, and imports its readers' and writers'
+libraries only when they read or write). A fresh interpreter blocks those
+packages, then imports the port's entry points, its training and data
+modules and `chip_smoke`; any import of a blocked package fails the import.
 """
 
 import os
@@ -36,12 +36,23 @@ import chip_smoke
 import stable_virtual_camera_tpu_torch.apps.renderer
 import stable_virtual_camera_tpu_torch.models.io
 import stable_virtual_camera_tpu_torch.engine.runner
+import stable_virtual_camera_tpu_torch.apps.train_cli
+import stable_virtual_camera_tpu_torch.core.normalize
+import stable_virtual_camera_tpu_torch.data
+import stable_virtual_camera_tpu_torch.data.colmap_binary
+import stable_virtual_camera_tpu_torch.data.colmap_text
+import stable_virtual_camera_tpu_torch.training.checkpoint
+import stable_virtual_camera_tpu_torch.training.data
+import stable_virtual_camera_tpu_torch.training.lora
+import stable_virtual_camera_tpu_torch.training.optim
+import stable_virtual_camera_tpu_torch.training.train_step
+import stable_virtual_camera_tpu_torch.utils.seeding
 print("imported")
 """
 
 
 @pytest.mark.parametrize(
-    "blocked", [("jax", "flax", "stable_virtual_camera_tpu"), ("cv2", "PIL", "imageio")]
+    "blocked", [("jax", "flax", "optax", "stable_virtual_camera_tpu"), ("cv2", "PIL", "imageio")]
 )
 def test_main_path_imports_without(blocked):
     proc = subprocess.run(

@@ -53,7 +53,7 @@ def jax_abstract_trees() -> dict:
 def port_and_flax_params(seed: int = 0):
     """A tiny fp32 CPU port bundle and the same weights as JAX-package flax
     trees {"unet", "vae", "clip"}."""
-    bundle = random_bundle(generator=torch.Generator().manual_seed(seed))
+    bundle = random_bundle(device="cpu", generator=torch.Generator().manual_seed(seed))
     modules = {"unet": bundle.unet, "vae": bundle.vae.module, "clip": bundle.clip.module}
     trees = jax_abstract_trees()
     return bundle, {k: to_flax_tree(modules[k], trees[k]) for k in modules}
@@ -133,8 +133,8 @@ def test_bridge_reads_bfloat16_leaves(trees):
 
 
 def test_random_bundle_follows_flax_defaults():
-    b1 = random_bundle(generator=torch.Generator().manual_seed(3))
-    b2 = random_bundle(generator=torch.Generator().manual_seed(3))
+    b1 = random_bundle(device="cpu", generator=torch.Generator().manual_seed(3))
+    b2 = random_bundle(device="cpu", generator=torch.Generator().manual_seed(3))
     for (n1, p1), (_, p2) in zip(b1.unet.named_parameters(), b2.unet.named_parameters()):
         assert torch.equal(p1, p2), n1  # seeded: reproducible
     unet = b1.unet
