@@ -12,24 +12,38 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
   4. `k1_bwd` and `k1_lse`: K1-dKV and K1-dQ against the plain backward, and
      K1's log-sum-exp against the plain one, at every self-attention shape
      of a 576x576 training chunk (T=21, b=1);
-  5. one full-width SevaUNet forward (bf16 random weights, 42 frames,
-     576x576) through the kernels and through the plain versions;
-  6. the render path: HeadlessRenderer.render in Basic mode at full width
+  5. `k3_flash_attention` and `k4_flash_packed`: K3 ((B, L, H, 64) layout)
+     and K4 (packed (B, L, W) layout) against their plain versions at the
+     self-attention shapes of a 576x576 render they take, on the split-qkv
+     views the UNet's generic path passes;
+  6. one full-width SevaUNet forward (bf16 random weights, 42 frames,
+     576x576) through the kernels and through the plain versions, then
+     `unet_forward_backends`: the same with attention="flash" (K3) and
+     "packed" (K4);
+  7. the render path: HeadlessRenderer.render in Basic mode at full width
      (SevaSpec(), ClipVisionSpec(), SD2.1 VAE, bf16 random weights) on one
      seeded 576x576 image along the `orbit` preset, both passes, with the
      kernels' launch counts read around it;
-  7. `train_grad`: one full-width loss and backward (T=21, 576x576) through
+  8. `cli_path`: the demo CLI (apps/cli.main) at full width with
+     --random_model full, three renders with their outputs written to a
+     temporary directory: img2trajvid on the golden scene with the
+     trajectory prior and attention="flash", img2trajvid_s-prob from a
+     seeded 576x576 PNG along the orbit with attention="packed", and
+     single-pass img2img on the golden scene with the default attention;
+  9. `train_grad`: one full-width loss and backward (T=21, 576x576) through
      the kernels, with per-block and whole-network rematerialisation, and
      through the plain versions, with peak memory;
-  8. `train_profile`: the device time of one train step by kernel class;
-  9. the training path, `train_path`: the train CLI's loop
+ 10. `train_profile`: the device time of one train step by kernel class;
+ 11. the training path, `train_path`: the train CLI's loop
      (apps/train_cli.train) at full width on an in-memory scene, then one
      LoRA step, with checkpoint round trips and the kernels' launch counts
      read around it;
- 10. a `kernels` summary line, then the final `ok` line.
-Every phase prints one JSON line. Cuts against a real render and a real
-fine-tune are printed in phases 6 and 9. Any failed phase exits non-zero
-without the final line; so does a machine with no CUDA device, or a
+ 12. `k5_unported`: the bound of the one TPU kernel not ported (a LayerNorm
+     probe) and the time of torch's layer_norm at its shape, then a
+     `kernels` summary line and the final `ok` line.
+Every phase prints one JSON line. Cuts against a real render, the CLI and a
+real fine-tune are printed in phases 7, 8 and 11. Any failed phase exits
+non-zero without the final line; so does a machine with no CUDA device, or a
 directory without the port.
 """
 
@@ -53,6 +67,8 @@ NUM_TARGETS = 20
 # (L, B, H) self-attention shapes at 576x576: per-frame ds1/ds2 and joint
 # (T*h*w tokens) ds2/ds4/ds8
 K1_SHAPES = [(5184, 42, 5), (1296, 42, 10), (27216, 2, 10), (6804, 2, 20), (1701, 2, 20)]
+# the shapes K4 takes (W = 64 H, W % 128 == 0); the 5-head level goes to K3
+K4_SHAPES = [(L, B, H) for L, B, H in K1_SHAPES if (64 * H) % 128 == 0]
 # (S, H) time-mix shapes at 576x576 (ds1, ds2, ds4, ds8)
 K2_SHAPES = [(5184, 5), (1296, 10), (324, 20), (81, 20)]
 K1_MAX_ABS, K1_MEAN_ABS = 2e-2, 2e-3
@@ -66,6 +82,13 @@ K1_BWD_REL_L2 = 2e-2  # P and dS rounded to bf16 for the products, bf16 outputs
 TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-2, 5e-2
 REMAT_LOSS_REL, REMAT_GRAD_REL_L2 = 1e-6, 1e-3
 TRAIN_STEPS, TRAIN_INPUTS, TRAIN_LR, LORA_RANK = 4, 3, 1e-3, 16
+# the kernels of the training path (K3's backward is a plain recompute and
+# K4 has none, so the backends other than "upstream" do not train here)
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "time_attention")
+# K5's probe shape: LayerNorm over (42 * 5184, 320) bf16 rows
+LN_ROWS, LN_WIDTH = 42 * 5184, 320
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(REPO, "assets", "golden_scene")
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -209,6 +232,60 @@ def time_sdpa(q, k, v):
     return torch.nn.functional.scaled_dot_product_attention(view(q), view(k), view(v))
 
 
+def check_layout_kernel(gen, name: str) -> dict:
+    """K3 ("blhd") or K4 ("packed") against its plain version on the
+    split-qkv views of a (B, L, 3 W) projection, with SDPA on (B, H, L, 64)
+    views of the same tensors as the one-call yardstick."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.ops import flash_attention as fa
+    from stable_virtual_camera_tpu_torch.ops import flash_attention_packed as fap
+
+    rows, worst = [], 0.0
+    for L, B, H in (K1_SHAPES if name == "blhd" else K4_SHAPES):
+        qkv = torch.randn((B, L, 3 * H * 64), generator=gen, device=DEVICE).to(torch.bfloat16)
+        q, k, v = qkv.chunk(3, dim=-1)
+        if name == "blhd":
+            q, k, v = (t.view(B, L, H, 64) for t in (q, k, v))
+            kernel, plain = (lambda: fa.flash_attention_cuda(q, k, v)), (lambda: fa.flash_attention_plain(q, k, v))
+            bhld = [t.transpose(1, 2) for t in (q, k, v)]
+        else:
+            kernel = lambda: fap.flash_attention_packed_cuda(q, k, v, H)  # noqa: E731
+            plain = lambda: fap.flash_attention_packed_plain(q, k, v, H)  # noqa: E731
+            bhld = [t.view(B, L, H, 64).transpose(1, 2) for t in (q, k, v)]
+        out = kernel().float()
+        ref = plain().float()
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        row = {
+            "L": L, "B": B, "H": H,
+            "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+            "finite": bool(torch.isfinite(out).all()),
+            "ms": cuda_ms(kernel, 10),
+            "plain_ms": cuda_ms(plain, 2),
+            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*bhld), 10),
+        }
+        flops = 4.0 * L * L * 64 * H * B
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+        row["bound_ms"], row["bound_by"] = bound(flops, 4 * B * H * L * 64 * 2)
+        rows.append(row)
+        worst = max(worst, row["max_abs_err"])
+        del qkv, q, k, v, bhld, out, ref, diff
+        torch.cuda.empty_cache()
+    ok = all(r["finite"] and r["max_abs_err"] <= K1_MAX_ABS and r["mean_abs_err"] <= K1_MEAN_ABS for r in rows)
+    phase = "k3_flash_attention" if name == "blhd" else "k4_flash_packed"
+    emit({"phase": phase, "ok": ok, "bar": {"max_abs": K1_MAX_ABS, "mean_abs": K1_MEAN_ABS},
+          "shapes": rows})
+    if not ok:
+        raise AssertionError(f"{phase}: the kernel disagrees with its plain version")
+    bound_ms, bound_by = sum_bounds(rows)
+    return {"max_abs_err": worst, "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "library": "torch.nn.functional.scaled_dot_product_attention on (B, H, L, 64) views "
+                       "of the same split-qkv tensors"}
+
+
 def check_k1_bwd(gen) -> dict:
     """K1's LSE and K1-dKV / K1-dQ against the plain versions at the
     training shapes, with the SDPA backward as the one-call yardstick."""
@@ -332,6 +409,75 @@ def check_unet(bundle, gen) -> None:
           "out_std": out_k.std().item()})
     if not ok:
         raise AssertionError("UNet forward through the kernels disagrees with the plain path")
+    return {"inputs": (x, t_idx, ctx, dense), "kernels_s": kernel_s, "out": out_k}
+
+
+def set_attention(unet, name: str) -> None:
+    """Switch every self-attention of `unet` to the backend `name` (the
+    weights do not depend on it)."""
+    from stable_virtual_camera_tpu_torch.models.unet import SelfAttention
+
+    for m in unet.modules():
+        if isinstance(m, SelfAttention):
+            m.attention = name
+
+
+def check_unet_backends(bundle, upstream: dict) -> None:
+    """The full-width forward of `check_unet` with attention="flash" (K3)
+    and "packed" (K4), each through the kernels and through the plain
+    versions of K3, K4 and K2, beside the upstream (K1) forward's time."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.models import unet as unet_mod
+    from stable_virtual_camera_tpu_torch.ops import flash_attention as fa
+    from stable_virtual_camera_tpu_torch.ops import flash_attention_packed as fap
+    from stable_virtual_camera_tpu_torch.ops.time_attention import time_attention_plain
+
+    x, t_idx, ctx, dense = upstream["inputs"]
+
+    def forward():
+        with torch.inference_mode():
+            out = bundle.unet(x, t_idx, ctx, dense, T)
+        torch.cuda.synchronize()
+        return out
+
+    rows, ok = {}, True
+    try:
+        for name in ("flash", "packed"):
+            set_attention(bundle.unet, name)
+            forward()  # warm-up
+            _kernels.reset_counts()
+            t0 = time.perf_counter()
+            out_k = forward()
+            kernel_s = time.perf_counter() - t0
+            launches = _kernels.counts()
+            saved = fa.flash_attention, fap.flash_attention_packed, unet_mod.time_attention_bhds
+            fa.flash_attention = fa.flash_attention_plain
+            fap.flash_attention_packed = fap.flash_attention_packed_plain
+            unet_mod.time_attention_bhds = time_attention_plain
+            try:
+                t0 = time.perf_counter()
+                out_p = forward()
+                plain_s = time.perf_counter() - t0
+            finally:
+                fa.flash_attention, fap.flash_attention_packed, unet_mod.time_attention_bhds = saved
+            rel = ((out_k - out_p).norm() / out_p.norm()).item()
+            finite = bool(torch.isfinite(out_k).all() and torch.isfinite(out_p).all())
+            want = ["flash_attention_blhd"] + (["flash_attention_packed"] if name == "packed" else [])
+            routed = launches["flash_attention"] == 0 and all(launches[k] > 0 for k in want)
+            rows[name] = {"rel_l2": rel, "finite": finite, "kernels_s": kernel_s, "plain_s": plain_s,
+                          "rel_l2_vs_upstream": ((out_k - upstream["out"]).norm()
+                                                 / upstream["out"].norm()).item(),
+                          "launches": launches}
+            ok = ok and finite and rel <= UNET_REL_L2 and routed
+            del out_k, out_p
+    finally:
+        set_attention(bundle.unet, "upstream")
+    emit({"phase": "unet_forward_backends", "ok": ok, "frames": 2 * T, "bar": UNET_REL_L2,
+          "upstream_kernels_s": upstream["kernels_s"], **rows})
+    if not ok:
+        raise AssertionError("a UNet attention backend disagrees with its plain path or missed its kernel")
 
 
 def run_main_path(bundle) -> dict:
@@ -372,6 +518,7 @@ def run_main_path(bundle) -> dict:
         and anchors.shape[1:] == (RES, RES, 3)
         and float(frames.std()) > 0.0
         and counts["flash_attention"] > 0 and counts["time_attention"] > 0
+        and counts["flash_attention_blhd"] == 0 and counts["flash_attention_packed"] == 0
     )
     emit({"phase": "main_path", "ok": ok, "frames": list(frames.shape), "dtype": str(frames.dtype),
           "anchor_frames": list(anchors.shape), "frame_std": float(frames.std()),
@@ -379,6 +526,127 @@ def run_main_path(bundle) -> dict:
     if not ok:
         raise AssertionError("main path output or kernel launch counts are wrong")
     return counts
+
+
+def run_cli_path() -> dict:
+    """The demo CLI at full width: three renders through apps.cli.main, each
+    with its own --random_model full bundle, outputs in a temporary
+    directory, launch counts read around each. Returns the counts summed
+    over the three runs."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps import cli
+    from stable_virtual_camera_tpu_torch.engine.runner import SceneEngine
+
+    marks: list[float] = []
+
+    class TimedEngine(SceneEngine):
+        """SceneEngine that notes the wall time at each pass's end."""
+
+        def run_one_scene(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for out in super().run_one_scene(*args, **kwargs):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter() - t0)
+                yield out
+
+    runs = [
+        # (name, task, scene dir or None for the seeded PNG, kwargs, targets, inputs,
+        #  kernels that must run, kernels that must not)
+        ("img2trajvid_flash", "img2trajvid", GOLDEN,
+         dict(use_traj_prior=True, attention="flash"), 2, 1,
+         ("flash_attention_blhd", "time_attention"), ("flash_attention", "flash_attention_packed")),
+        ("img2trajvid_s-prob_packed", "img2trajvid_s-prob", None,
+         dict(use_traj_prior=True, attention="packed", traj_prior="orbit", num_targets=NUM_TARGETS),
+         NUM_TARGETS, 1, ("flash_attention_packed", "flash_attention_blhd", "time_attention"),
+         ("flash_attention",)),
+        ("img2img_single_pass", "img2img", GOLDEN, dict(use_traj_prior=False), 2, 1,
+         ("flash_attention", "time_attention"), ("flash_attention_blhd", "flash_attention_packed")),
+    ]
+    total: dict[str, int] = {}
+    results, ok = {}, True
+    saved_engine = cli.SceneEngine
+    cli.SceneEngine = TimedEngine
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            png_dir = os.path.join(tmp, "s-prob")
+            os.makedirs(png_dir)
+            img = np.random.default_rng(SEED).integers(0, 256, (RES, RES, 3), dtype=np.uint8)
+            cv2.imwrite(os.path.join(png_dir, "seeded.png"), img)
+            for name, task, data, kw, n_targets, n_inputs, must, must_not in runs:
+                marks.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                _kernels.reset_counts()
+                t0 = time.perf_counter()
+                (out_dir,) = cli.main(data or png_dir, task=task, random_model="full",
+                                      work_dir=os.path.join(tmp, "work"), num_steps=NUM_STEPS,
+                                      device=DEVICE, sampler_verbose=False, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _kernels.counts()
+                for k, c in counts.items():
+                    total[k] = total.get(k, 0) + c
+                pngs = sorted(f for f in os.listdir(os.path.join(out_dir, "samples-rgb")) if f.endswith(".png"))
+                frames = np.stack([cv2.imread(os.path.join(out_dir, "samples-rgb", f))[..., ::-1]
+                                   for f in pngs]) if pngs else np.zeros((0,))
+                with open(os.path.join(out_dir, "transforms.json")) as f:
+                    n_frames = len(json.load(f)["frames"])
+                run_ok = (
+                    os.path.exists(os.path.join(out_dir, "samples-rgb.mp4"))
+                    and len(pngs) == n_targets
+                    and n_frames == n_inputs + n_targets
+                    and frames.shape[1:] == (RES, RES, 3)
+                    and float(frames.std()) > 0.0
+                    and all(counts[k] > 0 for k in must)
+                    and all(counts[k] == 0 for k in must_not)
+                )
+                ok = ok and run_ok
+                passes = (
+                    {"first_pass_s": marks[0], "second_pass_s": marks[1] - marks[0]}
+                    if len(marks) == 2 else {"single_pass_s": marks[0] if marks else None}
+                )
+                results[name] = {"ok": run_ok, "task": task, **{k: v for k, v in kw.items()},
+                                 **passes, "main_wall_s": wall, "targets": len(pngs),
+                                 "transforms_frames": n_frames, "frames": list(frames.shape),
+                                 "frame_std": float(frames.std()) if frames.size else 0.0,
+                                 "launches": counts}
+    finally:
+        cli.SceneEngine = saved_engine
+    emit({"phase": "cli_path", "ok": ok, "runs": results, "cuts": {
+        "num_steps": f"{NUM_STEPS} (CLI default 50)",
+        "weights": "--random_model full: random bf16 (flax-default init, seed 0), full width",
+        "scenes": "assets/golden_scene (one input, two 64x64 targets, upscaled to 576x576); "
+                  f"one seeded {RES}x{RES} PNG with num_targets={NUM_TARGETS}",
+        "main_wall_s": "includes building the run's random bundle",
+    }})
+    if not ok:
+        raise AssertionError("the CLI path's outputs or launch counts are wrong")
+    return total
+
+
+def check_k5_unported(gen) -> None:
+    """K5 (benchmark/ln_probe.py::ln_pallas, not ported: no module of the
+    package calls it) at its probe shape: its bound, torch's layer_norm
+    (the one-call yardstick) and the port's plain fp32-statistics
+    layer_norm, which is its function."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.ops.norms import layer_norm_fp32
+
+    x = torch.randn((LN_ROWS, LN_WIDTH), generator=gen, device=DEVICE).to(torch.bfloat16)
+    g = torch.randn((LN_WIDTH,), generator=gen, device=DEVICE).to(torch.bfloat16)
+    b = torch.randn((LN_WIDTH,), generator=gen, device=DEVICE).to(torch.bfloat16)
+    bound_ms, bound_by = bound(8.0 * LN_ROWS * LN_WIDTH, 2 * LN_ROWS * LN_WIDTH * 2)
+    emit({"phase": "k5_unported", "ok": True, "name": "ln_pallas",
+          "replaces": "benchmark/ln_probe.py:50", "shape": [LN_ROWS, LN_WIDTH], "dtype": "bfloat16",
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": cuda_ms(lambda: torch.nn.functional.layer_norm(x, (LN_WIDTH,), g, b), 20),
+          "plain_ms": cuda_ms(lambda: layer_norm_fp32(x, g, b), 20)})
 
 
 def plain_attention_functions():
@@ -497,7 +765,7 @@ def check_train_grad(bundle, gen) -> dict:
     grad_rel = gdiff(g_kern, g_plain)
     ok = (
         loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2 and qkv_nonzero
-        and len(qkv) == n_attn and all(c > 0 for c in kern["launches"].values())
+        and len(qkv) == n_attn and all(kern["launches"][k] > 0 for k in TRAIN_KERNELS)
         and abs(remat["loss"] - kern["loss"]) <= REMAT_LOSS_REL * abs(kern["loss"])
         and remat["grad_rel_l2"] <= REMAT_GRAD_REL_L2
         and all(torch.isfinite(g).all() for g in g_kern.values())
@@ -628,7 +896,7 @@ def run_train_path(bundle) -> dict:
     ok = (
         all(math.isfinite(x) for x in losses)
         and changed > 0 and restored_equal and lora_restored and b_moved
-        and all(c > 0 for c in counts.values())
+        and all(counts[k] > 0 for k in TRAIN_KERNELS)
     )
     emit({"phase": "train_path", "ok": ok, "losses": full["losses"], "lora_loss": lora["losses"],
           "s_per_step_2_to_4": sum(full["step_seconds"][1:]) / (TRAIN_STEPS - 1),
@@ -693,7 +961,9 @@ def main() -> int:
     results: dict = {}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for key, fn in (("flash_attention", check_k1), ("time_attention", check_k2),
-                    ("k1_bwd", check_k1_bwd)):
+                    ("k1_bwd", check_k1_bwd),
+                    ("flash_attention_blhd", lambda g: check_layout_kernel(g, "blhd")),
+                    ("flash_attention_packed", lambda g: check_layout_kernel(g, "packed"))):
         try:
             out = fn(gen)
             if key == "k1_bwd":
@@ -704,7 +974,8 @@ def main() -> int:
             traceback.print_exc()
             failures.append(key)
 
-    counts: dict[str, dict] = {"render": {}, "train": {}}
+    counts: dict[str, dict] = {"render": {}, "cli": {}, "train": {}}
+    upstream: dict = {}
     try:
         t0 = time.perf_counter()
         bundle = random_bundle(SevaSpec(), ClipVisionSpec(), dtype=torch.bfloat16, device=DEVICE,
@@ -712,8 +983,10 @@ def main() -> int:
         torch.cuda.synchronize()
         emit({"phase": "weights", "seconds": time.perf_counter() - t0,
               "unet_params": sum(p.numel() for p in bundle.unet.parameters())})
-        for key, fn in (("unet_forward", lambda: check_unet(bundle, gen)),
+        for key, fn in (("unet_forward", lambda: upstream.update(check_unet(bundle, gen))),
+                        ("unet_forward_backends", lambda: check_unet_backends(bundle, upstream)),
                         ("main_path", lambda: run_main_path(bundle)),
+                        ("cli_path", run_cli_path),
                         ("train_grad", lambda: check_train_grad(bundle, gen)),
                         ("train_profile", lambda: profile_train_step(bundle, gen)),
                         ("train_path", lambda: run_train_path(bundle))):
@@ -721,6 +994,8 @@ def main() -> int:
                 out = fn()
                 if key == "main_path":
                     counts["render"] = out
+                elif key == "cli_path":
+                    counts["cli"] = out
                 elif key == "train_path":
                     counts["train"] = out
             except Exception:  # noqa: BLE001
@@ -738,12 +1013,21 @@ def main() -> int:
         "flash_attention_bwd_dq": "stable_virtual_camera_tpu/ops/flash_upstream.py:74 under grad: "
                                   f"{upstream}:1456 (_flash_attention_bwd_dq)",
         "time_attention": "stable_virtual_camera_tpu/ops/time_attention.py:134",
+        "flash_attention_blhd": "stable_virtual_camera_tpu/ops/flash_attention.py:122",
+        "flash_attention_packed": "stable_virtual_camera_tpu/ops/flash_attention_packed.py:156",
     }
-    # the render path launches K1 and K2, the training path all four; a
-    # kernel's `launches` is the count on the path that measures it here
-    # (render shapes for K1 and K2, training shapes for the backward pair)
+    try:
+        check_k5_unported(gen)
+    except Exception:  # noqa: BLE001
+        traceback.print_exc()
+        failures.append("k5_unported")
+    # the render path launches K1 and K2, the training path K1, K1-dKV,
+    # K1-dQ and K2, the CLI path K1 to K4; a kernel's `launches` is the count
+    # on the path that measures it here (render shapes for K1 and K2,
+    # training shapes for the backward pair, the CLI for K3 and K4)
     home = {"flash_attention": "render", "time_attention": "render",
-            "flash_attention_bwd_dkv": "train", "flash_attention_bwd_dq": "train"}
+            "flash_attention_bwd_dkv": "train", "flash_attention_bwd_dq": "train",
+            "flash_attention_blhd": "cli", "flash_attention_packed": "cli"}
     rows = []
     for k in _kernels.KERNELS.values():
         r = results.get(k.name, {})
@@ -759,8 +1043,11 @@ def main() -> int:
             **{key: r[key] for key in ("library", "plain_and_library_cover") if key in r},
         })
     emit({"kernels": rows})
-    missing = [f"{k}@{path}" for path, ks in (("render", ("flash_attention", "time_attention")),
-                                               ("train", tuple(home)))
+    missing = [f"{k}@{path}" for path, ks in (
+                   ("render", ("flash_attention", "time_attention")),
+                   ("cli", ("flash_attention", "time_attention", "flash_attention_blhd",
+                            "flash_attention_packed")),
+                   ("train", TRAIN_KERNELS))
                for k in ks if counts[path].get(k, 0) == 0]
     if missing and not failures:
         failures.append(f"kernels not launched on their path: {missing}")

@@ -125,9 +125,24 @@ TIME_ATTENTION = Kernel(
     # o, scale, stream
     [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P],
 )
+FLASH_ATTENTION_BLHD = Kernel(
+    "flash_attention_blhd",
+    "svc_flash_attention_blhd_fwd",
+    # q, k, v, o (contiguous (B, L, H, 64)), B, H, L, then (batch, row, head)
+    # strides of q, k, v, scale*log2(e), stream
+    [_P, _P, _P, _P, _I, _I, _I] + [_LL] * 9 + [ctypes.c_float, _P],
+)
+FLASH_ATTENTION_PACKED = Kernel(
+    "flash_attention_packed",
+    "svc_flash_attention_packed_fwd",
+    # q, k, v, o (contiguous (B, L, H*64)), B, H, L, then (batch, row)
+    # strides of q, k, v, scale*log2(e), stream
+    [_P, _P, _P, _P, _I, _I, _I] + [_LL] * 6 + [ctypes.c_float, _P],
+)
 KERNELS = {
     k.name: k
-    for k in (FLASH_ATTENTION, FLASH_ATTENTION_BWD_DKV, FLASH_ATTENTION_BWD_DQ, TIME_ATTENTION)
+    for k in (FLASH_ATTENTION, FLASH_ATTENTION_BWD_DKV, FLASH_ATTENTION_BWD_DQ, TIME_ATTENTION,
+              FLASH_ATTENTION_BLHD, FLASH_ATTENTION_PACKED)
 }
 
 

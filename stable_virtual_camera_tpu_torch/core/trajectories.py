@@ -1,9 +1,10 @@
 """Camera trajectory synthesis: the preset moves of the Basic-mode GUI.
 
-A copy of the preset part of stable_virtual_camera_tpu/core/trajectories.py
-(reference seva/geometry.py:193-596): `get_preset_pose_fov`, look-at
-triangulation and the NeRF-style spiral. Pure numpy on the host. The B-spline
-keyframe path (`generate_interpolated_path`) comes with the CLI.
+A copy of stable_virtual_camera_tpu/core/trajectories.py (reference
+seva/geometry.py:193-648): `get_preset_pose_fov`, look-at triangulation, the
+NeRF-style spiral and the B-spline keyframe path
+(`generate_interpolated_path`, which imports scipy when called). Pure numpy
+on the host.
 """
 
 from __future__ import annotations
@@ -316,6 +317,41 @@ def generate_spiral_path(
         z_axis = position - lookat
         render_poses.append(viewmatrix(z_axis, up, position))
     return np.stack(render_poses, axis=0)
+
+
+def generate_interpolated_path(
+    poses: np.ndarray,
+    n_interp: int,
+    spline_degree: int = 5,
+    smoothness: float = 0.03,
+    rot_weight: float = 0.1,
+    endpoint: bool = False,
+) -> np.ndarray:
+    """Smooth B-spline path through keyframes in (pos, lookat, up) point space
+    (reference seva/geometry.py:599-648). Returns (n_interp * (n-1), 3, 4)."""
+    import scipy.interpolate
+
+    def poses_to_points(poses: np.ndarray, dist: float) -> np.ndarray:
+        pos = poses[:, :3, -1]
+        lookat = poses[:, :3, -1] - dist * poses[:, :3, 2]
+        up = poses[:, :3, -1] + dist * poses[:, :3, 1]
+        return np.stack([pos, lookat, up], 1)
+
+    def points_to_poses(points: np.ndarray) -> np.ndarray:
+        return np.array([viewmatrix(p - l, u - p, p) for p, l, u in points])
+
+    def interp(points: np.ndarray, n: int, k: int, s: float) -> np.ndarray:
+        sh = points.shape
+        pts = np.reshape(points, (sh[0], -1))
+        k = min(k, sh[0] - 1)
+        tck, _ = scipy.interpolate.splprep(pts.T, k=k, s=s)
+        u = np.linspace(0, 1, n, endpoint=endpoint)
+        new_points = np.array(scipy.interpolate.splev(u, tck))
+        return np.reshape(new_points.T, (n, sh[1], sh[2]))
+
+    points = poses_to_points(poses, dist=rot_weight)
+    new_points = interp(points, n_interp * (points.shape[0] - 1), k=spline_degree, s=smoothness)
+    return points_to_poses(new_points)
 
 
 # ---------------------------------------------------------------------------

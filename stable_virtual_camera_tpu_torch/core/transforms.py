@@ -1,16 +1,19 @@
-"""Resize/crop/pad of image batches with the matching intrinsics update.
+"""Image loading and the resize/crop/pad of image batches with the matching
+intrinsics update.
 
-Counterpart of `transform_img_and_K` in stable_virtual_camera_tpu/core/
-transforms.py, which imports OpenCV and PIL. The port's main path needs no
-image library (the H100 machine has no imageio), so it holds its own: the
-resize is an exact area-overlap average (cv2.INTER_AREA's box filter when
-shrinking, a plain box average for integer factors), and `transform_K`
-gives the intrinsics update alone, without an image.
+Counterpart of stable_virtual_camera_tpu/core/transforms.py, which imports
+OpenCV and PIL at module level. The port needs no image library to import
+(the H100 machine has no imageio): `load_image` imports OpenCV when it
+reads a file, and the resize is the port's own `area_resize`, which
+computes what cv2.INTER_AREA computes: an exact area-overlap average when
+neither axis grows, and OpenCV's two-tap "area" interpolation when one does.
+`transform_K` gives the intrinsics update alone, without an image.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 
@@ -73,12 +76,37 @@ def area_matrix(in_size: int, out_size: int) -> np.ndarray:
     return overlap / overlap.sum(axis=1, keepdims=True)
 
 
+@functools.lru_cache(maxsize=None)
+def area_enlarge_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out_size, in_size) weights of cv2.INTER_AREA along one axis when the
+    image grows along either axis: OpenCV then interpolates between two
+    input pixels with the fraction of the output pixel that lies past the
+    first one's edge (imgproc/src/resize.cpp, `area_mode` of the linear
+    resize)."""
+    inv = out_size / in_size
+    scale = 1.0 / inv
+    M = np.zeros((out_size, in_size), np.float64)
+    for dx in range(out_size):
+        sx = math.floor(dx * scale)
+        fx = float(np.float32((dx + 1) - (sx + 1) * inv))
+        fx = 0.0 if fx <= 0 else fx - math.floor(fx)
+        if sx >= in_size - 1:
+            fx, sx = 0.0, in_size - 1
+        M[dx, sx] += 1.0 - fx
+        if fx:
+            M[dx, sx + 1] += fx
+    return M
+
+
 def area_resize(img: np.ndarray, rh: int, rw: int) -> np.ndarray:
-    """NHWC float32 area resize."""
-    if img.shape[1] == rh and img.shape[2] == rw:
+    """NHWC float32 resize as cv2.INTER_AREA computes it."""
+    h, w = img.shape[1:3]
+    if h == rh and w == rw:
         return img
-    Ah = area_matrix(img.shape[1], rh)
-    Aw = area_matrix(img.shape[2], rw)
+    if rh <= h and rw <= w:
+        Ah, Aw = area_matrix(h, rh), area_matrix(w, rw)
+    else:
+        Ah, Aw = area_enlarge_matrix(h, rh), area_enlarge_matrix(w, rw)
     out = np.einsum("oh,bhwc->bowc", Ah, img.astype(np.float64))
     out = np.einsum("ow,bhwc->bhoc", Aw, out)
     return out.astype(np.float32)
@@ -159,3 +187,93 @@ def transform_K(
     h, w = image_hw
     _, _, rh, rw, ct, cl, pads = _layout(h, w, size, scale, center, size_stride, mode)
     return _update_K(K, h, w, rh, rw, ct, cl, pads)
+
+
+def load_image(image_path_or_size, context_rgb: np.ndarray | None = None) -> np.ndarray:
+    """An image file (read with OpenCV, RGBA composited on white or on
+    `context_rgb`), or for an (h, w) size a blank white frame, as
+    (1, h, w, 3) float32 in [0, 1] (reference seva/eval.py:172-189)."""
+    if isinstance(image_path_or_size, (tuple, list)):
+        h, w = image_path_or_size
+        # PIL's Image.new("RGBA") is transparent black: white once composited
+        arr = np.zeros((int(h), int(w), 4), np.float32)
+    else:
+        import cv2
+
+        raw = cv2.imread(str(image_path_or_size), cv2.IMREAD_UNCHANGED)
+        if raw is None:
+            raise IOError(f"Could not read image {image_path_or_size}")
+        if raw.ndim == 2:
+            raw = cv2.cvtColor(raw, cv2.COLOR_GRAY2BGRA)
+        elif raw.shape[-1] == 3:
+            raw = cv2.cvtColor(raw, cv2.COLOR_BGR2BGRA)
+        arr = cv2.cvtColor(raw, cv2.COLOR_BGRA2RGBA).astype(np.float32) / 255.0
+    rgb, alpha = arr[..., :3], arr[..., 3:]
+    if context_rgb is not None:
+        out = rgb * alpha + np.asarray(context_rgb, np.float32) * (1 - alpha)
+    else:
+        out = rgb * alpha + (1 - alpha)
+    return out[None]
+
+
+def _is_normalized_K(K: np.ndarray) -> bool:
+    cxcy = K[..., :2, -1]
+    return bool(np.all(cxcy >= 0) and np.all(cxcy <= 1))
+
+
+def load_img_and_K(
+    image_path_or_size,
+    size,
+    scale: float = 1.0,
+    center: tuple[float, float] = (0.5, 0.5),
+    K: np.ndarray | None = None,
+    size_stride: int = 1,
+    center_crop: bool = False,
+    context_rgb: np.ndarray | None = None,
+):
+    """Load + rescale + crop one image, updating K (reference
+    seva/eval.py:160-246). Returns ((1, H, W, 3) in [-1, 1], K)."""
+    image = load_image(image_path_or_size, context_rgb)  # (1, h, w, 3) in [0,1]
+    h, w = image.shape[1:3]
+    if size is None:
+        size = (w, h)
+
+    if isinstance(size, (tuple, list)):
+        W, H = size
+    else:
+        W, H = get_wh_with_fixed_shortest_side(w, h, size)
+    W, H = _snap(W, size_stride), _snap(H, size_stride)
+
+    rfs = get_resizing_factor((math.floor(H * scale), math.floor(W * scale)), (h, w))
+    rh, rw = [int(np.ceil(rfs * s)) for s in (h, w)]
+    image = area_resize(image, rh, rw)
+    if scale < 1.0:
+        pw = math.ceil((W - rw) * 0.5)
+        ph = math.ceil((H - rh) * 0.5)
+        image = np.pad(image, ((0, 0), (ph, ph), (pw, pw), (0, 0)), constant_values=1.0)
+
+    cy_center = int(center[1] * image.shape[1])
+    cx_center = int(center[0] * image.shape[2])
+    if center_crop:
+        side = min(H, W)
+        ct = max(0, cy_center - side // 2)
+        cl = max(0, cx_center - side // 2)
+        ct = min(ct, image.shape[1] - side)
+        cl = min(cl, image.shape[2] - side)
+        image = image[:, ct : ct + side, cl : cl + side]
+    else:
+        ct = max(0, cy_center - H // 2)
+        cl = max(0, cx_center - W // 2)
+        ct = min(ct, image.shape[1] - H)
+        cl = min(cl, image.shape[2] - W)
+        image = image[:, ct : ct + H, cl : cl + W]
+
+    if K is not None:
+        K = K.copy().astype(np.float64)
+        if _is_normalized_K(K):
+            K[:2] *= np.array([rw, rh], dtype=np.float64)[:, None]
+        else:
+            K[:2] *= np.array([rw / w, rh / h], dtype=np.float64)[:, None]
+        K[:2, 2] -= np.array([cl, ct], dtype=np.float64)
+
+    return image * 2.0 - 1.0, K

@@ -28,9 +28,10 @@
 //   * when the caller passes an lse buffer (training), the epilogue also
 //     writes each row's log-sum-exp, m ln2 + ln l in natural-log units, for
 //     the backward kernels in flash_attention_bwd.cu.
-// Left for later: cp.async/TMA double buffering and wgmma.
-
-#include <math.h>
+// The tile itself is `flash_fwd_tile` in flash_common.cuh, shared with K3
+// (flash_attention_blhd.cu) and K4 (flash_attention_packed.cu); this file
+// gives it K1's layout. Left for later: cp.async/TMA double buffering and
+// wgmma.
 
 #include "flash_common.cuh"
 
@@ -38,139 +39,26 @@ namespace {
 
 using namespace svc;
 
-constexpr int kBQ = kTile;  // query rows per block (4 warps x 16)
-constexpr int kBK = kTile;  // keys per tile
+// K1's layout: q, k, v, o as (B, H, L, 64) through (batch, head, row)
+// element strides.
+struct LayoutBHLD {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl;
+
+  __device__ FlashSlab slab(int b, int h) const {
+    return {q + b * qsb + h * qsh, k + b * ksb + h * ksh, v + b * vsb + h * vsh,
+            o + b * osb + h * osh, qsl, ksl, vsl, osl};
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H, int L,
-                 long long qsb, long long qsh, long long qsl,
-                 long long ksb, long long ksh, long long ksl,
-                 long long vsb, long long vsh, long long vsl,
-                 long long osb, long long osh, long long osl,
-                 float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kBQ][kLds];
-  __shared__ __align__(16) __nv_bfloat16 sK[kBK][kLds];
-  __shared__ __align__(16) __nv_bfloat16 sV[kBK][kLds];
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // fragment row group
-  const int t4 = lane & 3;   // thread within the group
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int q0 = blockIdx.x * kBQ;
-
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
-  __nv_bfloat16* ob = o + b * osb + h * osh;
-
-  load_tile(sQ, qb, qsl, q0, L);
-  __syncthreads();
-
-  // A fragments of this warp's 16 query rows, 4 k-steps over the head dim.
-  const int r0 = warp * 16 + g;
-  uint32_t qa[4][4];
-  load_a_rows(qa, sQ, r0, t4);
-
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-  // running max (log2 domain) and per-thread partial row sums, rows g and g+8
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += kBK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sK, kb, ksl, k0, L);
-    load_tile(sV, vb, vsl, k0, L);
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys.
-    float s[8][4];
-    mma_a_xt(s, qa, sK, g, t4);
-
-    // scale into the log2 domain, mask keys >= L, tile row max
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool valid = k0 + n * 8 + t4 * 2 + j < L;
-        s[n][j] = valid ? s[n][j] * scale_log2 : -INFINITY;
-        s[n][2 + j] = valid ? s[n][2 + j] * scale_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, s[n][j]);
-        mx1 = fmaxf(mx1, s[n][2 + j]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every tile holds at least one valid key, so the new max is finite
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float corr0 = exp2f(m0 - mn0);
-    const float corr1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - m0);
-      s[n][1] = exp2f(s[n][1] - m0);
-      s[n][2] = exp2f(s[n][2] - m1);
-      s[n][3] = exp2f(s[n][3] - m1);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * corr0 + rs0;
-    l1 = l1 * corr1 + rs1;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= corr0;
-      acc[n][1] *= corr0;
-      acc[n][2] *= corr1;
-      acc[n][3] *= corr1;
-    }
-
-    // O += P V: the S accumulators of n-tiles 2kk and 2kk+1 are exactly
-    // the A fragment of k-step kk (4 k-steps of 16 keys).
-    mma_c_y(acc, s, sV, lane);
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-  const int row0 = q0 + r0;
-  const int row1 = row0 + 8;
-  if (lse != nullptr && t4 == 0) {
-    // log-sum-exp in natural-log units: ln(2^m * l) with m in the base-2,
-    // scale-folded domain of the loop
-    constexpr float kLn2 = 0.6931471805599453f;
-    if (row0 < L) lse[(long long)blockIdx.y * L + row0] = m0 * kLn2 + logf(l0);
-    if (row1 < L) lse[(long long)blockIdx.y * L + row1] = m1 * kLn2 + logf(l1);
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int d = n * 8 + t4 * 2;
-    if (row0 < L) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * osl + d) =
-          __floats2bfloat162_rn(acc[n][0] * inv0, acc[n][1] * inv0);
-    }
-    if (row1 < L) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * osl + d) =
-          __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
-    }
-  }
+flash_fwd_kernel(LayoutBHLD layout, float* __restrict__ lse, int H, int L, float scale_log2) {
+  // one block per (64-row query tile, batch * head)
+  flash_fwd_tile(layout, blockIdx.y / H, blockIdx.y % H, blockIdx.x * kTile, L, scale_log2,
+                 lse != nullptr ? lse + (long long)blockIdx.y * L : nullptr);
 }
 
 }  // namespace
@@ -185,11 +73,12 @@ extern "C" int svc_flash_attention_fwd(
     long long vsb, long long vsh, long long vsl,
     long long osb, long long osh, long long osl,
     float scale_log2, void* stream) {
-  dim3 grid((L + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const LayoutBHLD layout{
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, L,
-      qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl, scale_log2);
+      qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl};
+  dim3 grid((L + kTile - 1) / kTile, B * H);
+  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      layout, static_cast<float*>(lse), H, L, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

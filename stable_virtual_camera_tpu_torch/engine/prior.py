@@ -1,8 +1,9 @@
 """Anchor ("prior") frame planning for two-pass sampling.
 
-The part of stable_virtual_camera_tpu/engine/prior.py that the renderer runs
-(reference seva/eval.py:344-422): how many first-pass anchors to generate and
-where to place them. Pure numpy on the host.
+A copy of stable_virtual_camera_tpu/engine/prior.py without its
+SVC_TFIRST_BUCKETS knob (reference seva/eval.py:344-490): how many
+first-pass anchors to generate, where to place them, and the index maps the
+CLI's tasks use. Pure numpy on the host.
 """
 
 from __future__ import annotations
@@ -141,3 +142,68 @@ def resolve_anchors(
         options.set("deliver_anchors", False)
     n = infer_prior_stats(T, num_input_frames, num_total_frames, version_config, options)
     return np.linspace(0, num_total_frames - 1, n).tolist(), False
+
+
+def infer_prior_inds(
+    c2ws: np.ndarray,
+    num_prior_frames: int,
+    input_frame_indices,
+    options,
+) -> np.ndarray:
+    """Pick anchor indices among targets: equally spaced (interp) or greedy
+    farthest-from-covered (reference seva/eval.py:425-453)."""
+    chunk_strategy = options.get("chunk_strategy", "nearest")
+    if chunk_strategy.startswith("interp"):
+        prior_frame_indices = np.array(
+            [i for i in range(c2ws.shape[0]) if i not in input_frame_indices]
+        )
+        prior_frame_indices = prior_frame_indices[
+            np.ceil(
+                np.linspace(
+                    0, prior_frame_indices.shape[0] - 1, num_prior_frames, endpoint=True
+                )
+            ).astype(int)
+        ]
+    else:
+        prior_frame_indices: list[int] = []
+        while len(prior_frame_indices) < num_prior_frames:
+            closest_distance = np.abs(
+                np.arange(c2ws.shape[0])[None]
+                - np.concatenate(
+                    [np.array(input_frame_indices), np.array(prior_frame_indices)]
+                )[:, None]
+            ).min(0)
+            prior_frame_indices.append(int(np.argsort(closest_distance)[-1]))
+    return np.sort(prior_frame_indices)
+
+
+def compute_relative_inds(source_inds: np.ndarray, target_inds: np.ndarray) -> list:
+    """Map absolute ids into (fractional) positions relative to a sampled
+    sequence (reference seva/eval.py:456-490)."""
+    assert len(source_inds) > 2
+    relative_inds = []
+    for ind in target_inds:
+        if ind in source_inds:
+            relative_ind = int(np.where(source_inds == ind)[0][0])
+        elif ind < source_inds[0]:
+            relative_ind = -((source_inds[0] - ind) / (source_inds[1] - source_inds[0]))
+        elif ind > source_inds[-1]:
+            relative_ind = len(source_inds) + (
+                (ind - source_inds[-1]) / (source_inds[-1] - source_inds[-2])
+            )
+        else:
+            lower_inds = source_inds[source_inds < ind]
+            upper_inds = source_inds[source_inds > ind]
+            if len(lower_inds) > 0 and len(upper_inds) > 0:
+                lower_ind = lower_inds[-1]
+                upper_ind = upper_inds[0]
+                relative_lower_ind = int(np.where(source_inds == lower_ind)[0][0])
+                relative_upper_ind = int(np.where(source_inds == upper_ind)[0][0])
+                relative_ind = relative_lower_ind + (ind - lower_ind) / (
+                    upper_ind - lower_ind
+                ) * (relative_upper_ind - relative_lower_ind)
+            else:
+                relative_inds.append(float("nan"))
+                continue
+        relative_inds.append(relative_ind)
+    return relative_inds

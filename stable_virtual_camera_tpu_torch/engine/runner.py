@@ -1,11 +1,14 @@
-"""The scene engine: chunked, two-pass, autoregressive sampling.
+"""The scene engine: chunked, single- or two-pass, autoregressive sampling.
 
 Counterpart of stable_virtual_camera_tpu/engine/runner.py (`VaeApplier`,
 `ClipApplier`, `ModelBundle`, `build_chunk_conditioning`, `sample_chunk`,
-`SceneEngine.run_one_scene`) for the two-pass trajectory-prior render: the
-same chunk plans (engine/planner.py, engine/prior.py and
-engine/value_dict.py, copies of the JAX package's host code), the same
-conditioning, dense-economy anchors and anchor delivery.
+`SceneEngine.run_one_scene`): the single-pass render (`use_traj_prior=False`,
+the CLI's default) and the two-pass trajectory-prior render, with the same
+chunk plans (engine/planner.py, engine/prior.py and engine/value_dict.py,
+copies of the JAX package's host code), the same conditioning,
+dense-economy anchors and anchor delivery. Scene images may be paths (read
+with OpenCV), `None` (a blank frame of the previous image's size) or
+arrays, as in JAX.
 
 Differences by design: VAE/CLIP en/decode chunk with a Python loop over
 `encoding_t`/`decoding_t` (0 = one batch); chunks run one after another; PNG
@@ -27,7 +30,11 @@ import numpy as np
 import torch
 
 from stable_virtual_camera_tpu_torch.config import EngineOptions, SevaSpec, VersionConfig
-from stable_virtual_camera_tpu_torch.core.transforms import transform_img_and_K, transform_K
+from stable_virtual_camera_tpu_torch.core.transforms import (
+    load_img_and_K,
+    transform_img_and_K,
+    transform_K,
+)
 from stable_virtual_camera_tpu_torch.engine import planner
 from stable_virtual_camera_tpu_torch.engine.saving import (
     decode_output,
@@ -274,17 +281,46 @@ class SceneEngine:
         self.noise_fn = noise_fn
 
     def _prepare_images(self, image_cond, camera_cond):
-        """Transform all scene images (uint8, or float in [-1, 1] / [0, 255])
-        to the render size and normalise their Ks, one batch per input size."""
-        W, H = self.version.W, self.version.H
+        """Load and transform all scene images to the render size and
+        normalise their Ks (reference seva/eval.py:1352-1424). A path is read
+        and transformed alone, with the input or target transform options;
+        `None` is a blank frame of the previous image's size. With
+        `L_short`, the render size follows the images and `version.W/H` are
+        rewritten in place, as in JAX. Arrays (uint8, or float in [-1, 1] /
+        [0, 255]) are transformed one batch per input size."""
+        options, version = self.options, self.version
+        W, H = version.W, version.H
         imgs: list = []
         pending: dict = {}
         img_size = None
         for i, (img, K) in enumerate(zip(image_cond["img"], camera_cond["K"])):
+            if isinstance(img, str) or img is None:
+                img_arr, K = load_img_and_K(img or img_size, None, K=np.asarray(K))
+                img_size = img_arr.shape[1:3]
+                is_input = i in image_cond["input_indices"]
+                mode = options.get("transform_input" if is_input else "transform_target", "crop")
+                scale = 1.0 if is_input else options.get("transform_scale", 1.0)
+                if options.get("L_short", -1) == -1:
+                    img_arr, K = transform_img_and_K(img_arr, (W, H), K=K[None], mode=mode, scale=scale)
+                else:
+                    stride = version.f * 2**3
+                    assert options.get("L_short") % stride == 0, (
+                        f"--L_short must be a multiple of the latent stride {stride}"
+                    )
+                    img_arr, K = transform_img_and_K(
+                        img_arr, options.get("L_short"), K=K[None], size_stride=stride,
+                        mode=mode, scale=scale,
+                    )
+                    version.W = W = img_arr.shape[2]
+                    version.H = H = img_arr.shape[1]
+                K = K[0]
+                K[0] /= W
+                K[1] /= H
+                camera_cond["K"][i] = K
+                imgs.append(img_arr)
+                continue
             if not isinstance(img, np.ndarray):
-                raise TypeError(
-                    f"image {i}: the port's engine takes in-memory arrays, got {type(img)}"
-                )
+                raise TypeError(f"Unsupported image type {type(img)}")
             img_size = img.shape[:2]
             if img.dtype == np.uint8:
                 arr = img.astype(np.float32)[None] / 255.0 * 2.0 - 1.0
@@ -334,7 +370,7 @@ class SceneEngine:
         image_cond: dict,
         camera_cond: dict,
         save_path: str | None = None,
-        use_traj_prior: bool = True,
+        use_traj_prior: bool = False,
         traj_prior_Ks: np.ndarray | None = None,
         traj_prior_c2ws: np.ndarray | None = None,
         seed: int = 23,
@@ -342,13 +378,13 @@ class SceneEngine:
         first_pass_pbar: Callable | None = None,
         second_pass_pbar: Callable | None = None,
     ) -> Iterator[str | np.ndarray]:
-        """Two-pass trajectory-prior render: anchors first, then every target
-        conditioned on inputs and anchors. Yields after the first pass (when
-        saved) and at the end: file paths with a `save_path`, else the uint8
-        frames (anchors, then all targets in order)."""
-        if not use_traj_prior:
-            raise NotImplementedError("the port runs the two-pass (use_traj_prior) render only")
-        assert traj_prior_c2ws is not None, "`traj_prior_c2ws` must be set for 2-pass sampling."
+        """Render a scene. With `use_traj_prior`, two passes: anchors first,
+        then every target conditioned on inputs and anchors. Without it (the
+        default, as in JAX), one pass renders the targets chunk by chunk,
+        conditioned on the inputs and the targets generated so far. Yields
+        after a saved first pass and at the end: file paths with a
+        `save_path`, else the uint8 frames (anchors, then all targets in
+        order)."""
         options, version, bundle = self.options, self.version, self.bundle
         T = version.T
         F = version.f
@@ -389,165 +425,231 @@ class SceneEngine:
                 latent_hw=(version.H // F, version.W // F),
             )
 
-        traj_prior_c2ws = np.asarray(traj_prior_c2ws, np.float32)
-        if traj_prior_Ks is None:
-            traj_prior_Ks = np.repeat(test_Ks[:1], traj_prior_c2ws.shape[0], 0)
-        traj_prior_imgs = np.zeros((traj_prior_c2ws.shape[0],) + imgs.shape[1:], np.float32)
-        traj_prior_imgs_clip = traj_prior_imgs.copy()
-        T_first, T_second = (T[0], T[1]) if isinstance(T, (list, tuple)) else (T, T)
-
-        # ---------------- first pass: generate anchors ----------------
-        strategy1 = options.get("chunk_strategy_first_pass", "gt-nearest")
-        plan1 = planner.chunk_input_and_test(
-            T_first, input_c2ws, traj_prior_c2ws, input_indices, image_cond["prior_indices"],
-            options=options, task=task, chunk_strategy=strategy1,
-            gt_input_inds=list(range(input_c2ws.shape[0])),
-        )
-        print(
-            f"Two passes (first) - chunking with `{strategy1}` strategy: total "
-            f"{len(plan1.input_inds_per_chunk)} forward(s) ..."
-        )
-        all_samples: dict = {}
-        all_prior_inds: list[int] = []
-        for i, (c_in_inds, c_in_sels, c_pri_inds, c_pri_sels) in enumerate(
-            zip(plan1.input_inds_per_chunk, plan1.input_sels_per_chunk,
-                plan1.test_inds_per_chunk, plan1.test_sels_per_chunk)
-        ):
-            curr_input_sels, _, curr_input_maps, curr_prior_maps = planner.pad_indices(
-                c_in_sels, c_pri_sels, T=T_first,
-                padding_mode=options.get("t_padding_mode", "last"),
+        if not use_traj_prior:
+            # ---------------- one pass: all targets ----------------
+            strategy = options.get("chunk_strategy", "gt")
+            T_run = T[0] if isinstance(T, (list, tuple)) else T
+            plan = planner.chunk_input_and_test(
+                T_run, input_c2ws, test_c2ws, input_indices, test_indices,
+                options=options, task=task, chunk_strategy=strategy,
+                gt_input_inds=list(range(input_c2ws.shape[0])),
             )
-            gen = get_k_from_dict(all_samples, "samples-rgb")
-            pool_imgs = np.concatenate([input_imgs, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
-            pool_clip = np.concatenate([input_imgs_clip, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
-            pool_c2ws = np.concatenate([input_c2ws, traj_prior_c2ws[all_prior_inds]], 0)
-            pool_Ks = np.concatenate([input_Ks, traj_prior_Ks[all_prior_inds]], 0)
-            curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
-                planner.assemble(input=x[c_in_inds], test=y[c_pri_inds],
-                                 input_maps=curr_input_maps, test_maps=curr_prior_maps)
-                for x, y in zip(
-                    [pool_imgs, pool_clip, pool_c2ws, pool_Ks],
-                    [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
+            print(
+                f"One pass - chunking with `{strategy}` strategy: total "
+                f"{len(plan.input_inds_per_chunk)} forward(s) ..."
+            )
+            all_samples = {}
+            all_test_inds = []
+            for i, (c_in_inds, c_in_sels, c_test_inds, c_test_sels) in enumerate(
+                zip(plan.input_inds_per_chunk, plan.input_sels_per_chunk,
+                    plan.test_inds_per_chunk, plan.test_sels_per_chunk)
+            ):
+                curr_input_sels, curr_test_sels, curr_input_maps, curr_test_maps = planner.pad_indices(
+                    c_in_sels, c_test_sels, T=T_run,
+                    padding_mode=options.get("t_padding_mode", "last"),
                 )
-            ]
-            values = chunk_values_for(
-                curr_imgs, curr_imgs_clip, curr_input_sels, curr_c2ws, curr_Ks, list(range(T_first))
+                gen = get_k_from_dict(all_samples, "samples-rgb")
+                pool_imgs = np.concatenate([input_imgs, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
+                pool_clip = np.concatenate([input_imgs_clip, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
+                curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
+                    planner.assemble(input=x[c_in_inds], test=y[c_test_inds],
+                                     input_maps=curr_input_maps, test_maps=curr_test_maps)
+                    for x, y in zip(
+                        [pool_imgs, pool_clip, np.concatenate([input_c2ws, test_c2ws[all_test_inds]], 0),
+                         np.concatenate([input_Ks, test_Ks[all_test_inds]], 0)],
+                        [test_imgs, test_imgs_clip, test_c2ws, test_Ks],
+                    )
+                ]
+                # a test slot whose frame is one of the inputs is conditioned on too
+                extra_sels = [
+                    sel
+                    for ind, sel in zip(
+                        np.array(c_test_inds)[curr_test_maps[curr_test_maps != -1]], curr_test_sels
+                    )
+                    if test_indices[ind] in image_cond["input_indices"]
+                ]
+                values = chunk_values_for(
+                    curr_imgs, curr_imgs_clip, curr_input_sels + extra_sels, curr_c2ws, curr_Ks,
+                    curr_input_sels + extra_sels,
+                )
+                samples = sample_chunk(
+                    bundle, values, num_steps=num_steps, cfg=_cfg_at(cfg_opt, 0),
+                    guider_type=guiders[0], cfg_min=cfg_min, noise_fn=noise, pass_id=0,
+                    chunk_id=i, encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
+                    abort_event=abort_event,
+                )
+                if samples is None:
+                    return
+                samples = decode_output(samples, len(curr_imgs), c_test_sels)
+                if save_path is not None and options.get("save_first_pass", False):
+                    save_output(
+                        replace_or_include_input_for_dict(samples, c_test_sels, curr_imgs, curr_c2ws, curr_Ks),
+                        save_path=osp.join(save_path, "first-pass", f"forward_{i}"),
+                        video_save_fps=2,
+                    )
+                extend_dict(all_samples, samples)
+                all_test_inds.extend(c_test_inds)
+        else:
+            assert traj_prior_c2ws is not None, "`traj_prior_c2ws` must be set for 2-pass sampling."
+            traj_prior_c2ws = np.asarray(traj_prior_c2ws, np.float32)
+            if traj_prior_Ks is None:
+                traj_prior_Ks = np.repeat(test_Ks[:1], traj_prior_c2ws.shape[0], 0)
+            traj_prior_imgs = np.zeros((traj_prior_c2ws.shape[0],) + imgs.shape[1:], np.float32)
+            traj_prior_imgs_clip = traj_prior_imgs.copy()
+            T_first, T_second = (T[0], T[1]) if isinstance(T, (list, tuple)) else (T, T)
+
+            # ---------------- first pass: generate anchors ----------------
+            strategy1 = options.get("chunk_strategy_first_pass", "gt-nearest")
+            plan1 = planner.chunk_input_and_test(
+                T_first, input_c2ws, traj_prior_c2ws, input_indices, image_cond["prior_indices"],
+                options=options, task=task, chunk_strategy=strategy1,
+                gt_input_inds=list(range(input_c2ws.shape[0])),
             )
-            use_second_sampler = (
-                len(guiders) > 1 and options.get("ltr_first_pass", False)
-                and strategy1 != "gt" and i > 0
+            print(
+                f"Two passes (first) - chunking with `{strategy1}` strategy: total "
+                f"{len(plan1.input_inds_per_chunk)} forward(s) ..."
             )
-            samples = sample_chunk(
-                bundle, values, num_steps=num_steps, cfg=_cfg_at(cfg_opt, 0),
-                guider_type=guiders[1] if use_second_sampler else guiders[0],
-                cfg_min=cfg_min, noise_fn=noise, pass_id=1, chunk_id=i,
-                encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
-                abort_event=abort_event, progress_cb=first_pass_pbar,
-            )
-            if samples is None:
-                return
-            extend_dict(all_samples, decode_output(samples, T_first, c_pri_sels))
-            all_prior_inds.extend(c_pri_inds)
+            all_samples: dict = {}
+            all_prior_inds: list[int] = []
+            for i, (c_in_inds, c_in_sels, c_pri_inds, c_pri_sels) in enumerate(
+                zip(plan1.input_inds_per_chunk, plan1.input_sels_per_chunk,
+                    plan1.test_inds_per_chunk, plan1.test_sels_per_chunk)
+            ):
+                curr_input_sels, _, curr_input_maps, curr_prior_maps = planner.pad_indices(
+                    c_in_sels, c_pri_sels, T=T_first,
+                    padding_mode=options.get("t_padding_mode", "last"),
+                )
+                gen = get_k_from_dict(all_samples, "samples-rgb")
+                pool_imgs = np.concatenate([input_imgs, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
+                pool_clip = np.concatenate([input_imgs_clip, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
+                pool_c2ws = np.concatenate([input_c2ws, traj_prior_c2ws[all_prior_inds]], 0)
+                pool_Ks = np.concatenate([input_Ks, traj_prior_Ks[all_prior_inds]], 0)
+                curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
+                    planner.assemble(input=x[c_in_inds], test=y[c_pri_inds],
+                                     input_maps=curr_input_maps, test_maps=curr_prior_maps)
+                    for x, y in zip(
+                        [pool_imgs, pool_clip, pool_c2ws, pool_Ks],
+                        [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
+                    )
+                ]
+                values = chunk_values_for(
+                    curr_imgs, curr_imgs_clip, curr_input_sels, curr_c2ws, curr_Ks, list(range(T_first))
+                )
+                use_second_sampler = (
+                    len(guiders) > 1 and options.get("ltr_first_pass", False)
+                    and strategy1 != "gt" and i > 0
+                )
+                samples = sample_chunk(
+                    bundle, values, num_steps=num_steps, cfg=_cfg_at(cfg_opt, 0),
+                    guider_type=guiders[1] if use_second_sampler else guiders[0],
+                    cfg_min=cfg_min, noise_fn=noise, pass_id=1, chunk_id=i,
+                    encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
+                    abort_event=abort_event, progress_cb=first_pass_pbar,
+                )
+                if samples is None:
+                    return
+                extend_dict(all_samples, decode_output(samples, T_first, c_pri_sels))
+                all_prior_inds.extend(c_pri_inds)
 
-        if options.get("save_first_pass", True):
-            if save_path is None:
-                yield to_uint8(get_k_from_dict(all_samples, "samples-rgb"))
-            else:
-                save_output(all_samples, save_path=osp.join(save_path, "first-pass"), video_save_fps=5)
-                yield osp.join(save_path, "first-pass", "samples-rgb.mp4")
-
-        # ------------- second pass: interpolate all targets -------------
-        prior_indices = image_cond["prior_indices"]
-        assert prior_indices is not None
-        prior_argsort = np.argsort(list(input_indices) + list(prior_indices), kind="stable").tolist()
-        prior_indices = np.array(list(input_indices) + list(prior_indices))[prior_argsort].tolist()
-        gt_input_inds = [prior_argsort.index(i) for i in range(input_c2ws.shape[0])]
-
-        gen = get_k_from_dict(all_samples, "samples-rgb")
-        traj_prior_imgs = np.concatenate([input_imgs, gen], axis=0)[prior_argsort]
-        traj_prior_imgs_clip = np.concatenate([input_imgs_clip, gen], axis=0)[prior_argsort]
-        traj_prior_c2ws = np.concatenate([input_c2ws, traj_prior_c2ws], axis=0)[prior_argsort]
-        traj_prior_Ks = np.concatenate([input_Ks, traj_prior_Ks], axis=0)[prior_argsort]
-        update_kv_for_dict(all_samples, "samples-rgb", traj_prior_imgs)
-        update_kv_for_dict(all_samples, "samples-c2ws", traj_prior_c2ws)
-        update_kv_for_dict(all_samples, "samples-intrinsics", traj_prior_Ks)
-
-        strategy2 = options.get("chunk_strategy", "nearest")
-        keep, delivered = list(range(len(test_indices))), []
-        if options.get("deliver_anchors", False) and strategy2.startswith("interp"):
-            # a target whose pose and K equal an anchor's is delivered from
-            # the first pass instead of being denoised again
-            prior_rows = {
-                int(round(p)): j for j, p in enumerate(prior_indices) if abs(p - round(p)) < 1e-9
-            }
-            keep = []
-            for j, t in enumerate(test_indices):
-                r = prior_rows.get(t)
-                if (
-                    r is not None
-                    and np.allclose(traj_prior_c2ws[r], test_c2ws[j], atol=1e-5)
-                    and np.allclose(traj_prior_Ks[r], test_Ks[j], atol=1e-5)
-                ):
-                    delivered.append((j, r))
+            if options.get("save_first_pass", True):
+                if save_path is None:
+                    yield to_uint8(get_k_from_dict(all_samples, "samples-rgb"))
                 else:
-                    keep.append(j)
-        test_indices2 = [test_indices[j] for j in keep]
-        test_imgs2, test_imgs_clip2 = test_imgs[keep], test_imgs_clip[keep]
-        test_c2ws2, test_Ks2 = test_c2ws[keep], test_Ks[keep]
-        plan2 = planner.chunk_input_and_test(
-            T_second, traj_prior_c2ws, test_c2ws2, prior_indices, test_indices2,
-            options=options, task=task, chunk_strategy=strategy2,
-            gt_input_inds=gt_input_inds,
-        )
-        print(
-            f"Two passes (second) - chunking with `{strategy2}` strategy: total "
-            f"{len(plan2.input_inds_per_chunk)} forward(s) ..."
-        )
-        guider2 = guiders[1] if len(guiders) > 1 else guiders[0]
-        cfg2 = _cfg_at(cfg_opt, 1)
-        all_samples = {}
-        all_test_inds: list[int] = []
-        for i, (c_pri_inds, c_pri_sels, c_test_inds, c_test_sels) in enumerate(
-            zip(plan2.input_inds_per_chunk, plan2.input_sels_per_chunk,
-                plan2.test_inds_per_chunk, plan2.test_sels_per_chunk)
-        ):
-            curr_prior_sels, _, curr_prior_maps, curr_test_maps = planner.pad_indices(
-                c_pri_sels, c_test_sels, T=T_second, padding_mode="last"
+                    save_output(all_samples, save_path=osp.join(save_path, "first-pass"), video_save_fps=5)
+                    yield osp.join(save_path, "first-pass", "samples-rgb.mp4")
+
+            # ------------- second pass: interpolate all targets -------------
+            prior_indices = image_cond["prior_indices"]
+            assert prior_indices is not None
+            prior_argsort = np.argsort(list(input_indices) + list(prior_indices), kind="stable").tolist()
+            prior_indices = np.array(list(input_indices) + list(prior_indices))[prior_argsort].tolist()
+            gt_input_inds = [prior_argsort.index(i) for i in range(input_c2ws.shape[0])]
+
+            gen = get_k_from_dict(all_samples, "samples-rgb")
+            traj_prior_imgs = np.concatenate([input_imgs, gen], axis=0)[prior_argsort]
+            traj_prior_imgs_clip = np.concatenate([input_imgs_clip, gen], axis=0)[prior_argsort]
+            traj_prior_c2ws = np.concatenate([input_c2ws, traj_prior_c2ws], axis=0)[prior_argsort]
+            traj_prior_Ks = np.concatenate([input_Ks, traj_prior_Ks], axis=0)[prior_argsort]
+            update_kv_for_dict(all_samples, "samples-rgb", traj_prior_imgs)
+            update_kv_for_dict(all_samples, "samples-c2ws", traj_prior_c2ws)
+            update_kv_for_dict(all_samples, "samples-intrinsics", traj_prior_Ks)
+
+            strategy2 = options.get("chunk_strategy", "nearest")
+            keep, delivered = list(range(len(test_indices))), []
+            if options.get("deliver_anchors", False) and strategy2.startswith("interp"):
+                # a target whose pose and K equal an anchor's is delivered from
+                # the first pass instead of being denoised again
+                prior_rows = {
+                    int(round(p)): j for j, p in enumerate(prior_indices) if abs(p - round(p)) < 1e-9
+                }
+                keep = []
+                for j, t in enumerate(test_indices):
+                    r = prior_rows.get(t)
+                    if (
+                        r is not None
+                        and np.allclose(traj_prior_c2ws[r], test_c2ws[j], atol=1e-5)
+                        and np.allclose(traj_prior_Ks[r], test_Ks[j], atol=1e-5)
+                    ):
+                        delivered.append((j, r))
+                    else:
+                        keep.append(j)
+            test_indices2 = [test_indices[j] for j in keep]
+            test_imgs2, test_imgs_clip2 = test_imgs[keep], test_imgs_clip[keep]
+            test_c2ws2, test_Ks2 = test_c2ws[keep], test_Ks[keep]
+            plan2 = planner.chunk_input_and_test(
+                T_second, traj_prior_c2ws, test_c2ws2, prior_indices, test_indices2,
+                options=options, task=task, chunk_strategy=strategy2,
+                gt_input_inds=gt_input_inds,
             )
-            curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
-                planner.assemble(input=x[c_pri_inds], test=y[c_test_inds],
-                                 input_maps=curr_prior_maps, test_maps=curr_test_maps)
-                for x, y in zip(
-                    [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
-                    [test_imgs2, test_imgs_clip2, test_c2ws2, test_Ks2],
+            print(
+                f"Two passes (second) - chunking with `{strategy2}` strategy: total "
+                f"{len(plan2.input_inds_per_chunk)} forward(s) ..."
+            )
+            guider2 = guiders[1] if len(guiders) > 1 else guiders[0]
+            cfg2 = _cfg_at(cfg_opt, 1)
+            all_samples = {}
+            all_test_inds: list[int] = []
+            for i, (c_pri_inds, c_pri_sels, c_test_inds, c_test_sels) in enumerate(
+                zip(plan2.input_inds_per_chunk, plan2.input_sels_per_chunk,
+                    plan2.test_inds_per_chunk, plan2.test_sels_per_chunk)
+            ):
+                curr_prior_sels, _, curr_prior_maps, curr_test_maps = planner.pad_indices(
+                    c_pri_sels, c_test_sels, T=T_second, padding_mode="last"
                 )
-            ]
-            values = chunk_values_for(
-                curr_imgs, curr_imgs_clip, curr_prior_sels, curr_c2ws, curr_Ks, list(range(T_second))
-            )
-            samples = sample_chunk(
-                bundle, values, num_steps=num_steps, cfg=cfg2, guider_type=guider2,
-                cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
-                encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
-                abort_event=abort_event, progress_cb=second_pass_pbar, output_uint8=True,
-            )
-            if samples is None:
-                return
-            samples = decode_output(samples, T_second, c_test_sels)
-            if save_path is not None and options.get("save_second_pass", False):
-                save_output(
-                    replace_or_include_input_for_dict(samples, c_test_sels, curr_imgs, curr_c2ws, curr_Ks),
-                    save_path=osp.join(save_path, "second-pass", f"forward_{i}"),
-                    video_save_fps=2,
+                curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
+                    planner.assemble(input=x[c_pri_inds], test=y[c_test_inds],
+                                     input_maps=curr_prior_maps, test_maps=curr_test_maps)
+                    for x, y in zip(
+                        [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
+                        [test_imgs2, test_imgs_clip2, test_c2ws2, test_Ks2],
+                    )
+                ]
+                values = chunk_values_for(
+                    curr_imgs, curr_imgs_clip, curr_prior_sels, curr_c2ws, curr_Ks, list(range(T_second))
                 )
-            extend_dict(all_samples, samples)
-            all_test_inds.extend(keep[k] for k in c_test_inds)
-        if delivered:
-            rows = [r for _, r in delivered]
-            extend_dict(all_samples, {"samples-rgb/image": to_uint8(traj_prior_imgs[rows])})
-            all_test_inds.extend(j for j, _ in delivered)
-        order = np.argsort(all_test_inds, kind="stable")
-        all_samples = {key: value[order] for key, value in all_samples.items()}
+                samples = sample_chunk(
+                    bundle, values, num_steps=num_steps, cfg=cfg2, guider_type=guider2,
+                    cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
+                    encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
+                    abort_event=abort_event, progress_cb=second_pass_pbar, output_uint8=True,
+                )
+                if samples is None:
+                    return
+                samples = decode_output(samples, T_second, c_test_sels)
+                if save_path is not None and options.get("save_second_pass", False):
+                    save_output(
+                        replace_or_include_input_for_dict(samples, c_test_sels, curr_imgs, curr_c2ws, curr_Ks),
+                        save_path=osp.join(save_path, "second-pass", f"forward_{i}"),
+                        video_save_fps=2,
+                    )
+                extend_dict(all_samples, samples)
+                all_test_inds.extend(keep[k] for k in c_test_inds)
+            if delivered:
+                rows = [r for _, r in delivered]
+                extend_dict(all_samples, {"samples-rgb/image": to_uint8(traj_prior_imgs[rows])})
+                all_test_inds.extend(j for j, _ in delivered)
+            order = np.argsort(all_test_inds, kind="stable")
+            all_samples = {key: value[order] for key, value in all_samples.items()}
 
         if options.get("replace_or_include_input", False):
             all_samples = replace_or_include_input_for_dict(

@@ -1,13 +1,16 @@
-"""Output writers and media-keyed sample-dict helpers.
+"""Output writers, the transforms.json export and media-keyed sample-dict
+helpers.
 
 Counterpart of stable_virtual_camera_tpu/engine/saving.py. The helpers are
-the same numpy code; the writers import their image libraries (imageio for
-PNGs, OpenCV for mp4) only when called, so the engine runs, and keeps its
-frames in memory, on a machine without them.
+the same numpy code; the writers import OpenCV (mp4 and PNG) only when
+called, so the engine runs, and keeps its frames in memory, on a machine
+without it. PNGs are lossless, so OpenCV's files decode to the same pixels
+as the JAX package's imageio ones.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import os.path as osp
 
@@ -38,6 +41,14 @@ def write_video(path: str, frames: np.ndarray, fps: float) -> None:
     writer.release()
 
 
+def write_png(path: str, frame: np.ndarray) -> None:
+    """One (H, W, 3) uint8 RGB frame as a PNG, through OpenCV."""
+    import cv2
+
+    if not cv2.imwrite(path, cv2.cvtColor(frame, cv2.COLOR_RGB2BGR)):
+        raise IOError(f"Could not write {path}")
+
+
 def save_output(samples: dict, save_path: str, video_save_fps: float = 2) -> None:
     """Write each "name/image" entry as name.mp4 plus name/NNN.png, each
     "name/video" as name.mp4 and each "name/raw" as name.npy."""
@@ -53,13 +64,36 @@ def save_output(samples: dict, save_path: str, video_save_fps: float = 2) -> Non
                 fps=video_save_fps,
             )
             if media == "image":
-                import imageio.v3 as iio
-
                 os.makedirs(osp.join(save_path, name), exist_ok=True)
                 for i, frame in enumerate(frames):
-                    iio.imwrite(osp.join(save_path, name, f"{i:03d}.png"), frame)
+                    write_png(osp.join(save_path, name, f"{i:03d}.png"), frame)
         elif media == "raw":
             np.save(osp.join(save_path, f"{name}.npy"), value)
+
+
+def create_transforms_simple(save_path, img_paths, img_whs, c2ws, Ks) -> None:
+    """nerfstudio-style transforms.json for generated cameras
+    (reference seva/eval.py:1010-1034)."""
+    out_frames = []
+    for img_path, img_wh, c2w, K in zip(img_paths, img_whs, c2ws, Ks):
+        K = np.asarray(K)
+        out_frames.append(
+            {
+                "fl_x": float(K[0][0]),
+                "fl_y": float(K[1][1]),
+                "cx": float(K[0][2]),
+                "cy": float(K[1][2]),
+                "w": int(img_wh[0]),
+                "h": int(img_wh[1]),
+                "file_path": f"./{osp.relpath(img_path, start=save_path)}"
+                if img_path is not None
+                else None,
+                "transform_matrix": np.asarray(c2w).tolist(),
+            }
+        )
+    out = {"orientation_override": "none", "frames": out_frames}
+    with open(osp.join(save_path, "transforms.json"), "w") as of:
+        json.dump(out, of, indent=5)
 
 
 def get_k_from_dict(d: dict, k: str) -> np.ndarray:

@@ -55,12 +55,14 @@ def _finish(module: nn.Module, dtype: torch.dtype, device) -> nn.Module:
     return module.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
 
 
-def build_models(spec: SevaSpec, clip_spec: ClipVisionSpec, device, dtype):
-    """Uninitialised (unet, vae, clip) on `device` in `dtype`."""
+def build_models(spec: SevaSpec, clip_spec: ClipVisionSpec, device, dtype,
+                 attention: str = "upstream"):
+    """Uninitialised (unet, vae, clip) on `device` in `dtype`; `attention` is
+    the UNet's self-attention backend (models/unet.py)."""
     if clip_spec.embed_dim != spec.context_dim:
         raise ValueError("CLIP embed_dim must equal the UNet context_dim")
     with torch.device(device):
-        unet, vae, clip = SevaUNet(spec), AutoEncoderKL(), ClipVisionTower(clip_spec)
+        unet, vae, clip = SevaUNet(spec, attention), AutoEncoderKL(), ClipVisionTower(clip_spec)
     return tuple(_finish(m, dtype, device) for m in (unet, vae, clip))
 
 
@@ -80,16 +82,18 @@ def random_bundle(
     dtype: torch.dtype = torch.float32,
     device="cuda",
     generator: torch.Generator | None = None,
+    attention: str = "upstream",
 ):
     """A ModelBundle with flax-default random weights (tests, smoke runs),
     on the card unless `device` says otherwise. Weights are drawn in fp32 on
     `device` from `generator` (seed 0 on that device when omitted), then
-    cast to `dtype`."""
+    cast to `dtype`. `attention` is the UNet's self-attention backend; the
+    weights do not depend on it."""
     spec = spec or SevaSpec.tiny()
     clip_spec = clip_spec or ClipVisionSpec.tiny()
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    models = build_models(spec, clip_spec, device, torch.float32)
+    models = build_models(spec, clip_spec, device, torch.float32, attention)
     models = [_finish(init_flax_defaults(m, generator), dtype, device) for m in models]
     return _bundle(spec, *models)
 

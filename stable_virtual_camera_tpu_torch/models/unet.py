@@ -5,14 +5,19 @@ after the flax parameter tree (models/weights.py only flattens and
 transposes), convs run on NHWC tensors through channels_last weights, and
 norms, softmax and the time embedding keep the JAX package's fp32 islands.
 
-Attention dispatch follows the JAX package exactly:
-  * self-attention with dim_head 64 and L >= 1024 -> kernel K1
-    (ops/flash_upstream.flash_attention_upstream_bhld) on the (B, H, L, 64)
-    views of the packed qkv projection;
+Attention dispatch follows the JAX package exactly, with the `attention`
+backend in place of JAX's SVC_UPSTREAM_FLASH / SVC_PACKED_ATTENTION knobs:
+  * "upstream" (default): self-attention with dim_head 64 and L >= 1024 ->
+    kernel K1 (ops/flash_upstream.flash_attention_upstream_bhld) on the
+    (B, H, L, 64) views of the packed qkv projection;
+  * "flash" / "packed": every self-attention takes the generic split-qkv
+    path to ops/attention.sdpa_packed, which sends the supported shapes to
+    kernel K3 (ops/flash_attention) or, under "packed" with W % 128 == 0,
+    kernel K4 (ops/flash_attention_packed);
   * temporal attention over T <= 32 frames -> kernel K2
     (ops/time_attention.time_attention_bhds) on the (b*T, H, 64, S) layout
-    the projection writes directly;
-  * everything else -> the plain ops/attention.sdpa_packed.
+    the projection writes directly, whatever the backend;
+  * everything else -> the plain routes of ops/attention.sdpa_packed.
 On CPU tensors the kernel wrappers run their plain versions.
 """
 
@@ -25,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stable_virtual_camera_tpu_torch.config import SevaSpec
-from stable_virtual_camera_tpu_torch.ops.attention import sdpa_packed
+from stable_virtual_camera_tpu_torch.ops.attention import BACKENDS, sdpa_packed
 from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
     HEAD_DIM as FLASH_HEAD_DIM,
     flash_attention_upstream_bhld,
@@ -102,12 +107,16 @@ class Conv(nn.Conv2d):
 
 
 class SelfAttention(nn.Module):
-    """Fused-qkv multi-head self-attention (spatial, joint or temporal)."""
+    """Fused-qkv multi-head self-attention (spatial, joint or temporal);
+    `attention` picks the backend of the spatial and joint path."""
 
-    def __init__(self, query_dim: int, heads: int, dim_head: int):
+    def __init__(self, query_dim: int, heads: int, dim_head: int, attention: str = "upstream"):
         super().__init__()
+        if attention not in BACKENDS:
+            raise ValueError(f"attention backend must be one of {BACKENDS}, got {attention!r}")
         self.heads = heads
         self.dim_head = dim_head
+        self.attention = attention
         inner = heads * dim_head
         self.qkv = nn.Linear(query_dim, 3 * inner, bias=False)
         self.to_out = nn.Linear(inner, query_dim)
@@ -118,14 +127,14 @@ class SelfAttention(nn.Module):
         B, L, _ = x.shape
         H, D = self.heads, self.dim_head
         qkv = F.linear(x, self.qkv.weight)  # (B, L, 3 * inner)
-        if D == FLASH_HEAD_DIM and L >= FLASH_MIN_LEN:
+        if self.attention == "upstream" and D == FLASH_HEAD_DIM and L >= FLASH_MIN_LEN:
             # (B, H, L, D) strided views of the packed projection; the kernel
             # writes (B, L, H, D), so to_out reads it with no copy
             q, k, v = qkv.view(B, L, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
             o = flash_attention_upstream_bhld(q, k, v)
             return self.to_out(o.transpose(1, 2).reshape(B, L, H * D))
         q, k, v = qkv.chunk(3, dim=-1)
-        return self.to_out(sdpa_packed(q, k, v, H))
+        return self.to_out(sdpa_packed(q, k, v, H, backend=self.attention))
 
     def _temporal(self, x, T: int):
         B, S, C = x.shape
@@ -180,10 +189,11 @@ class FeedForward(nn.Module):
 class TransformerBlock(nn.Module):
     """Pre-LN self-attn + single-token cross-attn + GEGLU FF."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
+                 attention: str = "upstream"):
         super().__init__()
         self.norm1 = LayerNorm32(dim)
-        self.attn1 = SelfAttention(dim, heads, dim_head)
+        self.attn1 = SelfAttention(dim, heads, dim_head, attention)
         self.norm2 = LayerNorm32(dim)
         self.attn2 = CrossAttention(dim, context_dim, heads, dim_head)
         self.norm3 = LayerNorm32(dim)
@@ -227,7 +237,7 @@ class MultiviewTransformer(nn.Module):
     block at each depth."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int,
-                 unflatten: bool, context_dim: int):
+                 unflatten: bool, context_dim: int, attention: str = "upstream"):
         super().__init__()
         inner = heads * dim_head
         self.depth = depth
@@ -235,7 +245,9 @@ class MultiviewTransformer(nn.Module):
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, inner)
         for d in range(depth):
-            self.add_module(f"spatial_{d}", TransformerBlock(inner, heads, dim_head, context_dim))
+            self.add_module(
+                f"spatial_{d}", TransformerBlock(inner, heads, dim_head, context_dim, attention)
+            )
             self.add_module(
                 f"temporal_{d}", TransformerBlockTimeMix(inner, heads, dim_head, context_dim)
             )
@@ -310,12 +322,15 @@ class SevaUNet(nn.Module):
 
     forward(x (B, h, w, 11), t_idx (B,), context (B, 1, ctx),
     dense_emb (B, h, w, 6), num_frames) -> (B, h, w, 4) fp32, B = b * T.
-    Computes in the dtype of its parameters.
+    Computes in the dtype of its parameters. `attention` ("upstream",
+    "flash" or "packed") is the self-attention backend of every
+    transformer block; it changes no parameter.
     """
 
-    def __init__(self, spec: SevaSpec):
+    def __init__(self, spec: SevaSpec, attention: str = "upstream"):
         super().__init__()
         self.spec = sp = spec
+        self.attention = attention
         mc = sp.model_channels
         emb_dim = 4 * mc
         self.time_embed_0 = nn.Linear(mc, emb_dim)
@@ -329,7 +344,7 @@ class SevaUNet(nn.Module):
         def mvt(name: str, ch: int, level_name: str, level: int):
             self.add_module(name, MultiviewTransformer(
                 ch, ch // sp.num_head_channels, sp.num_head_channels, depth(level),
-                level_name in sp.unflatten_names, sp.context_dim,
+                level_name in sp.unflatten_names, sp.context_dim, attention,
             ))
 
         def res(name: str, cin: int, cout: int):

@@ -1,11 +1,22 @@
-"""Plain attention ops for the multiview transformer and CLIP.
+"""Attention ops for the multiview transformer and CLIP.
 
-Counterpart of stable_virtual_camera_tpu/ops/attention.py without the Pallas
-opt-ins: `attention_xla` (scores materialised) for short sequences and
-`attention_chunked` (online softmax over key chunks, O(L) memory) for long
-ones. All take (B, L, H, D) queries and (B, S, H, D) keys/values and return
-(B, L, H, D); the softmax is always fp32. The self-attention shapes that go
-to the hand-written flash kernel are routed in models/unet.py.
+Counterpart of stable_virtual_camera_tpu/ops/attention.py: `attention_xla`
+(scores materialised) for short sequences, `attention_chunked` (online
+softmax over key chunks, O(L) memory) for long ones, and the dispatch of
+`scaled_dot_product_attention` / `sdpa_packed`. All take (B, L, H, D)
+queries and (B, S, H, D) keys/values and return (B, L, H, D); the softmax is
+always fp32.
+
+The attention backend is an explicit argument where JAX reads the
+`SVC_UPSTREAM_FLASH` and `SVC_PACKED_ATTENTION` knobs:
+  * "upstream" (default): the plain routes here; the shapes that go to
+    kernel K1 are routed in models/unet.py before they reach this module
+    (JAX's SVC_UPSTREAM_FLASH=1);
+  * "flash": supported shapes to kernel K3 (ops/flash_attention.py) through
+    its recompute-backward wrapper (SVC_UPSTREAM_FLASH=0);
+  * "packed": supported (B, L, W) shapes with W % 128 == 0 to kernel K4
+    (ops/flash_attention_packed.py), the rest as "flash"
+    (SVC_UPSTREAM_FLASH=0, SVC_PACKED_ATTENTION=1).
 """
 
 from __future__ import annotations
@@ -66,23 +77,48 @@ def online_softmax_attention(
     return out
 
 
+BACKENDS = ("upstream", "flash", "packed")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"attention backend must be one of {BACKENDS}, got {backend!r}")
+
+
 def scaled_dot_product_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, xla_max_seq: int = 4096
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, xla_max_seq: int = 4096,
+    backend: str = "upstream",
 ) -> torch.Tensor:
-    """Einsum or chunked attention, picked by key length."""
+    """K3 for the shapes it supports under the "flash" and "packed"
+    backends; otherwise einsum or chunked attention, picked by key length."""
+    _check_backend(backend)
+    if backend != "upstream":
+        from stable_virtual_camera_tpu_torch.ops import flash_attention as fa
+
+        if fa.supported(q, k, v):
+            return fa.flash_attention_trainable(q, k, v)
     if k.shape[1] > xla_max_seq:
         return attention_chunked(q, k, v)
     return attention_xla(q, k, v)
 
 
 def sdpa_packed(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, backend: str = "upstream"
 ) -> torch.Tensor:
-    """SDPA on the packed (B, L, heads * d) projection layout."""
+    """SDPA on the packed (B, L, heads * d) projection layout: K4 for the
+    shapes it supports under the "packed" backend, else
+    `scaled_dot_product_attention` on (B, L, heads, d) views."""
+    _check_backend(backend)
+    if backend == "packed":
+        from stable_virtual_camera_tpu_torch.ops import flash_attention_packed as fap
+
+        if fap.supported(q, k, heads):
+            return fap.flash_attention_packed(q, k, v, heads)
     B, L, W = q.shape
     S = k.shape[1]
     d = W // heads
     out = scaled_dot_product_attention(
-        q.reshape(B, L, heads, d), k.reshape(B, S, heads, d), v.reshape(B, S, heads, d)
+        q.reshape(B, L, heads, d), k.reshape(B, S, heads, d), v.reshape(B, S, heads, d),
+        backend=backend,
     )
     return out.reshape(B, L, W)

@@ -1,0 +1,94 @@
+"""Self-attention on the (B, L, H, 64) layout: kernel K3, its plain twin, and
+the differentiable wrapper with a recompute backward.
+
+Counterpart of stable_virtual_camera_tpu/ops/flash_attention.py
+(`flash_attention`, the in-repo Pallas kernel) and of `flash_attention_trainable`
+in stable_virtual_camera_tpu/ops/attention.py, whose custom VJP runs the
+kernel forward and differentiates the backward through the O(L)-memory
+chunked attention instead of a backward kernel. On CUDA tensors the forward
+launches the hand-written Hopper kernel in csrc/flash_attention_blhd.cu; on
+CPU tensors it runs `flash_attention_plain`. There is no backward kernel, as
+there is none in JAX.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stable_virtual_camera_tpu_torch import _kernels
+from stable_virtual_camera_tpu_torch.ops.attention import attention_chunked, online_softmax_attention
+from stable_virtual_camera_tpu_torch.ops.flash_upstream import _SCALE_LOG2, HEAD_DIM, _check
+
+MIN_LEN = 1024
+
+
+def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """The JAX kernel's predicate: self-attention, head dim 64, L >= 1024,
+    bf16 or fp32 (on the card, fp32 then raises in `flash_attention_cuda`)."""
+    B, L, H, D = q.shape
+    S = k.shape[1]
+    return D == HEAD_DIM and L == S and S >= MIN_LEN and q.dtype in (torch.bfloat16, torch.float32)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / 8) v over (B, L, H, 64), fp32 online softmax over key
+    chunks; returns (B, L, H, 64) in q's dtype."""
+    return online_softmax_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch K3. q, k, v: (B, L, H, 64) bf16 views with a contiguous head dim
+    (any batch/row/head strides that keep 16-byte rows, e.g. chunks of one
+    packed projection). Returns a contiguous (B, L, H, 64)."""
+    B, L, H, D = q.shape
+    if D != HEAD_DIM:
+        raise ValueError(f"flash attention (K3) needs head dim {HEAD_DIM}, got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, (B, L, H, D))
+        if t.device != q.device:
+            raise ValueError("flash attention (K3): all operands must be on one device")
+    o = torch.empty((B, L, H, D), dtype=torch.bfloat16, device=q.device)
+    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
+    with torch.cuda.device(q.device):
+        _kernels.FLASH_ATTENTION_BLHD.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, L, *strides,
+            _SCALE_LOG2, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    return o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The forward: the plain version for CPU tensors, K3 for CUDA tensors,
+    an error elsewhere."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    if q.device.type == "cuda":
+        return flash_attention_cuda(q, k, v)
+    raise RuntimeError(f"flash attention (K3) has no kernel for device {q.device}")
+
+
+class FlashAttentionTrainableFn(torch.autograd.Function):
+    """`flash_attention_trainable`: the forward is K3 (or its plain twin on
+    the CPU); the backward saves q, k, v and differentiates the plain
+    `attention_chunked` recompute, as JAX's `_flash_bwd` does. Under
+    `inference_mode` or `no_grad` nothing is saved."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_chunked(*leaves)
+        return torch.autograd.grad(out, leaves, g.to(q.dtype))
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention over (B, L, H, 64), differentiable by recompute."""
+    return FlashAttentionTrainableFn.apply(q, k, v)

@@ -1,0 +1,112 @@
+"""Self-attention on the head-packed (B, L, H * 64) layout: kernel K4 and its
+plain twin.
+
+Counterpart of stable_virtual_camera_tpu/ops/flash_attention_packed.py: q, k
+and v come in as the (B, L, W) views of the fused qkv projection and the
+output leaves as the (B, L, W) layout to_out consumes. On CUDA tensors
+`flash_attention_packed` launches the hand-written Hopper kernel in
+csrc/flash_attention_packed.cu; on CPU tensors it runs
+`flash_attention_packed_plain`. Forward only: the JAX kernel has no VJP, so
+a gradient through it raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stable_virtual_camera_tpu_torch import _kernels
+from stable_virtual_camera_tpu_torch.ops.attention import online_softmax_attention
+from stable_virtual_camera_tpu_torch.ops.flash_attention import MIN_LEN
+from stable_virtual_camera_tpu_torch.ops.flash_upstream import _SCALE_LOG2, HEAD_DIM
+
+
+def supported(q: torch.Tensor, k: torch.Tensor, heads: int) -> bool:
+    """The JAX kernel's predicate on (B, L, W) self-attention shapes: W =
+    heads * 64 with W % 128 == 0, L >= 1024, bf16 or fp32 (on the card,
+    fp32 then raises in `flash_attention_packed_cuda`)."""
+    B, L, W = q.shape
+    return (
+        W == heads * HEAD_DIM
+        and W % 128 == 0
+        and L == k.shape[1]
+        and L >= MIN_LEN
+        and q.dtype in (torch.bfloat16, torch.float32)
+    )
+
+
+def flash_attention_packed_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
+) -> torch.Tensor:
+    """softmax(q k^T / 8) v per 64-column head of (B, L, W), fp32 online
+    softmax over key chunks; returns (B, L, W) in q's dtype."""
+    B, L, W = q.shape
+
+    def bhld(t):
+        return t.reshape(B, t.shape[1], heads, HEAD_DIM).transpose(1, 2)
+
+    out = online_softmax_attention(bhld(q), bhld(k), bhld(v))
+    return out.transpose(1, 2).reshape(B, L, W)
+
+
+def _check(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"packed flash attention (K4) takes bfloat16, got {name}.dtype={t.dtype}")
+    if t.dim() != 3 or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"packed flash attention (K4): {name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
+        )
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:2]) or t.data_ptr() % 16:
+        raise ValueError(
+            f"packed flash attention (K4): {name} needs contiguous columns and 16-byte aligned "
+            f"rows, got strides {t.stride()}"
+        )
+
+
+def flash_attention_packed_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
+) -> torch.Tensor:
+    """Launch K4. q, k, v: (B, L, heads * 64) bf16 views with contiguous
+    columns (any batch/row strides that keep 16-byte rows, e.g. chunks of
+    one packed projection). Returns a contiguous (B, L, heads * 64)."""
+    B, L, W = q.shape
+    if W != heads * HEAD_DIM:
+        raise ValueError(f"packed flash attention (K4) needs W = heads * {HEAD_DIM}, got W={W}, heads={heads}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, (B, L, W))
+        if t.device != q.device:
+            raise ValueError("packed flash attention (K4): all operands must be on one device")
+    o = torch.empty((B, L, W), dtype=torch.bfloat16, device=q.device)
+    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1)]
+    with torch.cuda.device(q.device):
+        _kernels.FLASH_ATTENTION_PACKED.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, heads, L, *strides,
+            _SCALE_LOG2, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    return o
+
+
+class _PackedFn(torch.autograd.Function):
+    """Forward only: K4 on CUDA tensors, the plain twin on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads):
+        if q.device.type == "cpu":
+            return flash_attention_packed_plain(q, k, v, heads)
+        if q.device.type == "cuda":
+            return flash_attention_packed_cuda(q, k, v, heads)
+        raise RuntimeError(f"packed flash attention (K4) has no kernel for device {q.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError(
+            "packed flash attention (K4) has no gradient: the JAX kernel it ports has no VJP; "
+            'train with attention="upstream" or "flash"'
+        )
+
+
+def flash_attention_packed(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
+) -> torch.Tensor:
+    """Non-causal attention over the packed (B, L, heads * 64) layout,
+    forward only (a backward through it raises)."""
+    return _PackedFn.apply(q, k, v, heads)

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (K1 flash attention with its log-sum-exp,
-K1-dKV and K1-dQ, K2 temporal attention) against their plain versions on
-the card, the wrappers' refusals, and a backward through SevaUNet on the
-card that reaches the attention weights.
+K1-dKV and K1-dQ, K2 temporal attention, K3 flash attention on (B, L, H, 64),
+K4 flash attention on packed (B, L, W)) against their plain versions on the
+card, the wrappers' refusals, a backward through SevaUNet on the card that
+reaches the attention weights, and K3's recompute backward against K1's
+kernel backward.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
 neither jax nor the test conftest, so on a machine with the card and no JAX
@@ -10,6 +12,7 @@ it runs as
 Inputs are unit-normal bf16 from numpy with a fixed seed. Tolerances: K1 is
 bf16 out with P rounded to bf16 before P.V (max 2e-2, mean 2e-3); K2 keeps
 all arithmetic in fp32 and rounds only its output (one bf16 ulp at 1, 8e-3);
+K3 and K4 are K1's tile on other layouts (K1's bars);
 K1's LSE is fp32 (1e-2); K1-dKV/K1-dQ round P and dS to bf16 for their
 products and their outputs to bf16 (relative L2 2e-2).
 """
@@ -22,6 +25,8 @@ from stable_virtual_camera_tpu_torch import _kernels
 from stable_virtual_camera_tpu_torch.config import SevaSpec
 from stable_virtual_camera_tpu_torch.models.io import init_flax_defaults
 from stable_virtual_camera_tpu_torch.models.unet import SevaUNet
+from stable_virtual_camera_tpu_torch.ops import flash_attention as fa
+from stable_virtual_camera_tpu_torch.ops import flash_attention_packed as fap
 from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
     flash_attention_bwd_cuda,
     flash_attention_bwd_plain,
@@ -108,7 +113,7 @@ def test_flash_function_takes_the_kernels_both_ways(cuda):
     after = _kernels.counts()
     assert {n: after[n] - before[n] for n in after} == {
         "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
-        "time_attention": 0}
+        "time_attention": 0, "flash_attention_blhd": 0, "flash_attention_packed": 0}
     assert all(torch.isfinite(t.grad).all() and t.grad.abs().max() > 0 for t in (q, k, v))
     with torch.inference_mode():
         flash_attention_upstream_bhld(q, k, v)
@@ -134,7 +139,9 @@ def test_unet_backward_reaches_attention_weights(cuda):
     out = unet(x, torch.full((n,), 500, device=cuda), ctx, dense, n)
     out.square().mean().backward()
     after = _kernels.counts()
-    assert all(after[name] > before[name] for name in after)
+    upstream = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "time_attention")
+    assert all(after[name] > before[name] for name in upstream)
+    assert all(after[name] == before[name] for name in after if name not in upstream)
     blk = unet.input_blocks_1_1
     for w in (blk.spatial_0.attn1.qkv.weight, blk.temporal_0.attn1.qkv.weight):
         assert w.grad is not None and torch.isfinite(w.grad).all() and w.grad.abs().max() > 0
@@ -175,6 +182,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize("fn,shape,args", [
     (flash_attention_upstream_bhld, (1, 1, 64, 64), ()),
     (time_attention_bhds, (2, 1, 64, 8), (2,)),
+    (fa.flash_attention, (1, 64, 1, 64), ()),
+    (fap.flash_attention_packed, (1, 64, 128), (2,)),
 ])
 def test_wrappers_have_no_kernel_off_cpu_and_cuda(fn, shape, args):
     """The plain version serves CPU tensors only: a tensor on another device
@@ -182,3 +191,122 @@ def test_wrappers_have_no_kernel_off_cpu_and_cuda(fn, shape, args):
     x = torch.zeros(shape, dtype=torch.bfloat16, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         fn(x, x, x, *args)
+
+
+def _split_qkv(rng, B, L, H, device):
+    """q, k, v as the UNet's generic path passes them: (B, L, H*64) chunks of
+    one (B, L, 3*H*64) projection (row stride 3*H*64)."""
+    return _bf16(rng, (B, L, 3 * H * 64), device).chunk(3, dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (3, 1, 1296)])
+def test_blhd_kernel_matches_plain(cuda, B, H, L):
+    """K3 on (B, L, H, 64) views of split-qkv chunks, ragged L included; the
+    output is a contiguous (B, L, H, 64)."""
+    rng = np.random.default_rng(3 * L + H)
+    q, k, v = (t.reshape(B, L, H, 64) for t in _split_qkv(rng, B, L, H, cuda))
+    before = _kernels.counts()
+    out = fa.flash_attention(q, k, v)
+    after = _kernels.counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {"flash_attention_blhd": 1}
+    diff = (out.float() - fa.flash_attention_plain(q, k, v).float()).abs()
+    torch.cuda.synchronize()
+    assert out.shape == (B, L, H, 64) and out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L", [(1, 2, 64), (2, 4, 100), (1, 2, 1100), (2, 6, 1296)])
+def test_packed_kernel_matches_plain(cuda, B, H, L):
+    """K4 on split-qkv (B, L, W) chunks, ragged L included; each head
+    writes its 64-column slice of rows of stride W."""
+    rng = np.random.default_rng(5 * L + H)
+    q, k, v = _split_qkv(rng, B, L, H, cuda)
+    before = _kernels.counts()
+    out = fap.flash_attention_packed(q, k, v, H)
+    after = _kernels.counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {"flash_attention_packed": 1}
+    diff = (out.float() - fap.flash_attention_packed_plain(q, k, v, H).float()).abs()
+    torch.cuda.synchronize()
+    assert out.shape == (B, L, H * 64) and out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_blhd_recompute_gradient_matches_k1_kernel_gradient(cuda):
+    """K3's wrapper saves q, k, v and differentiates the plain chunked
+    recompute; its gradient matches K1's backward kernels (rel L2 2e-2)."""
+    rng = np.random.default_rng(11)
+    q0, k0, v0 = (_bf16(rng, (1, 1100, 2, 64), cuda) for _ in range(3))
+    g = _bf16(rng, (1, 1100, 2, 64), cuda)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q0, k0, v0)]
+        out = fn(*leaves)
+        out.backward(g)
+        return [t.grad for t in leaves]
+
+    before = _kernels.counts()
+    ours = grads(fa.flash_attention_trainable)
+    assert _kernels.counts()["flash_attention_blhd"] == before["flash_attention_blhd"] + 1
+    assert _kernels.counts()["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"]
+    ref = grads(lambda q, k, v: flash_attention_upstream_bhld(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2))
+    for a, b in zip(ours, ref):
+        assert torch.isfinite(a).all() and _rel(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_packed_gradient_raises(cuda):
+    rng = np.random.default_rng(12)
+    q, k, v = (t.detach().requires_grad_() for t in _split_qkv(rng, 1, 1100, 2, cuda))
+    out = fap.flash_attention_packed(q, k, v, 2)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        out.float().sum().backward()
+
+
+@pytest.mark.cuda
+def test_k3_k4_refuse_what_they_do_not_take(cuda):
+    """fp32 and a head dim other than 64 raise; neither runs the plain
+    version on the card."""
+    before = _kernels.counts()
+    q = torch.zeros((1, 64, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q, q)  # fp32
+    h = torch.zeros((1, 64, 2, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(h, h, h)  # D != 64
+    p = torch.zeros((1, 64, 128), device=cuda)
+    with pytest.raises(TypeError):
+        fap.flash_attention_packed(p, p, p, 2)  # fp32
+    with pytest.raises(ValueError):
+        fap.flash_attention_packed(p.bfloat16(), p.bfloat16(), p.bfloat16(), 4)  # D = 32
+    assert _kernels.counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention,kernel", [("flash", "flash_attention_blhd"),
+                                              ("packed", "flash_attention_packed")])
+def test_unet_backends_launch_their_kernels(cuda, attention, kernel):
+    """A small bf16 SevaUNet (2 heads of 64 at 32 x 32 = 1024 tokens per
+    frame) with attention="flash" launches K3 and with "packed" K4, never
+    K1, and agrees with the "upstream" (K1) network on the same weights."""
+    spec = SevaSpec(model_channels=128, num_frames=2, num_head_channels=64, context_dim=64,
+                    channel_mult=(1, 1), transformer_depth=(1, 1), attention_resolutions=(1,))
+    nets = {}
+    for name in ("upstream", attention):
+        unet = init_flax_defaults(SevaUNet(spec, attention=name), torch.Generator().manual_seed(0))
+        nets[name] = unet.to(cuda, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n = 2
+    args = (torch.randn((n, 32, 32, 11), generator=g, device=cuda), torch.full((n,), 500, device=cuda),
+            torch.randn((n, 1, 64), generator=g, device=cuda),
+            torch.randn((n, 32, 32, 6), generator=g, device=cuda), n)
+    with torch.inference_mode():
+        ref = nets["upstream"](*args)
+        before = _kernels.counts()
+        out = nets[attention](*args)
+        after = _kernels.counts()
+    assert after[kernel] > before[kernel] and after["flash_attention"] == before["flash_attention"]
+    assert torch.isfinite(out).all() and _rel(out, ref) <= 3e-2

@@ -1,5 +1,5 @@
-"""The port's main path and its fine-tuning path import no JAX, nothing of
-the JAX package and no image library.
+"""The port's main path, its CLI and its fine-tuning path import no JAX,
+nothing of the JAX package and no image library.
 
 The machine with the card has PyTorch but no JAX, and no `imageio` (so the
 port keeps its own image transforms, and imports its readers' and writers'
@@ -34,6 +34,9 @@ sys.meta_path.insert(0, Block())
 
 import chip_smoke
 import stable_virtual_camera_tpu_torch.apps.renderer
+import stable_virtual_camera_tpu_torch.apps.cli
+import stable_virtual_camera_tpu_torch.ops.flash_attention
+import stable_virtual_camera_tpu_torch.ops.flash_attention_packed
 import stable_virtual_camera_tpu_torch.models.io
 import stable_virtual_camera_tpu_torch.engine.runner
 import stable_virtual_camera_tpu_torch.apps.train_cli

@@ -109,19 +109,41 @@ def test_time_path_attention_matches_jax_kernel(monkeypatch):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-3, rtol=2e-2)
 
 
+_ROUTES = [
+    # (backend, L, dim_head, time_frames, route); the upstream cases keep the
+    # ids they had before the backend option
+    ("upstream", 1024, 64, None, "flash"),   # shortest flash sequence
+    ("upstream", 1023, 64, None, "plain"),   # one token short
+    ("upstream", 2048, 32, None, "plain"),   # head dim the kernel does not take
+    ("upstream", 16, 64, 4, "time"),         # temporal, T <= 32
+    ("upstream", 16, 64, 33, "plain"),       # temporal past the kernel's frame cap
+    ("flash", 1024, 64, None, "k3"),
+    ("flash", 1023, 64, None, "plain"),
+    ("flash", 2048, 32, None, "plain"),
+    ("flash", 16, 64, 4, "time"),
+    ("flash", 16, 64, 33, "plain"),
+    ("packed", 1024, 64, None, "k4"),        # 2 heads: W = 128
+    ("packed", 1023, 64, None, "plain"),
+    ("packed", 2048, 32, None, "plain"),     # W = 64: neither K4 nor K3
+    ("packed", 16, 64, 4, "time"),
+    ("packed", 16, 64, 33, "plain"),
+]
+
+
 @pytest.mark.parametrize(
-    "L,dim_head,time_frames,route",
-    [
-        (1024, 64, None, "flash"),   # shortest flash sequence
-        (1023, 64, None, "plain"),   # one token short
-        (2048, 32, None, "plain"),   # head dim the kernel does not take
-        (16, 64, 4, "time"),         # temporal, T <= 32
-        (16, 64, 33, "plain"),       # temporal past the kernel's frame cap
-    ],
+    "backend,L,dim_head,time_frames,route",
+    [pytest.param(*case, id="-".join(map(str, case[1:] if case[0] == "upstream" else case)))
+     for case in _ROUTES],
 )
-def test_attention_dispatch_follows_jax(monkeypatch, L, dim_head, time_frames, route):
-    """Which route each shape takes: K1 for dim_head 64 and L >= 1024, K2 for
-    T <= 32 frames, plain SDPA/einsum otherwise (models/unet.py:252-434)."""
+def test_attention_dispatch_follows_jax(monkeypatch, backend, L, dim_head, time_frames, route):
+    """Which route each shape takes under each backend: "upstream" sends
+    dim_head 64 and L >= 1024 to K1; "flash" sends them to K3 and "packed"
+    to K4 (W % 128 == 0) through sdpa_packed; K2 takes T <= 32 frames under
+    every backend; plain SDPA/einsum otherwise (models/unet.py:252-453,
+    ops/attention.py:126-194)."""
+    from stable_virtual_camera_tpu_torch.ops import flash_attention as t_fa
+    from stable_virtual_camera_tpu_torch.ops import flash_attention_packed as t_fap
+
     calls = []
 
     def spy(name, fn):
@@ -133,8 +155,10 @@ def test_attention_dispatch_follows_jax(monkeypatch, L, dim_head, time_frames, r
     monkeypatch.setattr(t_unet, "flash_attention_upstream_bhld",
                         spy("flash", t_unet.flash_attention_upstream_bhld))
     monkeypatch.setattr(t_unet, "time_attention_bhds", spy("time", t_unet.time_attention_bhds))
+    monkeypatch.setattr(t_fa, "flash_attention", spy("k3", t_fa.flash_attention))
+    monkeypatch.setattr(t_fap, "flash_attention_packed", spy("k4", t_fap.flash_attention_packed))
     heads = 2
-    attn = t_unet.SelfAttention(heads * dim_head, heads, dim_head)
+    attn = t_unet.SelfAttention(heads * dim_head, heads, dim_head, attention=backend)
     n = 2 * time_frames if time_frames else 1
     x = torch.randn(n, L, heads * dim_head)
     with torch.inference_mode():
