@@ -38,17 +38,39 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      (apps/train_cli.train) at full width on an in-memory scene, then one
      LoRA step, with checkpoint round trips and the kernels' launch counts
      read around it;
- 12. `k5_unported`: the bound of the one TPU kernel not ported (a LayerNorm
-     probe) and the time of torch's layer_norm at its shape, then a
-     `kernels` summary line and the final `ok` line.
-Every phase prints one JSON line. Cuts against a real render, the CLI and a
-real fine-tune are printed in phases 7, 8 and 11. Any failed phase exits
+ 12. `k5_layer_norm`: K5 (LayerNorm with one-pass fp32 statistics) against
+     its plain version at the probe's shape (42*5184, 320) bf16 and at
+     widths 640 and 1280 with ragged row counts, with torch's layer_norm as
+     the one-call yardstick, then the probe's own loop (32 dependent
+     LayerNorms) with its launch count;
+ 13. `global_align_synthetic`: the port's global alignment on the card (500
+     Adam steps, cosine schedule) over a known scene built here (8 images,
+     384x512 maps, 56 edges, each with its own scale), with the recovery
+     bars of the JAX package's test at noise 0, then torch.profiler over 5
+     steps at 56 edges and at 6 (three images, the Advanced path's size);
+ 14. `dust3r_forward`: the DUSt3R stereo network at full width
+     (Dust3rSpec(), seeded random fp32 weights) on one batch of 512x384
+     pairs: parameters, seconds per pair, peak memory, output ranges;
+ 15. `advanced_path`: the GUI's Advanced mode at full width: three seeded
+     512x384 PNGs through NativeDust3rPipeline (6 pairs, 500 alignment
+     steps) and preprocess_advanced (768x576), a keyframe trajectory
+     through the recovered poses (20 targets), and HeadlessRenderer's two
+     passes, with K1/K2 launch counts read around the render and the peak
+     memory of a chunk's VAE decode at 768x576;
+ 16. `k1_k2_path_shapes`: K1 and K2 against their plain versions at every
+     shape the two render paths gave them (noted around each render) that
+     phases 2 and 3 did not hold: the first passes' shorter chunks and all
+     of the Advanced path's 768x576 shapes;
+then a `kernels` summary line and the final `ok` line.
+Every phase prints one JSON line. Cuts against a real render, the CLI, a
+real fine-tune and the Advanced mode are printed in phases 7, 8, 11 and 15. Any failed phase exits
 non-zero without the final line; so does a machine with no CUDA device, or a
 directory without the port.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -72,7 +94,9 @@ K4_SHAPES = [(L, B, H) for L, B, H in K1_SHAPES if (64 * H) % 128 == 0]
 # (S, H) time-mix shapes at 576x576 (ds1, ds2, ds4, ds8)
 K2_SHAPES = [(5184, 5), (1296, 10), (324, 20), (81, 20)]
 K1_MAX_ABS, K1_MEAN_ABS = 2e-2, 2e-3
-K2_MAX_ABS = 8e-3  # one bf16 ulp at 1
+# K2 keeps fp32 throughout and rounds only its output: one bf16 step at the
+# output's magnitude (8e-3 while |o| < 2, as at T=21; a T=3 chunk reaches 4)
+K2_BF16_STEPS = 1.0
 UNET_REL_L2 = 3e-2
 # training: T=21 frames of one scene, (L, B, H) of every self-attention
 TRAIN_T = 21
@@ -85,12 +109,20 @@ TRAIN_STEPS, TRAIN_INPUTS, TRAIN_LR, LORA_RANK = 4, 3, 1e-3, 16
 # the kernels of the training path (K3's backward is a plain recompute and
 # K4 has none, so the backends other than "upstream" do not train here)
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "time_attention")
-# K5's probe shape: LayerNorm over (42 * 5184, 320) bf16 rows
-LN_ROWS, LN_WIDTH = 42 * 5184, 320
+# K5's probe shape: LayerNorm over (42 * 5184, 320) bf16 rows, then the
+# UNet's other widths with ragged row counts; the probe's loop length
+LN_SHAPES = [(42 * 5184, 320), (42 * 1296 + 7, 640), (42 * 324 + 5, 1280)]
+LN_PROBE_ITERS = 32
+# Advanced mode: DUSt3R at 512x384, 500 alignment steps, render at 768x576
+ADV_W, ADV_H, ADV_IMAGES, ADV_SHORTER = 512, 384, 3, 576
+ALIGN_STEPS = 500
+# the synthetic alignment scene: 8 images of 384x512, every ordered pair
+SCENE_N, SCENE_H, SCENE_W = 8, 384, 512
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "assets", "golden_scene")
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -113,10 +145,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take for this work, and which
     of the two rates bounds it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -127,7 +159,9 @@ def sum_bounds(rows: list[dict], prefix: str = "") -> tuple[float, str]:
     return ms, ("operations" if ops >= ms / 2 else "bytes")
 
 
-def check_k1(gen) -> dict:
+def k1_row(gen, L: int, B: int, H: int) -> dict:
+    """K1 against its plain version at one (L, B, H), with times, SDPA as
+    the one-call yardstick, and the bound."""
     import torch
 
     from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
@@ -135,45 +169,58 @@ def check_k1(gen) -> dict:
         flash_attention_plain,
     )
 
-    rows, worst = [], 0.0
-    ms = plain_ms = 0.0
-    for L, B, H in K1_SHAPES:
-        # the UNet's layout: (B, H, L, 64) views of a packed (B, L, 3, H, 64) projection
-        qkv = torch.randn((B, L, 3, H, 64), generator=gen, device=DEVICE).to(torch.bfloat16)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
-        out = flash_attention_cuda(q, k, v).float()
-        ref = flash_attention_plain(q, k, v).float()
-        torch.cuda.synchronize()
-        diff = (out - ref).abs()
-        row = {
-            "L": L, "B": B, "H": H,
-            "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
-            "finite": bool(torch.isfinite(out).all()),
-            "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v), 10),
-            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2),
-            "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10),
-        }
-        flops = 4.0 * L * L * 64 * H * B
-        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-        row["bound_ms"], row["bound_by"] = bound(flops, 4 * B * H * L * 64 * 2)
-        rows.append(row)
-        worst = max(worst, row["max_abs_err"])
-        ms += row["ms"]
-        plain_ms += row["plain_ms"]
-        del qkv, q, k, v, out, ref, diff
-        torch.cuda.empty_cache()
-    ok = all(r["finite"] and r["max_abs_err"] <= K1_MAX_ABS and r["mean_abs_err"] <= K1_MEAN_ABS for r in rows)
+    # the UNet's layout: (B, H, L, 64) views of a packed (B, L, 3, H, 64) projection
+    qkv = torch.randn((B, L, 3, H, 64), generator=gen, device=DEVICE).to(torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    out = flash_attention_cuda(q, k, v).float()
+    ref = flash_attention_plain(q, k, v).float()
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    row = {
+        "L": L, "B": B, "H": H,
+        "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+        "finite": bool(torch.isfinite(out).all()),
+        "ms": cuda_ms(lambda: flash_attention_cuda(q, k, v), 10),
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v), 2),
+        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10),
+    }
+    flops = 4.0 * L * L * 64 * H * B
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    row["bound_ms"], row["bound_by"] = bound(flops, 4 * B * H * L * 64 * 2)
+    del qkv, q, k, v, out, ref, diff
+    torch.cuda.empty_cache()
+    return row
+
+
+def k1_ok(row: dict) -> bool:
+    return row["finite"] and row["max_abs_err"] <= K1_MAX_ABS and row["mean_abs_err"] <= K1_MEAN_ABS
+
+
+def k2_ok(row: dict) -> bool:
+    return row["finite"] and row["max_bf16_steps"] <= K2_BF16_STEPS
+
+
+def summary(rows: list[dict]) -> dict:
+    """The sums over several shapes that the `kernels` line carries."""
+    bound_ms, bound_by = sum_bounds(rows)
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms")},
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_k1(gen) -> dict:
+    rows = [k1_row(gen, *shape) for shape in K1_SHAPES]
+    ok = all(k1_ok(r) for r in rows)
     emit({"phase": "k1_flash_attention", "ok": ok, "bar": {"max_abs": K1_MAX_ABS, "mean_abs": K1_MEAN_ABS},
           "shapes": rows})
     if not ok:
         raise AssertionError("K1 disagrees with its plain version")
-    bound_ms, bound_by = sum_bounds(rows)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": sum(r["library_ms"] for r in rows),
-            "library": "torch.nn.functional.scaled_dot_product_attention on the same views"}
+    return {**summary(rows), "library": "torch.nn.functional.scaled_dot_product_attention on the same views"}
 
 
-def check_k2(gen) -> dict:
+def k2_row(gen, S: int, H: int, num_frames: int = T, b: int = 2) -> dict:
+    """K2 against its plain version at one (S, H, T, b), with times, SDPA
+    on permuted views as the one-call yardstick, and the bound."""
     import torch
 
     from stable_virtual_camera_tpu_torch.ops.time_attention import (
@@ -181,45 +228,41 @@ def check_k2(gen) -> dict:
         time_attention_plain,
     )
 
-    rows, worst = [], 0.0
-    ms = plain_ms = 0.0
-    b = 2
-    for S, H in K2_SHAPES:
-        # the UNet's layout: (b*T, H, 64, S) views of a (b*T, 3, H, 64, S) projection
-        qkv = torch.randn((b * T, 3, H, 64, S), generator=gen, device=DEVICE).to(torch.bfloat16)
-        q, k, v = qkv.unbind(1)
-        out = time_attention_cuda(q, k, v, T).float()
-        ref = time_attention_plain(q, k, v, T).float()
-        torch.cuda.synchronize()
-        diff = (out - ref).abs()
-        row = {
-            "S": S, "H": H, "T": T, "b": b,
-            "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
-            "finite": bool(torch.isfinite(out).all()),
-            "ms": cuda_ms(lambda: time_attention_cuda(q, k, v, T), 10),
-            "plain_ms": cuda_ms(lambda: time_attention_plain(q, k, v, T), 3),
-            "library_ms": cuda_ms(lambda: time_sdpa(q, k, v), 10),
-        }
-        # q, k, v read once, o written once; 4 T^2 64 fp32 FLOP per (scene,
-        # position, head)
-        row["bound_ms"], row["bound_by"] = bound(4.0 * T * T * 64 * b * S * H,
-                                                 4 * b * T * H * 64 * S * 2)
-        rows.append(row)
-        worst = max(worst, row["max_abs_err"])
-        ms += row["ms"]
-        plain_ms += row["plain_ms"]
-    ok = all(r["finite"] and r["max_abs_err"] <= K2_MAX_ABS for r in rows)
-    emit({"phase": "k2_time_attention", "ok": ok, "bar": {"max_abs": K2_MAX_ABS}, "shapes": rows})
+    # the UNet's layout: (b*T, H, 64, S) views of a (b*T, 3, H, 64, S) projection
+    qkv = torch.randn((b * num_frames, 3, H, 64, S), generator=gen, device=DEVICE).to(torch.bfloat16)
+    q, k, v = qkv.unbind(1)
+    out = time_attention_cuda(q, k, v, num_frames).float()
+    ref = time_attention_plain(q, k, v, num_frames).float()
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    row = {
+        "S": S, "H": H, "T": num_frames, "b": b,
+        "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
+        "max_bf16_steps": bf16_steps(out, ref),
+        "finite": bool(torch.isfinite(out).all()),
+        "ms": cuda_ms(lambda: time_attention_cuda(q, k, v, num_frames), 10),
+        "plain_ms": cuda_ms(lambda: time_attention_plain(q, k, v, num_frames), 3),
+        "library_ms": cuda_ms(lambda: time_sdpa(q, k, v, num_frames), 10),
+    }
+    # q, k, v read once, o written once; 4 T^2 64 fp32 FLOP per (scene,
+    # position, head)
+    row["bound_ms"], row["bound_by"] = bound(4.0 * num_frames * num_frames * 64 * b * S * H,
+                                             4 * b * num_frames * H * 64 * S * 2)
+    return row
+
+
+def check_k2(gen) -> dict:
+    rows = [k2_row(gen, S, H) for S, H in K2_SHAPES]
+    ok = all(k2_ok(r) for r in rows)
+    emit({"phase": "k2_time_attention", "ok": ok, "bar": {"bf16_steps": K2_BF16_STEPS}, "shapes": rows})
     if not ok:
         raise AssertionError("K2 disagrees with its plain version")
-    bound_ms, bound_by = sum_bounds(rows)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": sum(r["library_ms"] for r in rows),
+    return {**summary(rows),
             "library": "scaled_dot_product_attention on (b, S, H, T, 64) permuted views; their "
                        "head dim is strided, so the call includes the copy it makes"}
 
 
-def time_sdpa(q, k, v):
+def time_sdpa(q, k, v, num_frames: int):
     """K2's function as one PyTorch call: SDPA over the frame axis on
     permuted views of the (b*T, H, 64, S) operands."""
     import torch
@@ -227,7 +270,7 @@ def time_sdpa(q, k, v):
     BT, H, D, S = q.shape
 
     def view(t):
-        return t.view(BT // T, T, H, D, S).permute(0, 4, 2, 1, 3)
+        return t.view(BT // num_frames, num_frames, H, D, S).permute(0, 4, 2, 1, 3)
 
     return torch.nn.functional.scaled_dot_product_attention(view(q), view(k), view(v))
 
@@ -480,7 +523,59 @@ def check_unet_backends(bundle, upstream: dict) -> None:
         raise AssertionError("a UNet attention backend disagrees with its plain path or missed its kernel")
 
 
-def run_main_path(bundle) -> dict:
+@contextlib.contextmanager
+def recording_shapes(shapes: dict):
+    """Note the shape of every call the UNet makes to K1, as (L, B, H), and
+    to K2, as (S, H, T, b), in `shapes`; the calls go on to the kernels."""
+    from stable_virtual_camera_tpu_torch.models import unet as unet_mod
+
+    k1, k2 = unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds
+
+    def k1_noted(q, k, v):
+        B, H, L, _ = q.shape
+        shapes.setdefault("flash_attention", set()).add((L, B, H))
+        return k1(q, k, v)
+
+    def k2_noted(q, k, v, num_frames):
+        BT, H, _, S = q.shape
+        shapes.setdefault("time_attention", set()).add((S, H, num_frames, BT // num_frames))
+        return k2(q, k, v, num_frames)
+
+    unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds = k1_noted, k2_noted
+    try:
+        yield shapes
+    finally:
+        unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds = k1, k2
+
+
+def check_path_shapes(gen, recorded: dict) -> dict:
+    """K1 and K2 against their plain versions, at the bars of their phases,
+    at every shape a render path gave them that those phases did not hold
+    already: the first passes' shorter chunks, and every shape of the
+    Advanced path at 768x576. Returns each kernel's sums per path."""
+    held = {"flash_attention": set(K1_SHAPES), "time_attention": {(S, H, T, 2) for S, H in K2_SHAPES}}
+    row_of = {"flash_attention": k1_row, "time_attention": k2_row}
+    ok_of = {"flash_attention": k1_ok, "time_attention": k2_ok}
+    rows: dict = {}
+    for path, shapes in recorded.items():
+        for name in ("flash_attention", "time_attention"):
+            todo = sorted(shapes.get(name, set()) - held[name], reverse=True)
+            rows.setdefault(name, {})[path] = [row_of[name](gen, *shape) for shape in todo]
+    ok = all(ok_of[name](r) for name, by_path in rows.items() for rs in by_path.values() for r in rs)
+    emit({"phase": "k1_k2_path_shapes", "ok": ok,
+          "bar": {"flash_attention": {"max_abs": K1_MAX_ABS, "mean_abs": K1_MEAN_ABS},
+                  "time_attention": {"bf16_steps": K2_BF16_STEPS}},
+          "recorded": {path: {name: sorted(map(list, shapes.get(name, ())), reverse=True)
+                              for name in ("flash_attention", "time_attention")}
+                       for path, shapes in recorded.items()},
+          "shapes": rows})
+    if not ok:
+        raise AssertionError("K1 or K2 disagrees with its plain version at a render path's shape")
+    return {name: {path: {"shapes": len(rs), **summary(rs)} for path, rs in by_path.items() if rs}
+            for name, by_path in rows.items()}
+
+
+def run_main_path(bundle, shapes: dict) -> dict:
     import numpy as np
     import torch
 
@@ -502,14 +597,15 @@ def run_main_path(bundle) -> dict:
 
     torch.cuda.synchronize()
     _kernels.reset_counts()
-    t0 = time.perf_counter()
-    gen = renderer.run(plan)
-    anchors = next(gen)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    frames = next(gen)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    with recording_shapes(shapes):
+        t0 = time.perf_counter()
+        gen = renderer.run(plan)
+        anchors = next(gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frames = next(gen)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     counts = _kernels.counts()
 
     ok = (
@@ -629,24 +725,390 @@ def run_cli_path() -> dict:
     return total
 
 
-def check_k5_unported(gen) -> None:
-    """K5 (benchmark/ln_probe.py::ln_pallas, not ported: no module of the
-    package calls it) at its probe shape: its bound, torch's layer_norm
-    (the one-call yardstick) and the port's plain fp32-statistics
-    layer_norm, which is its function."""
+def bf16_steps(out, ref):
+    """|out - ref| in units of one bf16 step (the spacing of bf16 values at
+    |ref|, at least 2^-17, so that the fp32 rounding of two sum orders near
+    zero does not count as a step)."""
     import torch
 
-    from stable_virtual_camera_tpu_torch.ops.norms import layer_norm_fp32
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=2.0**-10))) - 7)
+    return ((out - ref).abs() / step).max().item()
 
-    x = torch.randn((LN_ROWS, LN_WIDTH), generator=gen, device=DEVICE).to(torch.bfloat16)
-    g = torch.randn((LN_WIDTH,), generator=gen, device=DEVICE).to(torch.bfloat16)
-    b = torch.randn((LN_WIDTH,), generator=gen, device=DEVICE).to(torch.bfloat16)
-    bound_ms, bound_by = bound(8.0 * LN_ROWS * LN_WIDTH, 2 * LN_ROWS * LN_WIDTH * 2)
-    emit({"phase": "k5_unported", "ok": True, "name": "ln_pallas",
-          "replaces": "benchmark/ln_probe.py:50", "shape": [LN_ROWS, LN_WIDTH], "dtype": "bfloat16",
-          "bound_ms": bound_ms, "bound_by": bound_by,
-          "library_ms": cuda_ms(lambda: torch.nn.functional.layer_norm(x, (LN_WIDTH,), g, b), 20),
-          "plain_ms": cuda_ms(lambda: layer_norm_fp32(x, g, b), 20)})
+
+def check_k5_layer_norm(gen) -> dict:
+    """K5 against its plain version at the probe's shape and at the UNet's
+    wider widths with ragged rows, with F.layer_norm as the one-call
+    yardstick; then the probe's loop (benchmark/ln_probe.py `make`: 32
+    dependent LayerNorms, h <- LN(h) + 1e-3 h) with its launches counted."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.ops.layer_norm import ln_fused, ln_reduce
+
+    rows = []
+    for R, C in LN_SHAPES:
+        x = torch.randn((R, C), generator=gen, device=DEVICE).to(torch.bfloat16)
+        g = (1.0 + 0.1 * torch.randn((C,), generator=gen, device=DEVICE)).to(torch.bfloat16)
+        b = (0.1 * torch.randn((C,), generator=gen, device=DEVICE)).to(torch.bfloat16)
+        out = ln_fused(x, g, b).float()
+        ref = ln_reduce(x, g, b).float()
+        torch.cuda.synchronize()
+        row = {"rows": R, "C": C, "max_abs_err": (out - ref).abs().max().item(),
+               "max_bf16_steps": bf16_steps(out, ref), "finite": bool(torch.isfinite(out).all()),
+               "ms": cuda_ms(lambda: ln_fused(x, g, b), 50),
+               "plain_ms": cuda_ms(lambda: ln_reduce(x, g, b), 20),
+               "library_ms": cuda_ms(lambda: torch.nn.functional.layer_norm(x, (C,), g, b), 50)}
+        # x read and y written once, gamma and beta read once; ~8 fp32
+        # operations an element (sum, square-sum, subtract, two multiplies, add)
+        row["bound_ms"], row["bound_by"] = bound(8.0 * R * C, 2 * R * C * 2 + 2 * C * 2, PEAK_FP32_FLOPS)
+        row["gb_per_s"] = (2 * R * C * 2) / (row["ms"] * 1e-3) / 1e9
+        rows.append(row)
+        del x, out, ref
+    # the probe's loop at its shape, on the port's kernel
+    R, C = LN_SHAPES[0]
+    h = torch.randn((R, C), generator=gen, device=DEVICE).to(torch.bfloat16)
+    g = torch.ones((C,), device=DEVICE, dtype=torch.bfloat16)
+    b = torch.zeros((C,), device=DEVICE, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(LN_PROBE_ITERS):
+        h = ln_fused(h, g, b) + h * 1e-3
+    end.record()
+    torch.cuda.synchronize()
+    counts = _kernels.counts()
+    probe = {"iterations": LN_PROBE_ITERS, "ms_per_iteration": start.elapsed_time(end) / LN_PROBE_ITERS,
+             "finite": bool(torch.isfinite(h).all()), "launches": counts}
+    ok = (all(r["finite"] and r["max_bf16_steps"] <= 1.0 for r in rows) and probe["finite"]
+          and counts["layer_norm"] == LN_PROBE_ITERS)
+    emit({"phase": "k5_layer_norm", "ok": ok, "bar": {"bf16_steps": 1.0}, "dtype": "bfloat16",
+          "shapes": rows, "probe_loop": probe,
+          "library": "torch.nn.functional.layer_norm (two-pass variance, bf16 in and out)"})
+    if not ok:
+        raise AssertionError("K5 disagrees with its plain version or missed its launches")
+    first = rows[0]
+    return {"result": {k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms")} | {"shape": [first["rows"], first["C"]],
+                                                               "library": "torch.nn.functional.layer_norm"},
+            "counts": counts}
+
+
+def lookat_c2w(pos):
+    """OpenCV-convention c2w (+z forward) at `pos` looking at the origin."""
+    import numpy as np
+
+    pos = np.asarray(pos, np.float64)
+    fwd = -pos / np.linalg.norm(pos)
+    right = np.cross(fwd, [0.0, 1.0, 0.0])
+    right /= np.linalg.norm(right)
+    c2w = np.eye(4)
+    c2w[:3, :3] = np.stack([right, np.cross(fwd, right), fwd], axis=1)
+    c2w[:3, 3] = pos
+    return c2w
+
+
+def synthetic_scene(N: int, H: int, W: int, seed: int = SEED):
+    """A known scene in the stereo network's output contract (the
+    construction of tests/test_global_alignment.py, scaled to H x W): cameras
+    on an arc looking at the origin, smooth per-image depth, and for every
+    ordered pair (i, j) both pointmaps in camera i's frame at a random
+    per-edge scale, with confidences in [1, 10]. Returns (EdgePreds, c2ws,
+    focal, world points)."""
+    import numpy as np
+
+    from stable_virtual_camera_tpu_torch.core.global_alignment import EdgePreds
+
+    rng = np.random.default_rng(seed)
+    f = 40.0 * W / 32  # the test's field of view
+    c2ws = np.stack([lookat_c2w((4 * np.sin(t), 0.7 * np.sin(2 * t), -4 * np.cos(t)))
+                     for t in np.linspace(-0.5, 0.5, N)])
+    uu, vv = np.meshgrid(np.arange(W) + 0.5 - W / 2, np.arange(H) + 0.5 - H / 2)
+    dirs = np.stack([uu / f, vv / f, np.ones_like(uu)], -1)
+    depth = 3.0 + 0.5 * np.sin(np.linspace(0, 2 * np.pi, W)[None, :] + np.linspace(0, np.pi, H)[:, None])
+    world = np.stack([np.einsum("ab,hwb->hwa", c2ws[n, :3, :3], (depth + 0.1 * n)[..., None] * dirs)
+                      + c2ws[n, :3, 3] for n in range(N)])
+    w2cs = np.linalg.inv(c2ws)
+    pairs = [(i, j) for i in range(N) for j in range(N) if i != j]
+    pts1, pts2 = np.empty((2, len(pairs), H, W, 3), np.float32)
+    for e, (i, j) in enumerate(pairs):
+        kappa = rng.uniform(0.5, 2.0)
+        pts1[e] = kappa * (world[i] @ w2cs[i, :3, :3].T + w2cs[i, :3, 3])
+        pts2[e] = kappa * (world[j] @ w2cs[i, :3, :3].T + w2cs[i, :3, 3])
+    conf = rng.uniform(1.0, 10.0, (2, len(pairs), H, W)).astype(np.float32)
+    edges = EdgePreds(i_idx=np.array([i for i, _ in pairs]), j_idx=np.array([j for _, j in pairs]),
+                      pts1=pts1, conf1=conf[0], pts2=pts2, conf2=conf[1])
+    return edges, c2ws, f, world
+
+
+def scene_errors(scene, c2ws_gt, f_gt, world_gt) -> dict:
+    """Recovery errors after the similarity that best maps the recovered
+    camera centers onto the true ones (tests/test_global_alignment.py)."""
+    import numpy as np
+
+    from stable_virtual_camera_tpu_torch.core.global_alignment import weighted_umeyama
+
+    rec = scene.c2ws.astype(np.float64)
+    s, R, t = weighted_umeyama(rec[:, :3, 3], c2ws_gt[:, :3, 3], np.ones(len(rec)))
+    centers = s * rec[:, :3, 3] @ R.T + t
+    rots = np.einsum("ab,nbc->nac", R, rec[:, :3, :3])
+    angles = [np.degrees(np.arccos(np.clip((np.trace(rots[n].T @ c2ws_gt[n, :3, :3]) - 1) / 2, -1, 1)))
+              for n in range(len(rec))]
+    pts = scene.pts3d.astype(np.float64) @ R.T * s + t
+    return {"center_max_abs_err": float(np.abs(centers - c2ws_gt[:, :3, 3]).max()),
+            "rotation_max_deg": float(max(angles)),
+            "focal_max_rel_err": float(np.abs(scene.Ks[:, 0, 0] / f_gt - 1).max()),
+            "point_median_err": float(np.median(np.linalg.norm(pts - world_gt, axis=-1)))}
+
+
+def profile_alignment_steps(params: dict, data: dict, steps: int = 5) -> dict:
+    """torch.profiler over `steps` alignment steps (loss, backward, Adam):
+    device time and kernel launches a step, wall time a step, and the
+    kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stable_virtual_camera_tpu_torch.core import global_alignment as ga
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ga.refine(params, data, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, e.count, (getattr(e, "self_device_time_total", None)
+                                 or getattr(e, "self_cuda_time_total", 0.0)) / 1e3)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda k: -k[2])
+    busy = sum(ms for _, _, ms in kernels)
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_ms_per_step": busy / steps if busy else "not measured",
+            "launches_per_step": sum(n for _, n, _ in kernels) / steps,
+            "top_kernels": [{"name": name[:90], "calls": n, "device_ms": ms} for name, n, ms in kernels[:5]]}
+
+
+def check_global_align_synthetic() -> None:
+    """The port's aligner (the steps of global_align) on the card over a
+    known 8-image scene at 384x512: first and last step's loss, ms per step,
+    and recovery at the JAX package's noise-0 bars (centers 0.02, rotations
+    1 degree, focal 1%, median point error 0.02); then a profile of a few
+    steps at 56 edges and at the Advanced path's 6."""
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch.core import global_alignment as ga
+
+    t0 = time.perf_counter()
+    edges, c2ws, f, world = synthetic_scene(SCENE_N, SCENE_H, SCENE_W)
+    build_s = time.perf_counter() - t0
+    # the first alignment in a process pays a one-time cost (~10 s on an
+    # H100) that later ones do not; a 3-step run on a tiny scene takes it
+    t0 = time.perf_counter()
+    ga.refine(*ga.alignment_problem(synthetic_scene(2, 16, 16)[0], True, DEVICE), 3)
+    torch.cuda.synchronize()
+    first_use_s = time.perf_counter() - t0
+    # global_align's three steps, each timed: host init and upload, the
+    # Adam loop on the card, the scene back on the host
+    t0 = time.perf_counter()
+    params, data = ga.alignment_problem(edges, True, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    with torch.no_grad():
+        first = ga._loss_fn(params, data).item()  # the loss of the first step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = ga.refine(params, data, ALIGN_STEPS, lr=0.01, schedule="cosine")
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = ga.aligned_scene(edges, params, data, last)
+    finish_s = time.perf_counter() - t0
+    err = scene_errors(scene, c2ws, f, world)
+    # where a step's time goes, here and at the Advanced path's 6 edges
+    profiles = {f"{len(edges.i_idx)}_edges": profile_alignment_steps(params, data)}
+    del params, data
+    small = synthetic_scene(ADV_IMAGES, SCENE_H, SCENE_W)[0]
+    small_problem = ga.alignment_problem(small, True, DEVICE)
+    ga.refine(*small_problem, 3)  # warm-up
+    profiles[f"{len(small.i_idx)}_edges"] = profile_alignment_steps(*small_problem)
+    ok = (np.isfinite(scene.final_loss) and err["center_max_abs_err"] <= 0.02
+          and err["rotation_max_deg"] < 1.0 and err["focal_max_rel_err"] <= 0.01
+          and err["point_median_err"] < 0.02)
+    emit({"phase": "global_align_synthetic", "ok": ok, "images": SCENE_N, "edges": len(edges.i_idx),
+          "map_hw": [SCENE_H, SCENE_W], "steps": ALIGN_STEPS, "schedule": "cosine", "lr": 0.01,
+          "loss_first_step": first, "loss_last_step": scene.final_loss,
+          "ms_per_step": refine_s * 1e3 / ALIGN_STEPS, "init_s": init_s, "refine_s": refine_s,
+          "first_use_s": first_use_s,
+          "finish_s": finish_s, "scene_build_s": build_s, "profile": profiles,
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **err,
+          "bar": {"center_max_abs_err": 0.02, "rotation_max_deg": 1.0, "focal_max_rel_err": 0.01,
+                  "point_median_err": 0.02}})
+    if not ok:
+        raise AssertionError("global alignment did not recover the synthetic scene")
+
+
+def check_dust3r_forward():
+    """The DUSt3R network at full width (seeded random fp32 weights) on one
+    batch of 512x384 pairs (all ordered pairs of three images, as the
+    Advanced path batches them). Returns the pipeline for advanced_path."""
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch.apps.preprocessor import NativeDust3rPipeline
+
+    t0 = time.perf_counter()
+    pipe = NativeDust3rPipeline(generator=torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_pairs = ADV_IMAGES * (ADV_IMAGES - 1)
+    rng = np.random.default_rng(SEED)
+    a, b = (torch.from_numpy(rng.uniform(-1, 1, (n_pairs, ADV_H, ADV_W, 3)).astype(np.float32)).to(DEVICE)
+            for _ in range(2))
+    with torch.inference_mode():
+        pipe.model(a, b)  # warm-up (cuDNN algorithm selection for this batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = pipe.model(a, b)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    stats = {}
+    for pred, key in (("pred1", "pts3d"), ("pred2", "pts3d_in_other_view")):
+        norm = out[pred][key].norm(dim=-1)
+        conf = out[pred]["conf"]
+        stats[pred] = {"pts_norm_min": norm.min().item(), "pts_norm_median": norm.median().item(),
+                       "pts_norm_max": norm.max().item(), "conf_min": conf.min().item(),
+                       "conf_median": conf.median().item(), "conf_max": conf.max().item(),
+                       "conf_above_3": (conf > 3).float().mean().item(),
+                       "finite": bool(torch.isfinite(out[pred][key]).all() and torch.isfinite(conf).all())}
+    ok = (all(v["finite"] and v["conf_min"] >= 1.0 for v in stats.values())
+          and out["pred1"]["pts3d"].shape == (n_pairs, ADV_H, ADV_W, 3))
+    emit({"phase": "dust3r_forward", "ok": ok, "spec": "Dust3rSpec() (ViT-L encoder, 2x12-block decoders, DPT)",
+          "params": sum(p.numel() for p in pipe.model.parameters()), "dtype": "float32 (TF32 off)",
+          "pairs": n_pairs, "image_hw": [ADV_H, ADV_W], "build_s": build_s, "forward_s": fwd_s,
+          "s_per_pair": fwd_s / n_pairs, "peak_gb": peak, **stats,
+          "weights": "random fp32, flax-default init (lecun-normal kernels, zero biases), seed 0"})
+    if not ok:
+        raise AssertionError("the DUSt3R forward is not finite or its confidences fall below 1")
+    return pipe
+
+
+def run_advanced_path(bundle, pipe, shapes: dict) -> dict:
+    """The GUI's Advanced mode at full width on the card: DUSt3R and global
+    alignment through preprocess_advanced, a keyframe trajectory through
+    the recovered poses, and both render passes, with the kernels' launch
+    counts read around the render."""
+    import numpy as np
+    import PIL.Image
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps import preprocessor
+    from stable_virtual_camera_tpu_torch.apps.renderer import HeadlessRenderer, preprocess_advanced
+    from stable_virtual_camera_tpu_torch.apps.trajectory import CameraTrajectoryCore
+
+    marks: dict[str, float] = {}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            marks[name] = marks.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    rng = np.random.default_rng(SEED)
+    saved_align = preprocessor.global_align
+    preprocessor.global_align = timed("align_s", saved_align)
+    pipe.pairwise = timed("dust3r_s", pipe.pairwise)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = []
+            for i in range(ADV_IMAGES):
+                paths.append(os.path.join(tmp, f"view{i}.png"))
+                PIL.Image.fromarray(rng.integers(0, 256, (ADV_H, ADV_W, 3), dtype=np.uint8)).save(paths[-1])
+            t0 = time.perf_counter()
+            pre = preprocess_advanced(paths, pipe, shorter=ADV_SHORTER)
+            preprocess_s = time.perf_counter() - t0
+    finally:
+        preprocessor.global_align = saved_align
+        del pipe.pairwise
+    W, H = pre["input_wh"]
+    fovs = 2 * np.arctan(0.5 / pre["input_Ks"][:, 1, 1])
+    core = CameraTrajectoryCore()
+    core.default_fov = float(fovs[0])
+    core.set_keyframes_from_poses(pre["input_c2ws"], fovs, aspect=W / H)
+    traj = core.get_camera_traj_list((W, H), num_frames=NUM_TARGETS)
+
+    renderer = HeadlessRenderer(bundle, work_dir=None)
+    plan = renderer.prepare(pre, seed=SEED, camera_traj_list=traj, num_steps=NUM_STEPS)
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    with recording_shapes(shapes):
+        t0 = time.perf_counter()
+        gen = renderer.run(plan)
+        anchors = next(gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frames = next(gen)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    counts = _kernels.counts()
+
+    # a chunk's VAE decode at this size: the plan's batches, and one batch
+    decode_t = plan["options"].decoding_t
+    z = torch.randn((T, H // 8, W // 8, 4), generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+                    device=DEVICE)
+    decode = {}
+    for label, chunk in ((f"batches_of_{decode_t}", decode_t), ("one_batch_of_21", 0)):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t3 = time.perf_counter()
+        try:
+            bundle.vae.decode(z, chunk, uint8=True)
+            torch.cuda.synchronize()
+            decode[label] = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                             "peak_above_resident_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                             "s": time.perf_counter() - t3}
+        except torch.cuda.OutOfMemoryError:
+            decode[label] = "out of memory"
+    del z
+    torch.cuda.empty_cache()
+
+    finite = bool(np.isfinite(pre["input_c2ws"]).all() and np.isfinite(pre["input_Ks"]).all())
+    ok = (
+        finite and (W, H) == (768, 576)
+        and frames.dtype == np.uint8 and frames.shape == (NUM_TARGETS, H, W, 3)
+        and anchors.shape[1:] == (H, W, 3) and float(frames.std()) > 0.0
+        and counts["flash_attention"] > 0 and counts["time_attention"] > 0
+    )
+    emit({"phase": "advanced_path", "ok": ok, "input_wh": [W, H], "inputs": ADV_IMAGES,
+          "points_per_image": [len(p) for p in pre["points"]], "scene_scale": pre["scene_scale"],
+          "fov_deg": np.degrees(fovs).tolist(), "poses_finite": finite,
+          "preprocess_s": preprocess_s, "dust3r_s": marks.get("dust3r_s"), "align_s": marks.get("align_s"),
+          "T": plan["version"].T, "anchors": len(plan["image_cond"]["prior_indices"]),
+          "first_pass_chunks": plan["first_pass_chunks"], "second_pass_chunks": plan["second_pass_chunks"],
+          "decoding_t": decode_t, "first_pass_s": t1 - t0, "second_pass_s": t2 - t1,
+          "frames": list(frames.shape), "frame_std": float(frames.std()), "launches": counts,
+          "vae_decode_21_frames": decode,
+          "cuts": {
+              "num_steps": f"{NUM_STEPS} (released default 50)",
+              "num_targets": f"{NUM_TARGETS} along a keyframe spline through the recovered poses",
+              "images": f"{ADV_IMAGES} seeded random {ADV_W}x{ADV_H} PNGs",
+              "dust3r_weights": "random fp32 (flax-default init, seed 0), full width; TF32 off",
+              "align": f"{ALIGN_STEPS} steps, cosine, lr 0.01 (the preprocessor's defaults)",
+              "seva_weights": "random bf16 (flax-default init, seed 0), full width",
+              "outputs": "kept in memory, no PNG/mp4 writes",
+          }})
+    if not ok:
+        raise AssertionError("the Advanced path's outputs or kernel launch counts are wrong")
+    return counts
 
 
 def plain_attention_functions():
@@ -943,12 +1405,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
-    emit({"phase": "device", "kind": name, "count": torch.cuda.device_count(),
+    emit({"phase": "device", "kind": device_name, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
 
@@ -974,8 +1436,27 @@ def main() -> int:
             traceback.print_exc()
             failures.append(key)
 
-    counts: dict[str, dict] = {"render": {}, "cli": {}, "train": {}}
+    counts: dict[str, dict] = {"render": {}, "advanced": {}, "cli": {}, "train": {}, "k5": {}}
+    try:
+        k5 = check_k5_layer_norm(gen)
+        results["layer_norm"] = k5["result"]
+        counts["k5"] = k5["counts"]
+    except Exception:  # noqa: BLE001
+        traceback.print_exc()
+        failures.append("k5_layer_norm")
+    try:
+        check_global_align_synthetic()
+    except Exception:  # noqa: BLE001
+        traceback.print_exc()
+        failures.append("global_align_synthetic")
+    pipe = None
+    try:
+        pipe = check_dust3r_forward()
+    except Exception:  # noqa: BLE001
+        traceback.print_exc()
+        failures.append("dust3r_forward")
     upstream: dict = {}
+    recorded: dict[str, dict] = {"render": {}, "advanced": {}}
     try:
         t0 = time.perf_counter()
         bundle = random_bundle(SevaSpec(), ClipVisionSpec(), dtype=torch.bfloat16, device=DEVICE,
@@ -985,7 +1466,9 @@ def main() -> int:
               "unet_params": sum(p.numel() for p in bundle.unet.parameters())})
         for key, fn in (("unet_forward", lambda: upstream.update(check_unet(bundle, gen))),
                         ("unet_forward_backends", lambda: check_unet_backends(bundle, upstream)),
-                        ("main_path", lambda: run_main_path(bundle)),
+                        ("main_path", lambda: run_main_path(bundle, recorded["render"])),
+                        ("advanced_path", lambda: run_advanced_path(bundle, pipe, recorded["advanced"])),
+                        ("k1_k2_path_shapes", lambda: check_path_shapes(gen, recorded)),
                         ("cli_path", run_cli_path),
                         ("train_grad", lambda: check_train_grad(bundle, gen)),
                         ("train_profile", lambda: profile_train_step(bundle, gen)),
@@ -994,6 +1477,15 @@ def main() -> int:
                 out = fn()
                 if key == "main_path":
                     counts["render"] = out
+                elif key == "advanced_path":
+                    counts["advanced"] = out
+                    pipe = None  # free the DUSt3R weights
+                elif key == "k1_k2_path_shapes":
+                    for kernel, by_path in out.items():
+                        r = results.setdefault(kernel, {})
+                        r["path_shapes"] = by_path
+                        r["max_abs_err"] = max([r.get("max_abs_err", 0.0)]
+                                               + [p["max_abs_err"] for p in by_path.values()])
                 elif key == "cli_path":
                     counts["cli"] = out
                 elif key == "train_path":
@@ -1015,19 +1507,19 @@ def main() -> int:
         "time_attention": "stable_virtual_camera_tpu/ops/time_attention.py:134",
         "flash_attention_blhd": "stable_virtual_camera_tpu/ops/flash_attention.py:122",
         "flash_attention_packed": "stable_virtual_camera_tpu/ops/flash_attention_packed.py:156",
+        "layer_norm": "benchmark/ln_probe.py:50",
     }
-    try:
-        check_k5_unported(gen)
-    except Exception:  # noqa: BLE001
-        traceback.print_exc()
-        failures.append("k5_unported")
-    # the render path launches K1 and K2, the training path K1, K1-dKV,
-    # K1-dQ and K2, the CLI path K1 to K4; a kernel's `launches` is the count
-    # on the path that measures it here (render shapes for K1 and K2,
-    # training shapes for the backward pair, the CLI for K3 and K4)
+    # the render paths (Basic and Advanced) launch K1 and K2, the training
+    # path K1, K1-dKV, K1-dQ and K2, the CLI path K1 to K4, the probe's loop
+    # K5; a kernel's `launches` is the count on the path that measures it
+    # here (render shapes for K1 and K2, training shapes for the backward
+    # pair, the CLI for K3 and K4, the probe's shape for K5). K1's and K2's
+    # times are sums over the shapes of their own phases; `path_shapes`
+    # holds the sums over the other shapes of each render path, and
+    # `max_abs_err` the worst over both
     home = {"flash_attention": "render", "time_attention": "render",
             "flash_attention_bwd_dkv": "train", "flash_attention_bwd_dq": "train",
-            "flash_attention_blhd": "cli", "flash_attention_packed": "cli"}
+            "flash_attention_blhd": "cli", "flash_attention_packed": "cli", "layer_norm": "k5"}
     rows = []
     for k in _kernels.KERNELS.values():
         r = results.get(k.name, {})
@@ -1040,11 +1532,13 @@ def main() -> int:
             "launches_by_path": {path: c.get(k.name, 0) for path, c in counts.items()},
             **{key: r.get(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")},
-            **{key: r[key] for key in ("library", "plain_and_library_cover") if key in r},
+            **{key: r[key] for key in ("library", "plain_and_library_cover", "path_shapes") if key in r},
         })
     emit({"kernels": rows})
     missing = [f"{k}@{path}" for path, ks in (
                    ("render", ("flash_attention", "time_attention")),
+                   ("advanced", ("flash_attention", "time_attention")),
+                   ("k5", ("layer_norm",)),
                    ("cli", ("flash_attention", "time_attention", "flash_attention_blhd",
                             "flash_attention_packed")),
                    ("train", TRAIN_KERNELS))
@@ -1054,7 +1548,7 @@ def main() -> int:
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}})
     return 0
 
 

@@ -139,10 +139,16 @@ FLASH_ATTENTION_PACKED = Kernel(
     # strides of q, k, v, scale*log2(e), stream
     [_P, _P, _P, _P, _I, _I, _I] + [_LL] * 6 + [ctypes.c_float, _P],
 )
+LAYER_NORM = Kernel(
+    "layer_norm",
+    "svc_layer_norm_fwd",
+    # x, gamma, beta, y, rows, C, dtype (0 bf16, 1 fp32), eps, stream
+    [_P, _P, _P, _P, _LL, _I, _I, ctypes.c_float, _P],
+)
 KERNELS = {
     k.name: k
     for k in (FLASH_ATTENTION, FLASH_ATTENTION_BWD_DKV, FLASH_ATTENTION_BWD_DQ, TIME_ATTENTION,
-              FLASH_ATTENTION_BLHD, FLASH_ATTENTION_PACKED)
+              FLASH_ATTENTION_BLHD, FLASH_ATTENTION_PACKED, LAYER_NORM)
 }
 
 

@@ -1,10 +1,13 @@
-"""Headless renderer behind the GUI: Basic-mode preprocess + render.
+"""Headless renderer behind the GUI: Basic- and Advanced-mode preprocess + render.
 
-Counterpart of `preprocess_basic` and `HeadlessRenderer` in
-stable_virtual_camera_tpu/apps/renderer.py: one unposed image gets the
-identity pose and default intrinsics, a preset trajectory gives the targets,
-`engine.prior.resolve_anchors` places the anchors, and the two-pass engine
-renders them. With `work_dir=None` nothing is written and the render
+Counterpart of `preprocess_basic`, `preprocess_advanced` and
+`HeadlessRenderer` in stable_virtual_camera_tpu/apps/renderer.py. In Basic
+mode one unposed image gets the identity pose and default intrinsics and a
+preset trajectory gives the targets; in Advanced mode a DUSt3R pipeline
+(apps/preprocessor.py) poses several images, the scene is normalized, and a
+keyframe trajectory (apps/trajectory.py) gives the targets as a
+`camera_traj_list`. `engine.prior.resolve_anchors` places the anchors, and
+the two-pass engine renders them. With `work_dir=None` nothing is written and the render
 generator yields uint8 frames (see engine/runner.py).
 """
 
@@ -18,6 +21,7 @@ import numpy as np
 
 from stable_virtual_camera_tpu_torch.config import EngineOptions, VersionConfig
 from stable_virtual_camera_tpu_torch.core.camera import get_default_intrinsics
+from stable_virtual_camera_tpu_torch.core.normalize import normalize_scene
 from stable_virtual_camera_tpu_torch.core.trajectories import get_preset_pose_fov
 from stable_virtual_camera_tpu_torch.core.transforms import transform_img_and_K
 from stable_virtual_camera_tpu_torch.engine import planner
@@ -42,6 +46,50 @@ def preprocess_basic(img: np.ndarray, shorter: int = 576) -> dict:
         "point_colors": [np.zeros((0, 3))],
         "scene_scale": 1.0,
     }
+
+
+def preprocess_advanced(img_paths: list[str], dust3r, shorter: int = 576) -> dict:
+    """Unposed images -> DUSt3R poses and points (`dust3r`: a pipeline of
+    apps/preprocessor.py) -> a normalized scene of unit scale, images and
+    normalized intrinsics at the shorter side `shorter` snapped to /64."""
+    shorter = round(shorter / 64) * 64
+    input_imgs, input_Ks, input_c2ws, points, point_colors = dust3r.infer_cameras_and_points(img_paths)
+    input_imgs = [im[..., :3] for im in input_imgs]
+    point_indices = np.cumsum([p.shape[0] for p in points])[:-1]
+    input_c2ws, pts, _ = normalize_scene(
+        input_c2ws, np.concatenate(points, 0), camera_center_method="poses"
+    )
+    points = np.split(pts, point_indices, 0)
+    scene_scale = np.median(np.ptp(np.concatenate([input_c2ws[:, :3, 3], *points], 0), -1))
+    input_c2ws[:, :3, 3] /= scene_scale
+    points = [p / scene_scale for p in points]
+
+    new_imgs, new_Ks = [], []
+    for im, K in zip(input_imgs, input_Ks):
+        im4 = np.asarray(im, np.float32)[None] * 2.0 - 1.0
+        im4, K = transform_img_and_K(im4, shorter, K=K[None], size_stride=64)
+        new_imgs.append(im4)
+        new_Ks.append(K[0] / np.array([im4.shape[2], im4.shape[1], 1.0])[:, None])
+    imgs = np.concatenate(new_imgs, 0)
+    return {
+        "input_imgs": (imgs + 1.0) / 2.0,
+        "input_Ks": np.stack(new_Ks),
+        "input_c2ws": input_c2ws,
+        "input_wh": (imgs.shape[2], imgs.shape[1]),
+        "points": points,
+        "point_colors": point_colors,
+        "scene_scale": float(scene_scale),
+    }
+
+
+def decoding_frames(H: int, W: int) -> int:
+    """Frames per VAE decode batch (0 = the whole chunk at once), by the JAX
+    renderer's rule: one batch up to 576x576; above it, batches of about 60%
+    of the frames that fit at 576x576, scaled by the pixel count, at least 4
+    (9 at 768x576)."""
+    if H * W <= 576 * 576:
+        return 0
+    return max(4, int(21 * (576 * 576) / (H * W) * 0.6))
 
 
 class HeadlessRenderer:
@@ -122,10 +170,8 @@ class HeadlessRenderer:
             camera_scale=camera_scale,
             num_steps=num_steps,
             cfg_min=1.2,
-            # one flat VAE batch per chunk: 21 frames at 576x576 fit the
-            # H100's 80 GB with room to spare
             encoding_t=0,
-            decoding_t=0,
+            decoding_t=decoding_frames(H, W),
             min_anchor_fill=min_anchor_fill,
         )
         if deliver_anchors is not None:

@@ -107,9 +107,11 @@ def area_resize(img: np.ndarray, rh: int, rw: int) -> np.ndarray:
         Ah, Aw = area_matrix(h, rh), area_matrix(w, rw)
     else:
         Ah, Aw = area_enlarge_matrix(h, rh), area_enlarge_matrix(w, rw)
-    out = np.einsum("oh,bhwc->bowc", Ah, img.astype(np.float64))
-    out = np.einsum("ow,bhwc->bhoc", Aw, out)
-    return out.astype(np.float32)
+    # two matrix products (BLAS): np.einsum evaluates these contractions in
+    # a plain loop, ~25x slower for a 384x512 -> 576x768 image
+    b, c = img.shape[0], img.shape[3]
+    out = np.matmul(Ah, img.astype(np.float64).reshape(b, h, w * c)).reshape(b, rh, w, c)
+    return np.matmul(Aw, out).astype(np.float32)
 
 
 def _layout(h, w, size, scale, center, size_stride, mode):

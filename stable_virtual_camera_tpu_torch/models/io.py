@@ -4,7 +4,8 @@ Counterpart of the `random_bundle` part of stable_virtual_camera_tpu/
 models/io.py. Random weights follow flax's defaults as the JAX package uses
 them: lecun-normal (truncated) kernels, zero biases, unit norm scales, and
 normal(0.02) CLIP class/positional embeddings and projection. Loading the
-released safetensors checkpoints is not ported yet.
+released safetensors checkpoints is not ported yet. `load_dust3r_state`
+reads the released DUSt3R `.pth` checkpoint into the port's names.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ def _trunc_normal_(w: torch.Tensor, std: float, generator: torch.Generator) -> N
 def init_flax_defaults(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise `module` in place as flax's default initialisers would."""
     for sub in module.modules():
-        if isinstance(sub, (nn.Linear, nn.Conv2d)):
+        if isinstance(sub, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = sub.weight
             _trunc_normal_(w, math.sqrt(1.0 / w[0].numel()) / _TRUNC_STD, generator)
             if sub.bias is not None:
@@ -97,3 +98,25 @@ def random_bundle(
     models = [_finish(init_flax_defaults(m, generator), dtype, device) for m in models]
     return _bundle(spec, *models)
 
+
+def load_dust3r_state(weight_path: str, spec=None) -> dict[str, torch.Tensor]:
+    """The released DUSt3R checkpoint (`naver/DUSt3R_ViTLarge_BaseDecoder_512_dpt`,
+    a torch `.pth`) as the port's `AsymmetricCroCoStereo` state dict, fp32
+    on the CPU. A `.safetensors` file raises: its reader is not ported
+    (ROADMAP item 2)."""
+    import pickle
+
+    from stable_virtual_camera_tpu_torch.models.convert_dust3r import convert_dust3r_state_dict
+
+    if not weight_path.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"{weight_path}: only torch .pth/.pt DUSt3R checkpoints load here; "
+            "safetensors loading waits for ROADMAP item 2"
+        )
+    try:
+        ckpt = torch.load(weight_path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        # the released .pth keeps an argparse.Namespace under ckpt["args"],
+        # which weights_only refuses
+        ckpt = torch.load(weight_path, map_location="cpu", weights_only=False)
+    return convert_dust3r_state_dict(ckpt.get("model", ckpt), spec)

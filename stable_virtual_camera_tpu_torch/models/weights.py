@@ -4,6 +4,13 @@ The port's modules are named after the flax tree paths, so the bridge only
 flattens and converts layouts:
   * Dense `kernel` (in, out)      -> Linear `weight` (out, in)
   * Conv  `kernel` HWIO           -> Conv2d `weight` OIHW
+  * ConvTranspose(transpose_kernel=True) `kernel` (kh, kw, out, in)
+                                  -> ConvTranspose2d `weight` (in, out, kh, kw)
+    (DUSt3R's `act1_up`/`act2_up`): the same (3, 2, 0, 1) permutation as a
+    Conv, the inverse of the JAX converter's (2, 3, 1, 0). No spatial flip:
+    flax and torch both define the op as the adjoint of the same
+    correlation, so `flax_to_state_dict` of a JAX DUSt3R tree is the port
+    module's state dict.
   * norm  `scale`                 -> `weight`
   * every other leaf (biases, CLIP embeddings and projection) as is.
 Loading is strict both ways: every leaf of the tree must be consumed and

@@ -1,9 +1,9 @@
 """The hand-written CUDA kernels (K1 flash attention with its log-sum-exp,
 K1-dKV and K1-dQ, K2 temporal attention, K3 flash attention on (B, L, H, 64),
-K4 flash attention on packed (B, L, W)) against their plain versions on the
-card, the wrappers' refusals, a backward through SevaUNet on the card that
-reaches the attention weights, and K3's recompute backward against K1's
-kernel backward.
+K4 flash attention on packed (B, L, W), K5 LayerNorm) against their plain
+versions on the card, the wrappers' refusals, a backward through SevaUNet on
+the card that reaches the attention weights, K3's recompute backward against
+K1's kernel backward, and a DUSt3R forward on the card against the CPU.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
 neither jax nor the test conftest, so on a machine with the card and no JAX
@@ -14,7 +14,8 @@ bf16 out with P rounded to bf16 before P.V (max 2e-2, mean 2e-3); K2 keeps
 all arithmetic in fp32 and rounds only its output (one bf16 ulp at 1, 8e-3);
 K3 and K4 are K1's tile on other layouts (K1's bars);
 K1's LSE is fp32 (1e-2); K1-dKV/K1-dQ round P and dS to bf16 for their
-products and their outputs to bf16 (relative L2 2e-2).
+products and their outputs to bf16 (relative L2 2e-2); K5 rounds only its
+output (one bf16 step; fp32 within 1e-5 of a unit output).
 """
 
 import numpy as np
@@ -34,6 +35,7 @@ from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
     flash_attention_plain,
     flash_attention_upstream_bhld,
 )
+from stable_virtual_camera_tpu_torch.ops.layer_norm import ln_fused, ln_reduce
 from stable_virtual_camera_tpu_torch.ops.time_attention import (
     time_attention_bhds,
     time_attention_plain,
@@ -41,10 +43,10 @@ from stable_virtual_camera_tpu_torch.ops.time_attention import (
 
 
 @pytest.fixture()
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -113,7 +115,7 @@ def test_flash_function_takes_the_kernels_both_ways(cuda):
     after = _kernels.counts()
     assert {n: after[n] - before[n] for n in after} == {
         "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
-        "time_attention": 0, "flash_attention_blhd": 0, "flash_attention_packed": 0}
+        "time_attention": 0, "flash_attention_blhd": 0, "flash_attention_packed": 0, "layer_norm": 0}
     assert all(torch.isfinite(t.grad).all() and t.grad.abs().max() > 0 for t in (q, k, v))
     with torch.inference_mode():
         flash_attention_upstream_bhld(q, k, v)
@@ -184,6 +186,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     (time_attention_bhds, (2, 1, 64, 8), (2,)),
     (fa.flash_attention, (1, 64, 1, 64), ()),
     (fap.flash_attention_packed, (1, 64, 128), (2,)),
+    (ln_fused, (4, 320), ()),
 ])
 def test_wrappers_have_no_kernel_off_cpu_and_cuda(fn, shape, args):
     """The plain version serves CPU tensors only: a tensor on another device
@@ -310,3 +313,64 @@ def test_unet_backends_launch_their_kernels(cuda, attention, kernel):
         after = _kernels.counts()
     assert after[kernel] > before[kernel] and after["flash_attention"] == before["flash_attention"]
     assert torch.isfinite(out).all() and _rel(out, ref) <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,C", [(42 * 5184, 320), (1001, 640), (77, 1280), (3, 2)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernel_matches_plain(cuda, rows, C, dtype):
+    """K5 against ln_reduce: the probe's shape, ragged row counts, the
+    UNet's other widths."""
+    rng = np.random.default_rng(rows + C)
+    x = torch.from_numpy((rng.normal(size=(rows, C)) * 3 + 1.5).astype(np.float32)).to(cuda, dtype)
+    g, b = (torch.from_numpy(rng.normal(size=(C,)).astype(np.float32)).to(cuda, dtype) for _ in range(2))
+    before = _kernels.LAYER_NORM.launches
+    out = ln_fused(x, g, b)
+    assert _kernels.LAYER_NORM.launches == before + 1
+    ref = ln_reduce(x, g, b).float()
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and out.dtype == dtype
+    step = 2.0**-7 if dtype == torch.bfloat16 else 1e-5
+    assert ((out.float() - ref).abs() <= step * ref.abs().clamp(min=1.0)).all()
+
+
+@pytest.mark.cuda
+def test_layer_norm_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((4, 320), device=cuda, dtype=torch.bfloat16)
+    g = torch.ones(320, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        ln_fused(x.half(), g.half(), g.half())
+    with pytest.raises(ValueError):
+        ln_fused(x[:, :319], g[:319], g[:319])  # odd width
+    with pytest.raises(ValueError):
+        ln_fused(torch.zeros((2, 4096), device=cuda, dtype=torch.bfloat16), *[torch.ones(4096, device=cuda,
+                 dtype=torch.bfloat16)] * 2)  # wider than MAX_WIDTH
+    with pytest.raises(ValueError):
+        ln_fused(x.t().contiguous().t(), g, g)  # not contiguous
+    with pytest.raises(ValueError):
+        ln_fused(x, g.float(), g)  # gamma of another dtype
+
+
+@pytest.mark.cuda
+def test_dust3r_forward_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The tiny DUSt3R network with one set of flax-default weights, fp32,
+    on the card and on the CPU, at mixed aspects (TF32 off for matmuls and
+    convolutions). The bar is the one the JAX network is held to against a
+    torch mirror (rtol 2e-3, atol 2e-4): the two devices sum convolutions
+    and products in other orders, and expm1 of the point norm turns the
+    raw output's absolute error into a relative error of the points."""
+    from stable_virtual_camera_tpu_torch.models.dust3r import AsymmetricCroCoStereo, Dust3rSpec
+    from stable_virtual_camera_tpu_torch.models.io import init_flax_defaults
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cpu = init_flax_defaults(AsymmetricCroCoStereo(Dust3rSpec.tiny()), torch.Generator().manual_seed(0))
+    gpu = AsymmetricCroCoStereo(Dust3rSpec.tiny()).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    i1 = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 48, 3)).astype(np.float32))
+    i2 = torch.from_numpy(rng.uniform(-1, 1, (2, 48, 32, 3)).astype(np.float32))
+    with torch.inference_mode():
+        ref = cpu(i1, i2)
+        out = gpu(i1.to(cuda), i2.to(cuda))
+    for pred, k in (("pred1", "pts3d"), ("pred1", "conf"), ("pred2", "pts3d_in_other_view"), ("pred2", "conf")):
+        torch.testing.assert_close(out[pred][k].cpu(), ref[pred][k], rtol=2e-3, atol=2e-4)

@@ -1,5 +1,5 @@
-"""The port's main path, its CLI and its fine-tuning path import no JAX,
-nothing of the JAX package and no image library.
+"""The port's main path, its CLI, its fine-tuning path and its Advanced-mode
+path import no JAX, nothing of the JAX package and no image library.
 
 The machine with the card has PyTorch but no JAX, and no `imageio` (so the
 port keeps its own image transforms, and imports its readers' and writers'
@@ -50,6 +50,13 @@ import stable_virtual_camera_tpu_torch.training.lora
 import stable_virtual_camera_tpu_torch.training.optim
 import stable_virtual_camera_tpu_torch.training.train_step
 import stable_virtual_camera_tpu_torch.utils.seeding
+import stable_virtual_camera_tpu_torch.apps.preprocessor
+import stable_virtual_camera_tpu_torch.apps.trajectory
+import stable_virtual_camera_tpu_torch.core.global_alignment
+import stable_virtual_camera_tpu_torch.core.kb_splines
+import stable_virtual_camera_tpu_torch.models.convert_dust3r
+import stable_virtual_camera_tpu_torch.models.dust3r
+import stable_virtual_camera_tpu_torch.ops.layer_norm
 print("imported")
 """
 
