@@ -17,9 +17,15 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      self-attention shapes of a 576x576 render they take, on the split-qkv
      views the UNet's generic path passes;
   6. one full-width SevaUNet forward (bf16 random weights, 42 frames,
-     576x576) through the kernels and through the plain versions, then
-     `unet_forward_backends`: the same with attention="flash" (K3) and
-     "packed" (K4);
+     576x576) through the kernels and through the plain versions, with a
+     torch.profiler window over one forward (device time by kernel class,
+     K1's share), then `unet_forward_backends`: the same with
+     attention="flash" (K3) and "packed" (K4), then `f1_fp32_routes`: the
+     demo CLI's tiny fp32 bundle rendering the golden scene and one fp32
+     full-width forward on a 21-frame scene, both on the card with the
+     "plain" attention backend that fp32 models get there (the kernels
+     take bf16 only) and no kernel launched, the forward held against the
+     bf16 network through the kernels;
   7. the render path: HeadlessRenderer.render in Basic mode at full width
      (SevaSpec(), ClipVisionSpec(), SD2.1 VAE, bf16 random weights) on one
      seeded 576x576 image along the `orbit` preset, both passes, with the
@@ -98,6 +104,10 @@ K1_MAX_ABS, K1_MEAN_ABS = 2e-2, 2e-3
 # output's magnitude (8e-3 while |o| < 2, as at T=21; a T=3 chunk reaches 4)
 K2_BF16_STEPS = 1.0
 UNET_REL_L2 = 3e-2
+# the fp32 network through the plain versions against the bf16 one through
+# the kernels, on one 21-frame scene: 1.26e-2 read on an H100 (PERF.md),
+# held to twice that
+FP32_REL_L2 = 2.5e-2
 # training: T=21 frames of one scene, (L, B, H) of every self-attention
 TRAIN_T = 21
 K1_TRAIN_SHAPES = [(5184, 21, 5), (1296, 21, 10), (27216, 1, 10), (6804, 1, 20), (1701, 1, 20)]
@@ -447,12 +457,108 @@ def check_unet(bundle, gen) -> None:
     rel = ((out_k - out_p).norm() / out_p.norm()).item()
     finite = bool(torch.isfinite(out_k).all() and torch.isfinite(out_p).all())
     ok = finite and rel <= UNET_REL_L2
+    # device time of one forward through the kernels, by kernel class: K1's
+    # measured share of a render's UNet forward
+    prof = device_time_by_class(forward)
+    if not prof["device_busy_ms"]:  # the profiler saw no device time: CUDA events around K1
+        prof["device_ms_by_class"]["K1 flash attention"] = k1_event_ms(forward)
+    k1_ms = prof["device_ms_by_class"].get("K1 flash attention", 0.0)
+    prof["k1_share_of_device_time"] = k1_ms / prof["device_busy_ms"] if prof["device_busy_ms"] else None
+    prof["k1_share_of_wall"] = k1_ms / (prof["wall_s"] * 1e3)
     emit({"phase": "unet_forward", "ok": ok, "frames": n, "latent": [h, h], "rel_l2": rel,
           "bar": UNET_REL_L2, "finite": finite, "kernels_s": kernel_s, "plain_s": plain_s,
-          "out_std": out_k.std().item()})
+          "out_std": out_k.std().item(), "profile": prof})
     if not ok:
         raise AssertionError("UNet forward through the kernels disagrees with the plain path")
     return {"inputs": (x, t_idx, ctx, dense), "kernels_s": kernel_s, "out": out_k}
+
+
+def k1_event_ms(forward) -> float:
+    """K1's device time in one `forward()`, from CUDA events around each of
+    the UNet's calls to it."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.models import unet as unet_mod
+
+    k1, events = unet_mod.flash_attention_upstream_bhld, []
+
+    def timed(q, k, v):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = k1(q, k, v)
+        end.record()
+        events.append((start, end))
+        return out
+
+    unet_mod.flash_attention_upstream_bhld = timed
+    try:
+        forward()
+    finally:
+        unet_mod.flash_attention_upstream_bhld = k1
+    return sum(s.elapsed_time(e) for s, e in events)
+
+
+def check_fp32_routes(bundle, upstream: dict) -> None:
+    """Fault F1's repair on the card: the kernels take bf16 only, so an fp32
+    model there is built with the "plain" attention backend
+    (models/io.attention_backend) instead of raising at its first
+    attention. (a) The demo CLI with --random_model True (the tiny fp32
+    bundle) renders the golden scene in two passes; (b) the full-width
+    SevaSpec() bundle in fp32, random_bundle's default dtype, runs one
+    forward on one 21-frame scene at 576x576 (per-frame attention at L =
+    5184 >= 1024, head dim 64), held within FP32_REL_L2 of the bf16
+    network through the kernels on the same inputs. Both must launch no
+    kernel."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps import cli
+    from stable_virtual_camera_tpu_torch.config import SevaSpec
+    from stable_virtual_camera_tpu_torch.models.clip import ClipVisionSpec
+    from stable_virtual_camera_tpu_torch.models.io import random_bundle
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        (out_dir,) = cli.main(GOLDEN, task="img2trajvid", use_traj_prior=True, random_model=True,
+                              device=DEVICE, work_dir=tmp, num_steps=2, guider_types=[1, 2],
+                              cfg=[2.0, 2.0], sampler_verbose=False)
+        torch.cuda.synchronize()
+        tiny_s = time.perf_counter() - t0
+        tiny_counts = _kernels.counts()
+        frames_dir = os.path.join(out_dir, "samples-rgb")
+        frames = [cv2.imread(os.path.join(frames_dir, f)) for f in sorted(os.listdir(frames_dir))
+                  if f.endswith(".png")]
+    tiny_ok = bool(frames) and all(f is not None and f.shape == (64, 64, 3) for f in frames)
+
+    fp32 = random_bundle(SevaSpec(), ClipVisionSpec(), device=DEVICE,
+                         generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    x, t_idx, ctx, dense = (t[:T] for t in upstream["inputs"])
+    with torch.inference_mode():
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        out32 = fp32.unet(x, t_idx, ctx, dense, T)
+        torch.cuda.synchronize()
+        fp32_s = time.perf_counter() - t0
+        fp32_counts = _kernels.counts()
+        out16 = bundle.unet(x, t_idx, ctx, dense, T).float()
+    dtype, backend = next(fp32.unet.parameters()).dtype, fp32.unet.attention
+    rel = ((out16 - out32).norm() / out32.norm()).item()
+    finite = bool(torch.isfinite(out32).all())
+    del fp32, out32, out16
+    torch.cuda.empty_cache()
+    launched = {k: c for k, c in (*tiny_counts.items(), *fp32_counts.items()) if c}
+    ok = (tiny_ok and finite and dtype == torch.float32 and backend == "plain" and not launched
+          and rel <= FP32_REL_L2)
+    emit({"phase": "f1_fp32_routes", "ok": ok,
+          "tiny_cli": {"ok": tiny_ok, "frames": len(frames), "seconds": tiny_s, "launches": tiny_counts},
+          "full_width_fp32_forward": {"dtype": str(dtype), "attention": backend, "frames": T, "finite": finite,
+                                      "seconds": fp32_s, "launches": fp32_counts,
+                                      "rel_l2_bf16_kernels_vs_fp32_plain": rel, "bar": FP32_REL_L2}})
+    if not ok:
+        raise AssertionError("an fp32 path launched a kernel, failed or left its bar")
 
 
 def set_attention(unet, name: str) -> None:
@@ -1249,6 +1355,8 @@ _KERNEL_CLASSES = [
     ("K1-dKV", r"flash_bwd_dkv_kernel"),
     ("K1-dQ", r"flash_bwd_dq_kernel"),
     ("K2 temporal attention", r"time_attn_kernel"),
+    ("K3 flash attention", r"flash_blhd_kernel"),
+    ("K4 flash attention", r"flash_packed_kernel"),
     ("convolution (cuDNN)", r"conv|Conv|cudnn|dgrad|wgrad|fprop|implicit"),
     ("GEMM (cuBLAS)", r"gemm|Gemm|cutlass|xmma|nvjet|sm90_|sm80_"),
     ("optimizer", r"multi_tensor|adam|Adam|foreach"),
@@ -1257,24 +1365,16 @@ _KERNEL_CLASSES = [
 ]
 
 
-def profile_train_step(bundle, gen) -> None:
-    """Device time of one full-width train step (loss, backward, AdamW) by
-    kernel class, from torch.profiler."""
-    import torch
+def device_time_by_class(fn) -> dict:
+    """torch.profiler over one call of `fn` (which ends in a synchronize):
+    wall time, device time by kernel class (ms) and the idle share."""
+    import torch  # noqa: F401
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from stable_virtual_camera_tpu_torch.training.optim import AdamW
-    from stable_virtual_camera_tpu_torch.training.train_step import make_train_step
-
-    batch, draw = train_inputs(bundle, gen)
-    step = make_train_step(bundle.unet, AdamW(bundle.unet.parameters(), TRAIN_LR), TRAIN_T)
-    step(batch, draw)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, draw)
-        torch.cuda.synchronize()
+        fn()
         wall = time.perf_counter() - t0
     classes: dict[str, float] = {}
     for e in prof.key_averages():
@@ -1284,9 +1384,30 @@ def profile_train_step(bundle, gen) -> None:
         cls = next((c for c, rx in _KERNEL_CLASSES if re.search(rx, e.key)), "other")
         classes[cls] = classes.get(cls, 0.0) + us / 1e3
     busy = sum(classes.values())
-    emit({"phase": "train_profile", "ok": True, "step_wall_s": wall, "device_busy_ms": busy,
-          "idle_share": (1 - busy / (wall * 1e3)) if busy else "not measured",
-          "device_ms_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1]))})
+    return {"wall_s": wall, "device_busy_ms": busy,
+            "idle_share": (1 - busy / (wall * 1e3)) if busy else "not measured",
+            "device_ms_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1]))}
+
+
+def profile_train_step(bundle, gen) -> None:
+    """Device time of one full-width train step (loss, backward, AdamW) by
+    kernel class, from torch.profiler."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.training.optim import AdamW
+    from stable_virtual_camera_tpu_torch.training.train_step import make_train_step
+
+    batch, draw = train_inputs(bundle, gen)
+    step = make_train_step(bundle.unet, AdamW(bundle.unet.parameters(), TRAIN_LR), TRAIN_T)
+    step(batch, draw)
+    torch.cuda.synchronize()
+
+    def one_step():
+        step(batch, draw)
+        torch.cuda.synchronize()
+
+    prof = device_time_by_class(one_step)
+    emit({"phase": "train_profile", "ok": True, "step_wall_s": prof.pop("wall_s"), **prof})
 
 
 def orbit_scene(n: int = 24):
@@ -1466,6 +1587,7 @@ def main() -> int:
               "unet_params": sum(p.numel() for p in bundle.unet.parameters())})
         for key, fn in (("unet_forward", lambda: upstream.update(check_unet(bundle, gen))),
                         ("unet_forward_backends", lambda: check_unet_backends(bundle, upstream)),
+                        ("f1_fp32_routes", lambda: check_fp32_routes(bundle, upstream)),
                         ("main_path", lambda: run_main_path(bundle, recorded["render"])),
                         ("advanced_path", lambda: run_advanced_path(bundle, pipe, recorded["advanced"])),
                         ("k1_k2_path_shapes", lambda: check_path_shapes(gen, recorded)),

@@ -95,13 +95,12 @@ class Kernel:
 
 _LOCK = threading.RLock()
 
-FLASH_ATTENTION = Kernel(
-    "flash_attention",
-    "svc_flash_attention_fwd",
-    # q, k, v, o, lse (fp32 (B, H, L) or null), B, H, L, then (batch, head,
-    # row) strides of q, k, v, o, scale*log2(e), stream
-    [_P, _P, _P, _P, _P, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P],
-)
+# K1, K3 and K4 share one tile (csrc/flash_fwd_sm90.cuh) and one argument
+# list: q, k, v, o, lse (fp32 (B, H, L) or null), B, H, L, the tensor-map
+# byte strides (row, head, batch) of q, k and v, o's (batch, head, row)
+# element strides, scale*log2(e), stream
+_FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P]
+FLASH_ATTENTION = Kernel("flash_attention", "svc_flash_attention_fwd", _FWD_ARGS)
 FLASH_ATTENTION_BWD_DKV = Kernel(
     "flash_attention_bwd_dkv",
     "svc_flash_attention_bwd_dkv",
@@ -125,20 +124,8 @@ TIME_ATTENTION = Kernel(
     # o, scale, stream
     [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P],
 )
-FLASH_ATTENTION_BLHD = Kernel(
-    "flash_attention_blhd",
-    "svc_flash_attention_blhd_fwd",
-    # q, k, v, o (contiguous (B, L, H, 64)), B, H, L, then (batch, row, head)
-    # strides of q, k, v, scale*log2(e), stream
-    [_P, _P, _P, _P, _I, _I, _I] + [_LL] * 9 + [ctypes.c_float, _P],
-)
-FLASH_ATTENTION_PACKED = Kernel(
-    "flash_attention_packed",
-    "svc_flash_attention_packed_fwd",
-    # q, k, v, o (contiguous (B, L, H*64)), B, H, L, then (batch, row)
-    # strides of q, k, v, scale*log2(e), stream
-    [_P, _P, _P, _P, _I, _I, _I] + [_LL] * 6 + [ctypes.c_float, _P],
-)
+FLASH_ATTENTION_BLHD = Kernel("flash_attention_blhd", "svc_flash_attention_blhd_fwd", _FWD_ARGS)
+FLASH_ATTENTION_PACKED = Kernel("flash_attention_packed", "svc_flash_attention_packed_fwd", _FWD_ARGS)
 LAYER_NORM = Kernel(
     "layer_norm",
     "svc_layer_norm_fwd",

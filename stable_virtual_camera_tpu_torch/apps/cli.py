@@ -12,10 +12,12 @@ weights (--checkpoint_dir) is not ported yet, and the TPU package's mesh,
 platform and quantisation flags have no counterpart yet: each raises.
 
 The port's own flags: --device (default cuda) and --attention, the
-self-attention backend ("upstream", the default, kernel K1; "flash",
-kernel K3; "packed", kernel K4 where W % 128 == 0, else K3), which takes
-the place of the JAX package's SVC_UPSTREAM_FLASH / SVC_PACKED_ATTENTION
-environment knobs.
+self-attention backend ("upstream", kernel K1; "flash", kernel K3;
+"packed", kernel K4 where W % 128 == 0, else K3; "plain", no kernel),
+which takes the place of the JAX package's SVC_UPSTREAM_FLASH /
+SVC_PACKED_ATTENTION environment knobs. Left unset it is "upstream",
+except for the tiny fp32 bundle on the card: the kernels take bf16 only,
+so that one runs "plain" (models/io.attention_backend).
 
 Invocation (fire-style `--key value` or `--key=value` flags):
   python -m stable_virtual_camera_tpu_torch.apps.cli --data_path ... --task img2img
@@ -225,7 +227,7 @@ def _default_options() -> EngineOptions:
     )
 
 
-def _build_bundle(checkpoint_dir, random_model, device="cuda", attention="upstream"):
+def _build_bundle(checkpoint_dir, random_model, device="cuda", attention=None):
     """(bundle, is_tiny): the tiny fp32 random bundle for
     `--random_model True`, the full-width bf16 one for `--random_model full`."""
     from stable_virtual_camera_tpu_torch.models import io as mio
@@ -272,7 +274,7 @@ def main(
     platform=None,
     quant=None,
     device="cuda",
-    attention="upstream",
+    attention=None,
     **overwrite_options,
 ):
     """Render every scene under `data_path` (or the `data_items` among

@@ -194,7 +194,9 @@ def transform_K(
 def load_image(image_path_or_size, context_rgb: np.ndarray | None = None) -> np.ndarray:
     """An image file (read with OpenCV, RGBA composited on white or on
     `context_rgb`), or for an (h, w) size a blank white frame, as
-    (1, h, w, 3) float32 in [0, 1] (reference seva/eval.py:172-189)."""
+    (1, h, w, 3) float32 in [0, 1] (reference seva/eval.py:172-189). A
+    16-bit file comes to 8 bits as PIL's `convert("RGBA")` brings it, which
+    the JAX package reads with."""
     if isinstance(image_path_or_size, (tuple, list)):
         h, w = image_path_or_size
         # PIL's Image.new("RGBA") is transparent black: white once composited
@@ -205,6 +207,11 @@ def load_image(image_path_or_size, context_rgb: np.ndarray | None = None) -> np.
         raw = cv2.imread(str(image_path_or_size), cv2.IMREAD_UNCHANGED)
         if raw is None:
             raise IOError(f"Could not read image {image_path_or_size}")
+        if raw.dtype == np.uint16:
+            # as PIL's convert("RGBA"): gray ("I;16") clips to 255, colour
+            # keeps the high byte
+            raw = np.minimum(raw, 255) if raw.ndim == 2 else raw >> 8
+            raw = raw.astype(np.uint8)
         if raw.ndim == 2:
             raw = cv2.cvtColor(raw, cv2.COLOR_GRAY2BGRA)
         elif raw.shape[-1] == 3:

@@ -8,77 +8,51 @@
 // What bounds it on an H100: the arithmetic. One 576x576 UNet forward does
 // about 20 TFLOP here (4 L^2 64 H B per layer, L up to 27216), against a few
 // hundred MB of q/k/v traffic, so the products have to run on the tensor
-// cores. Design:
-//   * one block of 4 warps per (64-row query tile, batch*head); each warp owns
-//     16 query rows and keeps their Q fragments and the 16x64 fp32 output
-//     accumulator in registers for the whole key loop;
-//   * the loop walks 64-key tiles of K and V staged in shared memory (rows
-//     padded to 72 elements so the fragment loads hit 32 distinct banks);
-//   * S = Q K^T and O += P V both use mma.sync.m16n8k16 bf16 -> fp32; the S
-//     accumulator layout is reused directly as the A operand of P V, and V's
-//     B operand comes from ldmatrix.trans;
-//   * the softmax is online, in fp32 with exp2f (the 1/8 scale is folded into
-//     log2(e)); P is rounded to bf16 only as the P V operand, the row sums
-//     stay fp32;
-//   * the ragged edge is handled here: keys >= L score -inf (their tiles are
-//     zero-filled), query rows >= L are not stored. No padded copies.
-//   * q, k, v and o are read and written through (batch, head, row) strides
-//     with a contiguous head dimension, so the caller can pass views of the
-//     packed qkv projection and take the output as (B, L, H, 64);
+// cores at wgmma's rate. The tile is the Hopper one of flash_fwd_sm90.cuh
+// (TMA ring of 128-key tiles, a producer warpgroup and three wgmma consumer
+// warpgroups of 64 query rows), shared with K3 and K4. This file gives it
+// K1's operands and grid:
+//   * q, k, v are (B, H, L, 64) views read through (batch, head, row)
+//     strides with a contiguous head dim, so the UNet passes strided views
+//     of its packed (B, L, 3, H, 64) projection and nothing is copied;
+//   * o is written through its strides: the UNet's is a (B, H, L, 64) view
+//     of a (B, L, H, 64) buffer, which to_out reads as (B, L, H*64);
 //   * when the caller passes an lse buffer (training), the epilogue also
 //     writes each row's log-sum-exp, m ln2 + ln l in natural-log units, for
-//     the backward kernels in flash_attention_bwd.cu.
-// The tile itself is `flash_fwd_tile` in flash_common.cuh, shared with K3
-// (flash_attention_blhd.cu) and K4 (flash_attention_packed.cu); this file
-// gives it K1's layout. Left for later: cp.async/TMA double buffering and
-// wgmma.
+//     the backward kernels in flash_attention_bwd.cu;
+//   * the grid is (query tiles, B*H) with the query tile fastest, so the
+//     blocks in flight together share one (batch, head)'s K and V in L2.
 
-#include "flash_common.cuh"
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
-using namespace svc;
+using namespace svc::sm90;
 
-// K1's layout: q, k, v, o as (B, H, L, 64) through (batch, head, row)
-// element strides.
-struct LayoutBHLD {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
-  long long qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl;
-
-  __device__ FlashSlab slab(int b, int h) const {
-    return {q + b * qsb + h * qsh, k + b * ksb + h * ksh, v + b * vsb + h * vsh,
-            o + b * osb + h * osh, qsl, ksl, vsl, osl};
-  }
-};
-
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(LayoutBHLD layout, float* __restrict__ lse, int H, int L, float scale_log2) {
-  // one block per (64-row query tile, batch * head)
-  flash_fwd_tile(layout, blockIdx.y / H, blockIdx.y % H, blockIdx.x * kTile, L, scale_log2,
-                 lse != nullptr ? lse + (long long)blockIdx.y * L : nullptr);
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const FwdOut out, int H, int L,
+                 float scale_log2) {
+  flash_fwd_sm90(map_q, map_k, map_v, out, blockIdx.y / H, blockIdx.y % H, blockIdx.x * kBlockM, H,
+                 L, scale_log2);
 }
 
 }  // namespace
 
-// q, k, v, o: (B, H, L, 64) bf16 addressed through (batch, head, row) element
-// strides, head dim contiguous; base pointers and strides 16-byte aligned.
-// lse: contiguous fp32 (B, H, L), or null when no log-sum-exp is wanted.
+// q, k, v: (B, H, L, 64) bf16 with byte strides {row, head, batch} each
+// (multiples of 16, head dim contiguous, 16-byte aligned bases). o: bf16
+// through (batch, head, row) element strides. lse: contiguous fp32
+// (B, H, L), or null when no log-sum-exp is wanted.
 extern "C" int svc_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int L,
-    long long qsb, long long qsh, long long qsl,
-    long long ksb, long long ksh, long long ksl,
-    long long vsb, long long vsh, long long vsl,
+    long long q_row, long long q_head, long long q_batch,
+    long long k_row, long long k_head, long long k_batch,
+    long long v_row, long long v_head, long long v_batch,
     long long osb, long long osh, long long osl,
     float scale_log2, void* stream) {
-  const LayoutBHLD layout{
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      qsb, qsh, qsl, ksb, ksh, ksl, vsb, vsh, vsl, osb, osh, osl};
-  dim3 grid((L + kTile - 1) / kTile, B * H);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      layout, static_cast<float*>(lse), H, L, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  const long long strides[9] = {q_row, q_head, q_batch, k_row, k_head, k_batch,
+                                v_row, v_head, v_batch};
+  const FwdOut out{static_cast<__nv_bfloat16*>(o), osb, osh, osl, static_cast<float*>(lse)};
+  return launch_fwd(flash_fwd_kernel, dim3((L + kBlockM - 1) / kBlockM, B * H), q, k, v, out, B, H,
+                    L, strides, scale_log2, stream);
 }

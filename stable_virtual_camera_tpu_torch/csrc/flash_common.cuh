@@ -1,9 +1,9 @@
-// Tile helpers shared by the flash attention forward kernels (K1, K3, K4,
-// which differ only in layout) and K1's backward (K1-dKV, K1-dQ): head dim
-// 64, bf16 operands, 64-row tiles in shared memory padded to 72 elements a
-// row so that fragment loads hit 32 distinct banks, the mma.sync.m16n8k16
-// bf16 -> fp32 tensor-core product, and the forward tile itself
-// (`flash_fwd_tile`, instantiated per layout).
+// Tile helpers of K1's backward kernels (K1-dKV, K1-dQ): head dim 64, bf16
+// operands, 64-row tiles in shared memory padded to 72 elements a row so
+// that fragment loads hit 32 distinct banks, and the mma.sync.m16n8k16
+// bf16 -> fp32 tensor-core product; also the constants and the bf16 packing
+// that the Hopper forward tile (flash_fwd_sm90.cuh) shares, and the error
+// string every library exports.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t4 = lane % 4):
 //   A (16x16, row major): a0 = (g, 2t4..+1), a1 = (g+8, 2t4..+1),
@@ -147,146 +147,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long row_str
     if (row0 + 8 < L) {
       *reinterpret_cast<__nv_bfloat162*>(dst + (row0 + 8) * row_stride + d) =
           __floats2bfloat162_rn(c[n][2] * scale, c[n][3] * scale);
-    }
-  }
-}
-
-// The (L, 64) slabs of one (batch, head): base pointers and row strides
-// (elements) of q, k, v and o. A layout trait maps (b, h) to one with
-// `__device__ FlashSlab slab(int b, int h) const`.
-struct FlashSlab {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
-  long long qsl, ksl, vsl, osl;
-};
-
-// The forward tile shared by K1, K3 and K4: one block of 4 warps computes
-// rows [q0, q0 + 64) of o = softmax(q k^T * scale) v for the slab
-// layout.slab(b, h). Each warp owns 16 query rows and keeps their Q
-// fragments and the 16x64 fp32 output accumulator in registers while it
-// walks 64-key tiles of K and V staged in shared memory; S = Q K^T and
-// O += P V run on mma.sync, the online softmax in fp32 with exp2f
-// (`scale_log2` = scale * log2(e)), P rounded to bf16 only as the P V
-// operand. Keys >= L score -inf (their tiles are zero-filled) and rows
-// >= L are not stored, so a ragged L needs no padded copy. With `lse_row`
-// (row 0 of this (b, h)'s fp32 log-sum-exp), each row's lse, m ln2 + ln l
-// in natural-log units, is written too.
-template <class Layout>
-__device__ __forceinline__ void flash_fwd_tile(const Layout& layout, int b, int h, int q0,
-                                               int L, float scale_log2, float* lse_row) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[kTile][kLds];
-  __shared__ __align__(16) __nv_bfloat16 sK[kTile][kLds];
-  __shared__ __align__(16) __nv_bfloat16 sV[kTile][kLds];
-
-  const FlashSlab p = layout.slab(b, h);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;   // fragment row group
-  const int t4 = lane & 3;   // thread within the group
-
-  load_tile(sQ, p.q, p.qsl, q0, L);
-  __syncthreads();
-
-  // A fragments of this warp's 16 query rows, 4 k-steps over the head dim.
-  const int r0 = warp * 16 + g;
-  uint32_t qa[4][4];
-  load_a_rows(qa, sQ, r0, t4);
-
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  }
-  // running max (log2 domain) and per-thread partial row sums, rows g and g+8
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sK, p.k, p.ksl, k0, L);
-    load_tile(sV, p.v, p.vsl, k0, L);
-    __syncthreads();
-
-    // S = Q K^T for 16 rows x 64 keys: 8 n-tiles of 8 keys.
-    float s[8][4];
-    mma_a_xt(s, qa, sK, g, t4);
-
-    // scale into the log2 domain, mask keys >= L, tile row max
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool valid = k0 + n * 8 + t4 * 2 + j < L;
-        s[n][j] = valid ? s[n][j] * scale_log2 : -INFINITY;
-        s[n][2 + j] = valid ? s[n][2 + j] * scale_log2 : -INFINITY;
-        mx0 = fmaxf(mx0, s[n][j]);
-        mx1 = fmaxf(mx1, s[n][2 + j]);
-      }
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    // every tile holds at least one valid key, so the new max is finite
-    const float mn0 = fmaxf(m0, mx0);
-    const float mn1 = fmaxf(m1, mx1);
-    const float corr0 = exp2f(m0 - mn0);
-    const float corr1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - m0);
-      s[n][1] = exp2f(s[n][1] - m0);
-      s[n][2] = exp2f(s[n][2] - m1);
-      s[n][3] = exp2f(s[n][3] - m1);
-      rs0 += s[n][0] + s[n][1];
-      rs1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * corr0 + rs0;
-    l1 = l1 * corr1 + rs1;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= corr0;
-      acc[n][1] *= corr0;
-      acc[n][2] *= corr1;
-      acc[n][3] *= corr1;
-    }
-
-    // O += P V: the S accumulators of n-tiles 2kk and 2kk+1 are exactly
-    // the A fragment of k-step kk (4 k-steps of 16 keys).
-    mma_c_y(acc, s, sV, lane);
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const int row0 = q0 + r0;
-  const int row1 = row0 + 8;
-  if (lse_row != nullptr && t4 == 0) {
-    // log-sum-exp in natural-log units: ln(2^m * l) with m in the base-2,
-    // scale-folded domain of the loop
-    constexpr float kLn2 = 0.6931471805599453f;
-    if (row0 < L) lse_row[row0] = m0 * kLn2 + logf(l0);
-    if (row1 < L) lse_row[row1] = m1 * kLn2 + logf(l1);
-  }
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int d = n * 8 + t4 * 2;
-    if (row0 < L) {
-      *reinterpret_cast<__nv_bfloat162*>(p.o + row0 * p.osl + d) =
-          __floats2bfloat162_rn(acc[n][0] * inv0, acc[n][1] * inv0);
-    }
-    if (row1 < L) {
-      *reinterpret_cast<__nv_bfloat162*>(p.o + row1 * p.osl + d) =
-          __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
     }
   }
 }

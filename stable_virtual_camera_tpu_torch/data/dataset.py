@@ -24,14 +24,17 @@ from stable_virtual_camera_tpu_torch.data.parsers import (
 
 
 def read_image(path: str) -> np.ndarray:
-    """An image file as imageio reads it, cut to its first three channels:
-    (H, W, 3) RGB in the file's own dtype."""
+    """An image file as `imageio.v3.imread` reads it, cut with `[..., :3]`:
+    (H, W, 3) RGB, 8 bits for a colour file (a 16-bit one keeps its high
+    byte, as imageio's reader does), a gray file in its own dtype."""
     import cv2
 
     image = cv2.imread(path, cv2.IMREAD_UNCHANGED)
     if image is None:
         raise FileNotFoundError(f"cannot read image {path}")
     if image.ndim == 3:
+        if image.dtype == np.uint16:
+            image = (image >> 8).astype(np.uint8)
         return np.ascontiguousarray(image[..., 2::-1])  # BGR(A) -> RGB
     return image[..., :3]
 

@@ -56,15 +56,38 @@ def _finish(module: nn.Module, dtype: torch.dtype, device) -> nn.Module:
     return module.to(device=device, dtype=dtype, memory_format=torch.channels_last).eval()
 
 
-def build_models(spec: SevaSpec, clip_spec: ClipVisionSpec, device, dtype,
-                 attention: str = "upstream"):
-    """Uninitialised (unet, vae, clip) on `device` in `dtype`; `attention` is
-    the UNet's self-attention backend (models/unet.py)."""
+def attention_backend(attention: str | None, dtype: torch.dtype, device) -> str:
+    """The UNet's self-attention backend (models/unet.py) for a model in
+    `dtype` on `device`. The kernels have bf16 entries only (JAX's Pallas
+    kernels also take fp32: ROADMAP lists the gap), so an fp32 model on the
+    card runs "plain", the same routes through each kernel's plain version.
+    None picks "plain" there and "upstream" elsewhere; a kernel backend for
+    an fp32 model on the card raises."""
+    plain_only = torch.device(device).type == "cuda" and dtype != torch.bfloat16
+    if attention is None:
+        return "plain" if plain_only else "upstream"
+    if plain_only and attention != "plain":
+        raise ValueError(
+            f"attention={attention!r} launches bf16 kernels; a {dtype} model on the card "
+            "takes attention='plain' (or None)"
+        )
+    return attention
+
+
+def _modules(spec: SevaSpec, clip_spec: ClipVisionSpec, device, attention: str):
     if clip_spec.embed_dim != spec.context_dim:
         raise ValueError("CLIP embed_dim must equal the UNet context_dim")
     with torch.device(device):
         unet, vae, clip = SevaUNet(spec, attention), AutoEncoderKL(), ClipVisionTower(clip_spec)
-    return tuple(_finish(m, dtype, device) for m in (unet, vae, clip))
+    return [_finish(m, torch.float32, device) for m in (unet, vae, clip)]
+
+
+def build_models(spec: SevaSpec, clip_spec: ClipVisionSpec, device, dtype,
+                 attention: str | None = None):
+    """Uninitialised (unet, vae, clip) on `device` in `dtype`; `attention` is
+    the UNet's self-attention backend (`attention_backend`)."""
+    models = _modules(spec, clip_spec, device, attention_backend(attention, dtype, device))
+    return tuple(_finish(m, dtype, device) for m in models)
 
 
 def _bundle(spec, unet, vae, clip):
@@ -83,18 +106,18 @@ def random_bundle(
     dtype: torch.dtype = torch.float32,
     device="cuda",
     generator: torch.Generator | None = None,
-    attention: str = "upstream",
+    attention: str | None = None,
 ):
     """A ModelBundle with flax-default random weights (tests, smoke runs),
     on the card unless `device` says otherwise. Weights are drawn in fp32 on
     `device` from `generator` (seed 0 on that device when omitted), then
-    cast to `dtype`. `attention` is the UNet's self-attention backend; the
-    weights do not depend on it."""
+    cast to `dtype`. `attention` is the UNet's self-attention backend
+    (`attention_backend`); the weights do not depend on it."""
     spec = spec or SevaSpec.tiny()
     clip_spec = clip_spec or ClipVisionSpec.tiny()
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    models = build_models(spec, clip_spec, device, torch.float32, attention)
+    models = _modules(spec, clip_spec, device, attention_backend(attention, dtype, device))
     models = [_finish(init_flax_defaults(m, generator), dtype, device) for m in models]
     return _bundle(spec, *models)
 

@@ -6,7 +6,8 @@ transposes), convs run on NHWC tensors through channels_last weights, and
 norms, softmax and the time embedding keep the JAX package's fp32 islands.
 
 Attention dispatch follows the JAX package exactly, with the `attention`
-backend in place of JAX's SVC_UPSTREAM_FLASH / SVC_PACKED_ATTENTION knobs:
+backend in place of JAX's use_pallas flag and SVC_UPSTREAM_FLASH /
+SVC_PACKED_ATTENTION knobs:
   * "upstream" (default): self-attention with dim_head 64 and L >= 1024 ->
     kernel K1 (ops/flash_upstream.flash_attention_upstream_bhld) on the
     (B, H, L, 64) views of the packed qkv projection;
@@ -16,9 +17,16 @@ backend in place of JAX's SVC_UPSTREAM_FLASH / SVC_PACKED_ATTENTION knobs:
     kernel K4 (ops/flash_attention_packed);
   * temporal attention over T <= 32 frames -> kernel K2
     (ops/time_attention.time_attention_bhds) on the (b*T, H, 64, S) layout
-    the projection writes directly, whatever the backend;
+    the projection writes directly, whatever the backend, where dim_head
+    is 64 (K2 has no entry for other head dims; ROADMAP lists the gap);
+  * "plain": the routes of "upstream" with each kernel's plain version, no
+    kernel at all (an fp32 model on the card: the kernels take bf16 only,
+    models/io.attention_backend);
   * everything else -> the plain routes of ops/attention.sdpa_packed.
-On CPU tensors the kernel wrappers run their plain versions.
+A block's routes follow from its backend and head dim, and per call from L
+and T, as in JAX; never from a tensor's dtype, strides or address, so a
+CUDA tensor routed to a kernel launches it or raises. On CPU tensors the
+kernel wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from stable_virtual_camera_tpu_torch.config import SevaSpec
 from stable_virtual_camera_tpu_torch.ops.attention import BACKENDS, sdpa_packed
 from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
     HEAD_DIM as FLASH_HEAD_DIM,
+    flash_attention_plain,
     flash_attention_upstream_bhld,
 )
 from stable_virtual_camera_tpu_torch.ops.norms import group_norm_nhwc, layer_norm_fp32
@@ -42,8 +51,10 @@ from stable_virtual_camera_tpu_torch.ops.resize import (
     upsample_2x_conv3x3,
 )
 from stable_virtual_camera_tpu_torch.ops.time_attention import (
+    HEAD_DIM as TIME_HEAD_DIM,
     MAX_FRAMES as TIME_MAX_FRAMES,
     time_attention_bhds,
+    time_attention_plain,
 )
 
 FLASH_MIN_LEN = 1024
@@ -127,11 +138,12 @@ class SelfAttention(nn.Module):
         B, L, _ = x.shape
         H, D = self.heads, self.dim_head
         qkv = F.linear(x, self.qkv.weight)  # (B, L, 3 * inner)
-        if self.attention == "upstream" and D == FLASH_HEAD_DIM and L >= FLASH_MIN_LEN:
+        if self.attention in ("upstream", "plain") and D == FLASH_HEAD_DIM and L >= FLASH_MIN_LEN:
             # (B, H, L, D) strided views of the packed projection; the kernel
             # writes (B, L, H, D), so to_out reads it with no copy
             q, k, v = qkv.view(B, L, 3, H, D).permute(2, 0, 3, 1, 4).unbind(0)
-            o = flash_attention_upstream_bhld(q, k, v)
+            attend = flash_attention_plain if self.attention == "plain" else flash_attention_upstream_bhld
+            o = attend(q, k, v)
             return self.to_out(o.transpose(1, 2).reshape(B, L, H * D))
         q, k, v = qkv.chunk(3, dim=-1)
         return self.to_out(sdpa_packed(q, k, v, H, backend=self.attention))
@@ -145,7 +157,8 @@ class SelfAttention(nn.Module):
             # straight from the GEMM; to_out reads it back transposed
             qkv = torch.matmul(self.qkv.weight, x.transpose(1, 2))  # (B, 3*inner, S)
             q, k, v = qkv.view(B, 3, H, D, S).unbind(1)
-            o = time_attention_bhds(q, k, v, T)
+            kernel = self.attention != "plain" and D == TIME_HEAD_DIM  # K2's one head dim
+            o = (time_attention_bhds if kernel else time_attention_plain)(q, k, v, T)
             return self.to_out(o.reshape(B, inner, S).transpose(1, 2))
         b = B // T
         q, k, v = (
@@ -210,12 +223,13 @@ class TransformerBlock(nn.Module):
 class TransformerBlockTimeMix(nn.Module):
     """Temporal attention block; the final FF has no residual."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
+                 attention: str = "upstream"):
         super().__init__()
         self.norm_in = LayerNorm32(dim)
         self.ff_in = FeedForward(dim, dim_out=dim)
         self.norm1 = LayerNorm32(dim)
-        self.attn1 = SelfAttention(dim, heads, dim_head)
+        self.attn1 = SelfAttention(dim, heads, dim_head, attention)
         self.norm2 = LayerNorm32(dim)  # unused: carried for the checkpoint
         self.attn2 = CrossAttention(dim, context_dim, heads, dim_head)
         self.norm3 = LayerNorm32(dim)
@@ -249,7 +263,7 @@ class MultiviewTransformer(nn.Module):
                 f"spatial_{d}", TransformerBlock(inner, heads, dim_head, context_dim, attention)
             )
             self.add_module(
-                f"temporal_{d}", TransformerBlockTimeMix(inner, heads, dim_head, context_dim)
+                f"temporal_{d}", TransformerBlockTimeMix(inner, heads, dim_head, context_dim, attention)
             )
         self.proj_out = nn.Linear(inner, channels)
 
@@ -323,8 +337,10 @@ class SevaUNet(nn.Module):
     forward(x (B, h, w, 11), t_idx (B,), context (B, 1, ctx),
     dense_emb (B, h, w, 6), num_frames) -> (B, h, w, 4) fp32, B = b * T.
     Computes in the dtype of its parameters. `attention` ("upstream",
-    "flash" or "packed") is the self-attention backend of every
-    transformer block; it changes no parameter.
+    "flash", "packed" or "plain") is the attention backend of every
+    transformer block; it changes no parameter. The kernels take bf16
+    only, so an fp32 model on the card takes "plain"
+    (models/io.attention_backend picks it).
     """
 
     def __init__(self, spec: SevaSpec, attention: str = "upstream"):

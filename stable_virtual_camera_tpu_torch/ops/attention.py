@@ -77,7 +77,7 @@ def online_softmax_attention(
     return out
 
 
-BACKENDS = ("upstream", "flash", "packed")
+BACKENDS = ("upstream", "flash", "packed", "plain")
 
 
 def _check_backend(backend: str) -> None:
@@ -92,7 +92,7 @@ def scaled_dot_product_attention(
     """K3 for the shapes it supports under the "flash" and "packed"
     backends; otherwise einsum or chunked attention, picked by key length."""
     _check_backend(backend)
-    if backend != "upstream":
+    if backend in ("flash", "packed"):
         from stable_virtual_camera_tpu_torch.ops import flash_attention as fa
 
         if fa.supported(q, k, v):

@@ -17,7 +17,7 @@ import torch
 
 from stable_virtual_camera_tpu_torch import _kernels
 from stable_virtual_camera_tpu_torch.ops.attention import attention_chunked, online_softmax_attention
-from stable_virtual_camera_tpu_torch.ops.flash_upstream import _SCALE_LOG2, HEAD_DIM, _check
+from stable_virtual_camera_tpu_torch.ops import flash_upstream as fu
 
 MIN_LEN = 1024
 
@@ -27,7 +27,7 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     bf16 or fp32 (on the card, fp32 then raises in `flash_attention_cuda`)."""
     B, L, H, D = q.shape
     S = k.shape[1]
-    return D == HEAD_DIM and L == S and S >= MIN_LEN and q.dtype in (torch.bfloat16, torch.float32)
+    return D == fu.HEAD_DIM and L == S and S >= MIN_LEN and q.dtype in (torch.bfloat16, torch.float32)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -41,19 +41,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     (any batch/row/head strides that keep 16-byte rows, e.g. chunks of one
     packed projection). Returns a contiguous (B, L, H, 64)."""
     B, L, H, D = q.shape
-    if D != HEAD_DIM:
-        raise ValueError(f"flash attention (K3) needs head dim {HEAD_DIM}, got {D}")
+    if D != fu.HEAD_DIM:
+        raise ValueError(f"flash attention (K3) needs head dim {fu.HEAD_DIM}, got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, (B, L, H, D))
+        fu._check(name, t, (B, L, H, D))
         if t.device != q.device:
             raise ValueError("flash attention (K3): all operands must be on one device")
     o = torch.empty((B, L, H, D), dtype=torch.bfloat16, device=q.device)
-    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
-    with torch.cuda.device(q.device):
-        _kernels.FLASH_ATTENTION_BLHD.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, L, *strides,
-            _SCALE_LOG2, torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    fu.launch_fwd(_kernels.FLASH_ATTENTION_BLHD, *(t.transpose(1, 2) for t in (q, k, v, o)))
     return o
 
 

@@ -17,7 +17,13 @@ import torch
 from stable_virtual_camera_tpu_torch import _kernels
 from stable_virtual_camera_tpu_torch.ops.attention import online_softmax_attention
 from stable_virtual_camera_tpu_torch.ops.flash_attention import MIN_LEN
-from stable_virtual_camera_tpu_torch.ops.flash_upstream import _SCALE_LOG2, HEAD_DIM
+from stable_virtual_camera_tpu_torch.ops import flash_upstream as fu
+from stable_virtual_camera_tpu_torch.ops.flash_upstream import HEAD_DIM
+
+
+def _bhld(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """The (B, H, L, 64) view of a (B, L, heads * 64) tensor."""
+    return t.unflatten(-1, (heads, HEAD_DIM)).transpose(1, 2)
 
 
 def supported(q: torch.Tensor, k: torch.Tensor, heads: int) -> bool:
@@ -55,11 +61,6 @@ def _check(name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(
             f"packed flash attention (K4): {name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
         )
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:2]) or t.data_ptr() % 16:
-        raise ValueError(
-            f"packed flash attention (K4): {name} needs contiguous columns and 16-byte aligned "
-            f"rows, got strides {t.stride()}"
-        )
 
 
 def flash_attention_packed_cuda(
@@ -76,12 +77,7 @@ def flash_attention_packed_cuda(
         if t.device != q.device:
             raise ValueError("packed flash attention (K4): all operands must be on one device")
     o = torch.empty((B, L, W), dtype=torch.bfloat16, device=q.device)
-    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1)]
-    with torch.cuda.device(q.device):
-        _kernels.FLASH_ATTENTION_PACKED.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, heads, L, *strides,
-            _SCALE_LOG2, torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    fu.launch_fwd(_kernels.FLASH_ATTENTION_PACKED, *(_bhld(t, heads) for t in (q, k, v, o)))
     return o
 
 

@@ -69,16 +69,38 @@ def flash_attention_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _tma_view_ok(t: torch.Tensor) -> bool:
+    """A contiguous head dim, (batch, head, row) strides of whole 16-byte
+    units and a 16-byte aligned base: what a TMA tensor map (and the
+    backward kernels' 16-byte loads) can take."""
+    es = t.element_size()
+    return t.stride(-1) == 1 and not any(s * es % 16 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
+
+
+def tma_dims_strides(t: torch.Tensor) -> tuple[tuple[int, int, int, int], tuple[int, int, int]]:
+    """The tensor map through which the forward tile (csrc/flash_fwd_sm90.cuh)
+    reads a (B, H, L, 64) view: dims (64, L, H, B), innermost first, and
+    byte strides (row, head, batch). K1 passes its (B, H, L, 64) views, K3
+    and K4 theirs in that order, so the three layouts differ only here.
+    Raises ValueError for a view TMA cannot take."""
+    if t.dim() != 4 or not _tma_view_ok(t):
+        raise ValueError(
+            "flash attention: a tensor map needs a (B, H, L, D) view with a contiguous head dim, "
+            f"16-byte strides and a 16-byte aligned base, got shape {tuple(t.shape)} strides "
+            f"{t.stride()} at address {t.data_ptr():#x}"
+        )
+    B, H, L, D = t.shape
+    es = t.element_size()
+    return (D, L, H, B), (t.stride(2) * es, t.stride(1) * es, t.stride(0) * es)
+
+
 def _check(name: str, t: torch.Tensor, shape) -> None:
+    """dtype and shape; the forward's layout is checked by `tma_dims_strides`,
+    the backward's by `_check_bwd`."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"flash attention takes bfloat16, got {name}.dtype={t.dtype}")
-    if t.dim() != 4 or tuple(t.shape) != tuple(shape):
+    if t.dim() != len(shape) or tuple(t.shape) != tuple(shape):
         raise ValueError(f"flash attention: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-        raise ValueError(
-            f"flash attention: {name} needs a contiguous head dim and 16-byte aligned "
-            f"rows, got strides {t.stride()}"
-        )
 
 
 def _check_inputs(q: torch.Tensor, *named) -> tuple[int, int, int, int]:
@@ -113,6 +135,21 @@ def _strides(*ts: torch.Tensor) -> list[int]:
     return [s for t in ts for s in t.stride()[:3]]
 
 
+def launch_fwd(kernel: _kernels.Kernel, q, k, v, o, lse=None) -> None:
+    """Launch one of K1, K3, K4 (one tile, csrc/flash_fwd_sm90.cuh) on
+    (B, H, L, 64) views: q, k, v through their tensor maps, o through its
+    element strides, and the fp32 (B, H, L) log-sum-exp when `lse` is given."""
+    B, H, L, _ = q.shape
+    maps = [s for t in (q, k, v) for s in tma_dims_strides(t)[1]]
+    with torch.cuda.device(q.device):
+        kernel.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            B, H, L, *maps, *_strides(o), _SCALE_LOG2,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+
+
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool = False
 ):
@@ -124,18 +161,18 @@ def flash_attention_cuda(
     B, H, L, D = _check_inputs(q, ("k", k), ("v", v))
     o = _empty_like_bhld(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device) if return_lse else None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _kernels.FLASH_ATTENTION.launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if return_lse else None,
-            B, H, L, *_strides(q, k, v, o), _SCALE_LOG2, stream,
-        )
+    launch_fwd(_kernels.FLASH_ATTENTION, q, k, v, o, lse)
     return (o, lse) if return_lse else o
 
 
 def _check_bwd(q, k, v, do, lse, delta) -> tuple[int, int, int]:
     B, H, L, _ = _check_inputs(q, ("k", k), ("v", v), ("do", do))
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if not _tma_view_ok(t):
+            raise ValueError(
+                f"flash attention: {name} needs a contiguous head dim and 16-byte aligned "
+                f"rows, got strides {t.stride()}"
+            )
     _check_rows("lse", lse, B, H, L, q.device)
     _check_rows("delta", delta, B, H, L, q.device)
     return B, H, L
@@ -196,7 +233,7 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """The incoming gradient in a layout the kernels take: a contiguous head
     dim and 16-byte aligned rows (a copy only when autograd hands over
     another layout)."""
-    if t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0:
+    if _tma_view_ok(t):
         return t
     return t.contiguous()
 

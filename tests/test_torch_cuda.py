@@ -24,7 +24,7 @@ import torch
 
 from stable_virtual_camera_tpu_torch import _kernels
 from stable_virtual_camera_tpu_torch.config import SevaSpec
-from stable_virtual_camera_tpu_torch.models.io import init_flax_defaults
+from stable_virtual_camera_tpu_torch.models.io import attention_backend, init_flax_defaults
 from stable_virtual_camera_tpu_torch.models.unet import SevaUNet
 from stable_virtual_camera_tpu_torch.ops import flash_attention as fa
 from stable_virtual_camera_tpu_torch.ops import flash_attention_packed as fap
@@ -54,8 +54,13 @@ def _bf16(rng, shape, device):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device, torch.bfloat16)
 
 
+# the Hopper tile's 128-row query and key tiles: below one tile, ragged, one
+# whole tile, and the longest joint attention of a 576x576 render
+TILE_SHAPES = [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (3, 1, 1296), (1, 1, 128), (1, 1, 27216)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (3, 1, 1296)])
+@pytest.mark.parametrize("B,H,L", TILE_SHAPES)
 @pytest.mark.parametrize("packed", [False, True])
 def test_flash_kernel_matches_plain(cuda, B, H, L, packed):
     """Ragged L (keys masked, rows not stored past L) and the UNet's strided
@@ -72,6 +77,21 @@ def test_flash_kernel_matches_plain(cuda, B, H, L, packed):
     torch.cuda.synchronize()
     assert out.shape == (B, H, L, 64) and out.dtype == torch.bfloat16
     assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L", [(2, 3, 100), (1, 2, 1100), (1, 1, 27216)])
+def test_flash_kernel_lse_matches_plain(cuda, B, H, L):
+    """K1's log-sum-exp (written in the tile's epilogue, read by K1-dKV and
+    K1-dQ) at ragged L, on the UNet's packed-qkv views: fp32, within 1e-2."""
+    rng = np.random.default_rng(L + 11 * H)
+    q, k, v = _bf16(rng, (B, L, 3, H, 64), cuda).permute(2, 0, 3, 1, 4).unbind(0)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, L) and lse.dtype == torch.float32
+    assert (lse - lse_ref).abs().max().item() <= 1e-2
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
 
 
 def _rel(a, b):
@@ -203,7 +223,7 @@ def _split_qkv(rng, B, L, H, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (3, 1, 1296)])
+@pytest.mark.parametrize("B,H,L", TILE_SHAPES)
 def test_blhd_kernel_matches_plain(cuda, B, H, L):
     """K3 on (B, L, H, 64) views of split-qkv chunks, ragged L included; the
     output is a contiguous (B, L, H, 64)."""
@@ -220,7 +240,8 @@ def test_blhd_kernel_matches_plain(cuda, B, H, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,L", [(1, 2, 64), (2, 4, 100), (1, 2, 1100), (2, 6, 1296)])
+@pytest.mark.parametrize("B,H,L", [(1, 2, 64), (2, 4, 100), (1, 2, 1100), (2, 6, 1296), (1, 1, 128),
+                                   (1, 1, 27216)])
 def test_packed_kernel_matches_plain(cuda, B, H, L):
     """K4 on split-qkv (B, L, W) chunks, ragged L included; each head
     writes its 64-column slice of rows of stride W."""
@@ -374,3 +395,50 @@ def test_dust3r_forward_on_the_card_matches_the_cpu(cuda, monkeypatch):
         out = gpu(i1.to(cuda), i2.to(cuda))
     for pred, k in (("pred1", "pts3d"), ("pred1", "conf"), ("pred2", "pts3d_in_other_view"), ("pred2", "conf")):
         torch.testing.assert_close(out[pred][k].cpu(), ref[pred][k], rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_tiny_cli_render_on_the_card(cuda, tmp_path):
+    """`apps/cli.py --random_model True` builds the tiny fp32 bundle on the
+    card: the kernels take bf16 only, so the bundle gets the "plain"
+    attention backend (models/io.attention_backend), no kernel launches,
+    and the render writes finite frames."""
+    import cv2
+
+    from stable_virtual_camera_tpu_torch.apps import cli
+
+    golden = str(__import__("pathlib").Path(__file__).resolve().parent.parent / "assets" / "golden_scene")
+    before = _kernels.counts()
+    (out_dir,) = cli.main(golden, task="img2trajvid", use_traj_prior=True, random_model=True, device="cuda",
+                          work_dir=str(tmp_path), num_steps=2, guider_types=[1, 2], cfg=[2.0, 2.0],
+                          sampler_verbose=False)
+    assert _kernels.counts() == before
+    frames_dir = __import__("pathlib").Path(out_dir) / "samples-rgb"
+    frames = [cv2.imread(str(p)) for p in sorted(frames_dir.glob("*.png"))]
+    assert frames and all(f is not None and f.shape == (64, 64, 3) for f in frames)
+
+
+@pytest.mark.cuda
+def test_fp32_unet_forward_takes_the_plain_routes(cuda, monkeypatch):
+    """An fp32 SevaUNet on the card at 32 x 32 = 1024 tokens a frame (head
+    dim 64, T = 2) with the "plain" backend, which `attention_backend`
+    gives an fp32 model there (K1 and K2 take bf16 only): the blocks K1
+    and K2 would get run their plain versions, with no launch, and the
+    output matches the same network on the CPU (fp32, TF32 off)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    spec = SevaSpec(model_channels=64, num_frames=2, num_head_channels=64, context_dim=64,
+                    channel_mult=(1, 1), transformer_depth=(1, 1), attention_resolutions=(1,))
+    cpu = init_flax_defaults(SevaUNet(spec), torch.Generator().manual_seed(0))
+    gpu = SevaUNet(spec, attention_backend(None, torch.float32, cuda)).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    n = 2
+    args = [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((n, 32, 32, 11), (n, 1, 64),
+                                                                              (n, 32, 32, 6))]
+    with torch.inference_mode():
+        ref = cpu(args[0], torch.full((n,), 500), args[1], args[2], n)
+        before = _kernels.counts()
+        out = gpu(args[0].to(cuda), torch.full((n,), 500, device=cuda), args[1].to(cuda), args[2].to(cuda), n)
+        torch.cuda.synchronize()
+    assert _kernels.counts() == before
+    assert torch.isfinite(out).all() and _rel(out.cpu(), ref) <= 1e-4

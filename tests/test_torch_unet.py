@@ -127,6 +127,9 @@ _ROUTES = [
     ("packed", 2048, 32, None, "plain"),     # W = 64: neither K4 nor K3
     ("packed", 16, 64, 4, "time"),
     ("packed", 16, 64, 33, "plain"),
+    ("plain", 1024, 64, None, "plain"),      # no kernel: an fp32 model on the card
+    ("plain", 16, 64, 4, "plain"),
+    ("upstream", 16, 32, 4, "plain"),        # K2 takes head dim 64 only
 ]
 
 
