@@ -11,7 +11,9 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      shape of a 576x576 render (T=21, b=2);
   4. `k1_bwd` and `k1_lse`: K1-dKV and K1-dQ against the plain backward, and
      K1's log-sum-exp against the plain one, at every self-attention shape
-     of a 576x576 training chunk (T=21, b=1);
+     of a 576x576 training chunk (T=21, b=1), with each kernel's TFLOP/s,
+     the plain D reduction's time, the pair + D against SDPA's backward, and
+     two more launches at L = 1701 that must give the same bits;
   5. `k3_flash_attention` and `k4_flash_packed`: K3 ((B, L, H, 64) layout)
      and K4 (packed (B, L, W) layout) against their plain versions at the
      self-attention shapes of a 576x576 render they take, on the split-qkv
@@ -113,6 +115,10 @@ TRAIN_T = 21
 K1_TRAIN_SHAPES = [(5184, 21, 5), (1296, 21, 10), (27216, 1, 10), (6804, 1, 20), (1701, 1, 20)]
 K1_LSE_MAX_ABS = 1e-2
 K1_BWD_REL_L2 = 2e-2  # P and dS rounded to bf16 for the products, bf16 outputs
+# the training shape where the backward pair is launched twice more on the
+# same inputs and must give the same bits (L = 1701: 4 L is not a multiple of
+# 16, the row stride a TMA map of lse or D would need)
+K1_BWD_DETERMINISM_SHAPE = (1701, 1, 20)
 TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-2, 5e-2
 REMAT_LOSS_REL, REMAT_GRAD_REL_L2 = 1e-6, 1e-3
 TRAIN_STEPS, TRAIN_INPUTS, TRAIN_LR, LORA_RANK = 4, 3, 1e-3, 16
@@ -345,6 +351,7 @@ def check_k1_bwd(gen) -> dict:
     import torch
 
     from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
+        attention_delta,
         flash_attention_bwd_dkv_cuda,
         flash_attention_bwd_dq_cuda,
         flash_attention_bwd_plain,
@@ -362,7 +369,7 @@ def check_k1_bwd(gen) -> dict:
         do = torch.randn((B, L, H, 64), generator=gen, device=DEVICE).to(torch.bfloat16).transpose(1, 2)
         o, lse = flash_attention_cuda(q, k, v, return_lse=True)
         _, lse_ref = flash_attention_plain(q, k, v, return_lse=True)
-        delta = (o.float() * do.float()).sum(-1)
+        delta = attention_delta(o, do)
         dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
         dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
         pq, pk, pv = flash_attention_bwd_plain(q, k, v, o, lse, do)
@@ -378,8 +385,17 @@ def check_k1_bwd(gen) -> dict:
             "fwd_lse_ms": cuda_ms(lambda: flash_attention_cuda(q, k, v, return_lse=True), 5),
             "dkv_ms": cuda_ms(lambda: flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta), 5),
             "dq_ms": cuda_ms(lambda: flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), 5),
+            # the plain D = rowsum(o dO) that the pair reads (SDPA's backward
+            # computes its own)
+            "delta_ms": cuda_ms(lambda: attention_delta(o, do), 5),
             "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), 1),
         }
+        if (L, B, H) == K1_BWD_DETERMINISM_SHAPE:
+            # two more launches of each kernel on the same inputs: the same bits
+            dk2, dv2 = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+            dq2 = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+            row["bit_identical"] = all(torch.equal(a, b) for a, b in ((dk, dk2), (dv, dv2), (dq, dq2)))
+            del dk2, dv2, dq2
         del pq, pk, pv, dq, dk, dv
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         out = torch.nn.functional.scaled_dot_product_attention(*leaves)
@@ -387,7 +403,10 @@ def check_k1_bwd(gen) -> dict:
             lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 5)
         del out, leaves
         n = 64 * B * H
+        row["pair_and_delta_ms"] = row["dkv_ms"] + row["dq_ms"] + row["delta_ms"]
         row["tflops"] = 14.0 * L * L * n / ((row["dkv_ms"] + row["dq_ms"]) * 1e-3) / 1e12
+        row["dkv_tflops"] = 8.0 * L * L * n / (row["dkv_ms"] * 1e-3) / 1e12
+        row["dq_tflops"] = 6.0 * L * L * n / (row["dq_ms"] * 1e-3) / 1e12
         # K1-dKV: S, dP, dV, dK products; reads q k v dO lse D, writes dk dv.
         # K1-dQ: S, dP, dQ; reads the same, writes dq.
         row["dkv_bound_ms"], row["dkv_bound_by"] = bound(8.0 * L * L * n,
@@ -401,15 +420,21 @@ def check_k1_bwd(gen) -> dict:
     emit({"phase": "k1_lse", "ok": lse_ok, "bar": {"max_abs": K1_LSE_MAX_ABS},
           "shapes": [{k: r[k] for k in ("L", "B", "H", "lse_max_abs_err", "fwd_lse_ms")} for r in rows]})
     bwd_ok = all(r["finite"] and max(r["rel_l2"].values()) <= K1_BWD_REL_L2 for r in rows)
-    emit({"phase": "k1_bwd", "ok": bwd_ok, "bar": {"rel_l2": K1_BWD_REL_L2},
-          "shapes": [{k: v for k, v in r.items() if k != "fwd_lse_ms"} for r in rows]})
+    bwd_ok = bwd_ok and all(r.get("bit_identical", True) for r in rows)
+    sums = {key: sum(r[key] for r in rows)
+            for key in ("dkv_ms", "dq_ms", "delta_ms", "pair_and_delta_ms", "sdpa_bwd_ms")}
+    sums["pair_and_delta_over_sdpa_bwd"] = sums["pair_and_delta_ms"] / sums["sdpa_bwd_ms"]
+    emit({"phase": "k1_bwd", "ok": bwd_ok, "bar": {"rel_l2": K1_BWD_REL_L2, "bit_identical": True},
+          "sums": sums, "shapes": [{k: v for k, v in r.items() if k != "fwd_lse_ms"} for r in rows]})
     if not (lse_ok and bwd_ok):
-        raise AssertionError("K1's LSE or its backward kernels disagree with the plain versions")
+        raise AssertionError("K1's LSE or its backward kernels disagree with the plain versions, "
+                             "or two launches differ")
     plain_ms = sum(r["plain_ms"] for r in rows)
-    sdpa_ms = sum(r["sdpa_bwd_ms"] for r in rows)
-    common = {"plain_ms": plain_ms, "library_ms": sdpa_ms,
-              "plain_and_library_cover": "K1-dKV and K1-dQ together (the plain backward and the "
-                                         "SDPA backward each compute dq, dk and dv)"}
+    common = {"plain_ms": plain_ms, "library_ms": sums["sdpa_bwd_ms"],
+              "delta_ms": sums["delta_ms"],
+              "plain_and_library_cover": "K1-dKV and K1-dQ together with the plain D reduction "
+                                         "(the plain backward and the SDPA backward each compute "
+                                         "dq, dk and dv with their own preprocessing)"}
     out = {}
     for name, part in (("flash_attention_bwd_dkv", "dkv"), ("flash_attention_bwd_dq", "dq")):
         bound_ms, bound_by = sum_bounds(rows, f"{part}_")
@@ -1654,7 +1679,8 @@ def main() -> int:
             "launches_by_path": {path: c.get(k.name, 0) for path, c in counts.items()},
             **{key: r.get(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")},
-            **{key: r[key] for key in ("library", "plain_and_library_cover", "path_shapes") if key in r},
+            **{key: r[key] for key in ("library", "plain_and_library_cover", "delta_ms", "path_shapes")
+               if key in r},
         })
     emit({"kernels": rows})
     missing = [f"{k}@{path}" for path, ks in (

@@ -1,21 +1,18 @@
 #!/usr/bin/env python3
-"""Probe the Hopper forward tile shared by K1, K3 and K4
-(stable_virtual_camera_tpu_torch/csrc/flash_fwd_sm90.cuh) on one NVIDIA GPU.
-Run from the repository root:
+"""Probe the Hopper flash-attention kernels on one NVIDIA GPU: the forward
+tile of K1, K3 and K4 (stable_virtual_camera_tpu_torch/csrc/flash_fwd_sm90.cuh)
+and K1's backward pair K1-dKV, K1-dQ (csrc/flash_attention_bwd.cu). Run from
+the repository root:
 
     python3 scripts/flash_tile_probe.py            # ptxas report + checks
-    python3 scripts/flash_tile_probe.py --time     # + times at the render shapes
+    python3 scripts/flash_tile_probe.py --time     # + times against SDPA
 
-1. `ptxas`: compiles the three forward sources with `-Xptxas -v` into
-   build/ptxas/ and prints each kernel's registers, shared memory and
-   spills as ptxas reports them.
-2. `check`: K1 (with its log-sum-exp), K3 and K4 against their plain
-   versions at small and ragged shapes, at the bars of chip_smoke.py
-   (max 2e-2, mean 2e-3; LSE 1e-2).
-3. `time` (with --time): at the self-attention shapes of a 576x576 render,
-   K1 against SDPA on the same views, with TFLOP/s; then the SM clock and
-   power that nvidia-smi reads while K1 runs at (27216, 2, 10) for 3 s.
-Prints one JSON line per part; exits non-zero if a check fails.
+`ptxas`: each kernel's registers, shared memory and spills (-Xptxas -v).
+`check`: K1 (with its log-sum-exp), K3, K4 and then K1-dKV, K1-dQ against
+their plain versions at small and ragged shapes, at chip_smoke.py's bars.
+`time`: K1 against SDPA at the render shapes, the backward pair and D
+against SDPA's backward at the training shapes, and the SM clock and power
+while K1 runs for 3 s. One JSON line per part; non-zero exit if a check fails.
 """
 
 from __future__ import annotations
@@ -23,6 +20,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -30,16 +28,29 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CHECK_SHAPES = [(128, 1, 1), (64, 1, 1), (100, 2, 3), (1100, 1, 2), (1296, 3, 1), (27216, 1, 1)]
 TIME_SHAPES = [(5184, 42, 5), (1296, 42, 10), (27216, 2, 10), (6804, 2, 20), (1701, 2, 20)]
-MAX_ABS, MEAN_ABS, LSE_ABS = 2e-2, 2e-3, 1e-2
-SOURCES = ("flash_attention", "flash_attention_blhd", "flash_attention_packed")
+TRAIN_SHAPES = [(L, B // 2, H) for L, B, H in TIME_SHAPES]
+MAX_ABS, MEAN_ABS, LSE_ABS, BWD_REL_L2 = 2e-2, 2e-3, 1e-2, 2e-2
+SOURCES = ("flash_attention", "flash_attention_blhd", "flash_attention_packed", "flash_attention_bwd")
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def packed_qkv(gen, L: int, B: int, H: int, grad: bool = False):
+    """K1's (B, H, L, 64) views of a packed (B, L, 3, H, 64) projection and,
+    with `grad`, an incoming gradient in K1's output layout."""
+    import torch
+
+    q, k, v = torch.randn((B, L, 3, H, 64), generator=gen, device="cuda").to(torch.bfloat16).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    if not grad:
+        return q, k, v
+    return q, k, v, torch.randn((B, L, H, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+
+
 def ptxas_report() -> dict:
-    """Compile the three forward sources with -Xptxas -v, all at once, into
+    """Compile the flash-attention sources with -Xptxas -v, all at once, into
     build/ptxas/; returns each one's return code and the ptxas lines that
     report registers, spills, warnings and errors."""
     from stable_virtual_camera_tpu_torch import _kernels
@@ -56,9 +67,14 @@ def ptxas_report() -> dict:
     report = {}
     for name, p in procs.items():
         text, _ = p.communicate()
-        report[name] = {"rc": p.returncode,
-                        "lines": [ln.strip() for ln in text.splitlines()
-                                  if "Compiling entry" not in ln and "Function properties" not in ln]}
+        lines = []
+        for ln in text.splitlines():
+            kernel = re.findall(r"flash_[a-z_]*_kernel", ln) if "Compiling entry" in ln else None
+            if kernel:
+                lines.append(f"entry {kernel[-1]}")
+            elif "Function properties" not in ln and "Compiling entry" not in ln:
+                lines.append(re.sub(r"'_Z\w+'", "", ln.strip()))
+        report[name] = {"rc": p.returncode, "lines": lines}
     return report
 
 
@@ -72,8 +88,7 @@ def clocks_under_load(gen, seconds: float = 3.0) -> dict:
     from stable_virtual_camera_tpu_torch.ops import flash_upstream as fu
 
     L, B, H = 27216, 2, 10
-    q, k, v = torch.randn((B, L, 3, H, 64), generator=gen, device="cuda").to(torch.bfloat16).permute(
-        2, 0, 3, 1, 4).unbind(0)
+    q, k, v = packed_qkv(gen, L, B, H)
     fu.flash_attention_cuda(q, k, v)
     torch.cuda.synchronize()
     smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
@@ -125,6 +140,14 @@ def check(gen) -> tuple[bool, list]:
             row[name] = {"max_abs": d.max().item(), "mean_abs": d.mean().item(),
                          "finite": bool(torch.isfinite(out).all())}
             good = good and row[name]["finite"] and row[name]["max_abs"] <= MAX_ABS and row[name]["mean_abs"] <= MEAN_ABS
+        do = torch.randn((B, L, H, 64), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+        delta = fu.attention_delta(o1, do)
+        dk, dv = fu.flash_attention_bwd_dkv_cuda(*bhld, do, lse, delta)
+        grads = (fu.flash_attention_bwd_dq_cuda(*bhld, do, lse, delta), dk, dv)
+        refs = fu.flash_attention_bwd_plain(*bhld, o1, lse, do)
+        row["bwd_rel_l2"] = {n: ((g.float() - r.float()).norm() / r.float().norm()).item()
+                             for n, g, r in zip(("dq", "dk", "dv"), grads, refs)}
+        good = good and all(torch.isfinite(g).all() for g in grads) and max(row["bwd_rel_l2"].values()) <= BWD_REL_L2
         row["ok"] = good
         ok = ok and good
         rows.append(row)
@@ -144,30 +167,44 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_shapes(gen) -> list:
+def time_kernels(gen) -> dict:
+    """At the self-attention shapes of a 576x576 render, K1 against SDPA on
+    the same views; at those of a training chunk, K1-dKV, K1-dQ and the D
+    reduction against SDPA's backward (which does its own preprocessing).
+    TFLOP/s: 4 L^2 64 B H in K1, 8 in K1-dKV, 6 in K1-dQ."""
     import torch
 
     from stable_virtual_camera_tpu_torch.ops import flash_upstream as fu
 
-    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd, bwd = [], []
     for L, B, H in TIME_SHAPES:
-        flops = 4.0 * L * L * 64 * H * B
-        qkv = torch.randn((B, L, 3, H, 64), generator=gen, device="cuda").to(torch.bfloat16)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        q, k, v = packed_qkv(gen, L, B, H)
+        row = {"L": L, "B": B, "H": H, "k1_ms": cuda_ms(lambda: fu.flash_attention_cuda(q, k, v), 10),
+               "sdpa_ms": cuda_ms(lambda: sdpa(q, k, v), 10)}
+        fwd.append({**row, **{f"{n}_tflops": 4.0 * L * L * 64 * B * H / row[f"{n}_ms"] / 1e9 for n in ("k1", "sdpa")}})
+    for L, B, H in TRAIN_SHAPES:
+        q, k, v, do = packed_qkv(gen, L, B, H, grad=True)
+        o, lse = fu.flash_attention_cuda(q, k, v, return_lse=True)
+        delta = fu.attention_delta(o, do)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = sdpa(*leaves)
         row = {"L": L, "B": B, "H": H,
-               "k1_ms": cuda_ms(lambda: fu.flash_attention_cuda(q, k, v), 10),
-               "sdpa_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 10)}
-        for key in [name for name in row if name.endswith("_ms")]:
-            row[key.replace("_ms", "_tflops")] = flops / (row[key] * 1e-3) / 1e12
-        rows.append(row)
-        del qkv, q, k, v
-        torch.cuda.empty_cache()
-    return rows
+               "dkv_ms": cuda_ms(lambda: fu.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta), 10),
+               "dq_ms": cuda_ms(lambda: fu.flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), 10),
+               "delta_ms": cuda_ms(lambda: fu.attention_delta(o, do), 10),
+               "sdpa_bwd_ms": cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 10)}
+        row["pair_and_delta_ms"] = row["dkv_ms"] + row["dq_ms"] + row["delta_ms"]
+        for part, products in (("dkv", 8.0), ("dq", 6.0)):
+            row[f"{part}_tflops"] = products * L * L * 64 * B * H / row[f"{part}_ms"] / 1e9
+        bwd.append(row)
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--time", action="store_true", help="also time the tile at the render shapes")
+    ap.add_argument("--time", action="store_true", help="also time the kernels against SDPA")
     args = ap.parse_args()
     import torch
 
@@ -183,7 +220,7 @@ def main() -> int:
     ok, rows = check(gen)
     emit({"part": "check", "ok": ok, "shapes": rows})
     if ok and args.time:
-        emit({"part": "time", "shapes": time_shapes(gen)})
+        emit({"part": "time", **time_kernels(gen)})
         emit({"part": "clocks", **clocks_under_load(gen)})
     return 0 if ok else 1
 

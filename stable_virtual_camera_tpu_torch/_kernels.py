@@ -104,17 +104,18 @@ FLASH_ATTENTION = Kernel("flash_attention", "svc_flash_attention_fwd", _FWD_ARGS
 FLASH_ATTENTION_BWD_DKV = Kernel(
     "flash_attention_bwd_dkv",
     "svc_flash_attention_bwd_dkv",
-    # q, k, v, do, lse, delta, dk, dv, B, H, L, then (batch, head, row)
-    # strides of q, k, v, do, dk, dv, scale, stream
-    [_P] * 8 + [_I, _I, _I] + [_LL] * 18 + [ctypes.c_float, _P],
+    # q, k, v, do, lse, delta, dk, dv, B, H, L, the tensor-map byte strides
+    # (row, head, batch) of q, k, v and do, the (batch, head, row) element
+    # strides of dk and dv, scale, stream
+    [_P] * 8 + [_I, _I, _I] + [_LL] * 12 + [_LL] * 6 + [ctypes.c_float, _P],
     source="flash_attention_bwd",
 )
 FLASH_ATTENTION_BWD_DQ = Kernel(
     "flash_attention_bwd_dq",
     "svc_flash_attention_bwd_dq",
-    # q, k, v, do, lse, delta, dq, B, H, L, then (batch, head, row) strides
-    # of q, k, v, do, dq, scale, stream
-    [_P] * 7 + [_I, _I, _I] + [_LL] * 15 + [ctypes.c_float, _P],
+    # q, k, v, do, lse, delta, dq, B, H, L, the tensor-map byte strides of
+    # q, k, v and do, dq's element strides, scale, stream
+    [_P] * 7 + [_I, _I, _I] + [_LL] * 12 + [_LL] * 3 + [ctypes.c_float, _P],
     source="flash_attention_bwd",
 )
 TIME_ATTENTION = Kernel(

@@ -40,6 +40,14 @@ def flash_attention_plain(
     return online_softmax_attention(q, k, v, return_lse=return_lse)
 
 
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(o dO) in fp32, (B, H, L): the backward's preprocessing, a
+    plain reduction as upstream computes it outside its kernels. `do` is
+    upcast inside the product (the same fp32 values as a separate copy,
+    without writing one)."""
+    return (o.float() * do).sum(-1)
+
+
 def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, chunk: int = _BWD_CHUNK,
@@ -50,7 +58,7 @@ def flash_attention_bwd_plain(
     dQ = dS K / sqrt(D). Returns (dq, dk, dv) in the dtypes of q, k, v."""
     L, D = q.shape[-2], q.shape[-1]
     scale = D**-0.5
-    delta = (o.float() * do.float()).sum(-1)
+    delta = attention_delta(o, do)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
@@ -71,8 +79,7 @@ def flash_attention_bwd_plain(
 
 def _tma_view_ok(t: torch.Tensor) -> bool:
     """A contiguous head dim, (batch, head, row) strides of whole 16-byte
-    units and a 16-byte aligned base: what a TMA tensor map (and the
-    backward kernels' 16-byte loads) can take."""
+    units and a 16-byte aligned base: what a TMA tensor map can take."""
     es = t.element_size()
     return t.stride(-1) == 1 and not any(s * es % 16 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0
 
@@ -95,8 +102,8 @@ def tma_dims_strides(t: torch.Tensor) -> tuple[tuple[int, int, int, int], tuple[
 
 
 def _check(name: str, t: torch.Tensor, shape) -> None:
-    """dtype and shape; the forward's layout is checked by `tma_dims_strides`,
-    the backward's by `_check_bwd`."""
+    """dtype and shape; the layout of what the kernels read through tensor
+    maps is checked by `tma_dims_strides`."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"flash attention takes bfloat16, got {name}.dtype={t.dtype}")
     if t.dim() != len(shape) or tuple(t.shape) != tuple(shape):
@@ -165,17 +172,17 @@ def flash_attention_cuda(
     return (o, lse) if return_lse else o
 
 
-def _check_bwd(q, k, v, do, lse, delta) -> tuple[int, int, int]:
+def _check_bwd(q, k, v, do, lse, delta) -> tuple[int, int, int, list[int]]:
+    """dtype, shape and device of the backward's operands; returns B, H, L
+    and the tensor-map byte strides of q, k, v and do, in that order, from
+    `tma_dims_strides` (which raises ValueError for a view TMA cannot take).
+    lse and delta are read with ordinary loads, so they only need to be
+    contiguous fp32 (B, H, L)."""
     B, H, L, _ = _check_inputs(q, ("k", k), ("v", v), ("do", do))
-    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        if not _tma_view_ok(t):
-            raise ValueError(
-                f"flash attention: {name} needs a contiguous head dim and 16-byte aligned "
-                f"rows, got strides {t.stride()}"
-            )
+    maps = [s for t in (q, k, v, do) for s in tma_dims_strides(t)[1]]
     _check_rows("lse", lse, B, H, L, q.device)
     _check_rows("delta", delta, B, H, L, q.device)
-    return B, H, L
+    return B, H, L, maps
 
 
 def flash_attention_bwd_dkv_cuda(
@@ -183,16 +190,16 @@ def flash_attention_bwd_dkv_cuda(
     lse: torch.Tensor, delta: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K1-dKV: (dk, dv) as (B, H, L, 64) bf16 views of (B, L, H, 64)
-    buffers. q, k, v, do: (B, H, L, 64) bf16 views with a contiguous head
-    dim; lse: K1's fp32 (B, H, L) log-sum-exp; delta: fp32 (B, H, L)
-    rowsum(o do)."""
-    B, H, L = _check_bwd(q, k, v, do, lse, delta)
+    buffers. q, k, v, do: (B, H, L, 64) bf16 views that a tensor map can
+    take (`tma_dims_strides`); lse: K1's fp32 (B, H, L) log-sum-exp; delta:
+    fp32 (B, H, L) rowsum(o do)."""
+    B, H, L, maps = _check_bwd(q, k, v, do, lse, delta)
     dk, dv = _empty_like_bhld(q), _empty_like_bhld(q)
     with torch.cuda.device(q.device):
         _kernels.FLASH_ATTENTION_BWD_DKV.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, L, *_strides(q, k, v, do, dk, dv), _SCALE,
+            B, H, L, *maps, *_strides(dk, dv), _SCALE,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     return dk, dv
@@ -204,13 +211,13 @@ def flash_attention_bwd_dq_cuda(
 ) -> torch.Tensor:
     """Launch K1-dQ: dq as a (B, H, L, 64) bf16 view of a (B, L, H, 64)
     buffer; operands as for `flash_attention_bwd_dkv_cuda`."""
-    B, H, L = _check_bwd(q, k, v, do, lse, delta)
+    B, H, L, maps = _check_bwd(q, k, v, do, lse, delta)
     dq = _empty_like_bhld(q)
     with torch.cuda.device(q.device):
         _kernels.FLASH_ATTENTION_BWD_DQ.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            B, H, L, *_strides(q, k, v, do, dq), _SCALE,
+            B, H, L, *maps, *_strides(dq), _SCALE,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     return dq
@@ -224,15 +231,14 @@ def flash_attention_bwd_cuda(
     upstream TPU kernel computes it outside its kernels too, from the same
     bf16 o the forward wrote), then K1-dKV and K1-dQ. Returns (dq, dk, dv)."""
     _check("o", o, q.shape)
-    delta = (o.float() * do.float()).sum(-1)
+    delta = attention_delta(o, do)
     dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
     return flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), dk, dv
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """The incoming gradient in a layout the kernels take: a contiguous head
-    dim and 16-byte aligned rows (a copy only when autograd hands over
-    another layout)."""
+    """The incoming gradient in a layout a tensor map can take (a copy only
+    when autograd hands over another layout)."""
     if _tma_view_ok(t):
         return t
     return t.contiguous()

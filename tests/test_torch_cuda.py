@@ -99,11 +99,13 @@ def _rel(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (3, 1, 1296)])
+@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (3, 1, 1296),
+                                   (1, 2, 1701), (1, 1, 1001)])
 def test_flash_backward_kernels_match_plain(cuda, B, H, L):
     """K1's LSE, then K1-dKV and K1-dQ, against the plain versions on the
     UNet's packed-qkv views, with the incoming gradient in K1's output
-    layout; ragged L included."""
+    layout; ragged L included, and L = 1701 and 1001, where the fp32 lse
+    and delta rows (4 L bytes) are not a multiple of 16 bytes."""
     rng = np.random.default_rng(L + 7 * H)
     q, k, v = _bf16(rng, (B, L, 3, H, 64), cuda).permute(2, 0, 3, 1, 4).unbind(0)
     do = _bf16(rng, (B, L, H, 64), cuda).transpose(1, 2)
@@ -120,6 +122,22 @@ def test_flash_backward_kernels_match_plain(cuda, B, H, L):
     for g, r in zip(grads, refs):
         assert g.shape == (B, H, L, 64) and g.dtype == torch.bfloat16
         assert torch.isfinite(g).all() and _rel(g, r) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_backward_kernels_are_deterministic(cuda):
+    """Two launches of K1-dKV and of K1-dQ on the same inputs give the same
+    bits (no atomics; each output row is summed in one fixed order)."""
+    rng = np.random.default_rng(5)
+    B, H, L = 1, 2, 1701
+    q, k, v = _bf16(rng, (B, L, 3, H, 64), cuda).permute(2, 0, 3, 1, 4).unbind(0)
+    do = _bf16(rng, (B, L, H, 64), cuda).transpose(1, 2)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    first = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    second = flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

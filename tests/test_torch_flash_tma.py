@@ -5,8 +5,10 @@ operands it refuses (an fp32 model on the card takes the "plain" backend,
 chosen when it is built; K2 takes head dim 64 only).
 
 `tma_dims_strides` turns a (B, H, L, 64) view into dims (64, L, H, B) and
-byte strides (row, head, batch). Each layout's view (K1's permuted views of
-a packed (B, L, 3, H, 64) projection, K3's split-qkv chunks seen as
+byte strides (row, head, batch); the backward kernels K1-dKV and K1-dQ
+read q, k, v and do through the same maps (`_check_bwd`). Each layout's
+view (K1's permuted views of a packed (B, L, 3, H, 64) projection, K3's
+split-qkv chunks seen as
 (B, L, H, 64), K4's packed (B, L, W) chunks, and the outputs) is rebuilt
 from those numbers with `torch.as_strided` over its base storage and must
 equal the view element for element. The CUDA tests of the tile itself are
@@ -98,6 +100,55 @@ def test_packed_views_tma_cannot_take_raise_before_any_launch():
     with pytest.raises(ValueError):
         fap.flash_attention_packed_cuda(odd, ok, ok, 2)
     assert _kernels.counts() == before
+
+
+def _bwd_operands(B: int, L: int, H: int):
+    """What autograd hands K1's backward: q, k, v as K1's permuted views of
+    a packed (B, L, 3, H, 64) projection, do as the (B, H, L, 64) view of a
+    (B, L, H * 64) gradient (to_out's input), and contiguous fp32 lse and
+    delta."""
+    q, k, v = _base(B * L * 3 * H * 64).view(B, L, 3, H, 64).permute(2, 0, 3, 1, 4).unbind(0)
+    do = _base(B * L * H * 64).view(B, L, H * 64).view(B, L, H, 64).transpose(1, 2)
+    rows = torch.zeros((B, H, L), dtype=torch.float32)
+    return q, k, v, do, rows, rows.clone()
+
+
+@pytest.mark.parametrize("B,L,H", [(1, 1701, 2), (2, 100, 3), (1, 1001, 1)])
+def test_backward_check_takes_autograd_layouts(B, L, H):
+    """`_check_bwd` takes the views autograd hands the backward, with the
+    tensor-map strides of q, k, v and do in the kernels' order, and takes
+    lse and delta whatever 4 L is modulo 16 (they are not read by TMA):
+    L = 1701 and 1001 give row strides of 6804 and 4004 bytes."""
+    ops = _bwd_operands(B, L, H)
+    assert fu._check_bwd(*ops) == (B, H, L, [s for t in ops[:4] for s in fu.tma_dims_strides(t)[1]])
+    for t in ops[:4]:
+        assert torch.equal(_rebuilt(t), t)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", ["head dim not contiguous", "row stride of 136 bytes", "base 2 bytes off"])
+def test_backward_refuses_views_tma_cannot_take(which, case):
+    """A q, k, v or do view that a tensor map cannot take raises before any
+    launch, in both backward kernels' wrappers."""
+    ops = list(_bwd_operands(1, 100, 2))
+    ops[which] = _refusals()[1][case]
+    before = _kernels.counts()
+    for fn in (fu._check_bwd, fu.flash_attention_bwd_dkv_cuda, fu.flash_attention_bwd_dq_cuda):
+        with pytest.raises(ValueError):
+            fn(*ops)
+    assert _kernels.counts() == before
+
+
+def test_attention_delta_is_the_fp32_row_sum():
+    """D = rowsum(o dO), computed with dO upcast inside the product, equals
+    the reduction of two fp32 copies bit for bit, on K1's output layout."""
+    rng = np.random.default_rng(2)
+    B, H, L = 2, 3, 100
+    o, do = (torch.from_numpy(rng.normal(size=(B, L, H, 64)).astype(np.float32)).to(torch.bfloat16)
+             .transpose(1, 2) for _ in range(2))
+    delta = fu.attention_delta(o, do)
+    assert delta.dtype == torch.float32 and delta.shape == (B, H, L)
+    assert torch.equal(delta, (o.float() * do.float()).sum(-1))
 
 
 def test_flash_predicates_take_bf16_head_dim_64_only():
