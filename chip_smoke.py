@@ -49,8 +49,12 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
  12. `k5_layer_norm`: K5 (LayerNorm with one-pass fp32 statistics) against
      its plain version at the probe's shape (42*5184, 320) bf16 and at
      widths 640 and 1280 with ragged row counts, with torch's layer_norm as
-     the one-call yardstick, then the probe's own loop (32 dependent
-     LayerNorms) with its launch count;
+     the one-call yardstick, each timed warm (back to back on one input),
+     cold (rotating over inputs larger than the L2 together) and by its
+     device time in torch.profiler, with the bound share from the cold
+     device time; a repeated launch at width 1280 that must give the same
+     bits; then the probe's own loop (32 dependent LayerNorms) with its
+     launch count;
  13. `global_align_synthetic`: the port's global alignment on the card (500
      Adam steps, cosine schedule) over a known scene built here (8 images,
      384x512 maps, 56 edges, each with its own scale), with the recovery
@@ -79,6 +83,7 @@ directory without the port.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -129,6 +134,14 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkv", "flash_attention_
 # UNet's other widths with ragged row counts; the probe's loop length
 LN_SHAPES = [(42 * 5184, 320), (42 * 1296 + 7, 640), (42 * 324 + 5, 1280)]
 LN_PROBE_ITERS = 32
+# K5's timing: launches an event reading averages, launches a profiler window
+# sums, the x bytes a cold reading rotates over (twice the 50 MB L2), the
+# ratio of event to device time above which a burst measured the host, and
+# the width whose launch is repeated for identical bits
+LN_REPS, LN_PROFILED = 50, 20
+LN_COLD_BYTES = 100e6
+LN_HOST_BOUND = 1.2
+LN_REPEAT_WIDTH = 1280
 # Advanced mode: DUSt3R at 512x384, 500 alignment steps, render at 768x576
 ADV_W, ADV_H, ADV_IMAGES, ADV_SHORTER = 512, 384, 3, 576
 ALIGN_STEPS = 500
@@ -866,35 +879,95 @@ def bf16_steps(out, ref):
     return ((out - ref).abs() / step).max().item()
 
 
+def device_us(fn, launches: int) -> tuple[float, list[str]]:
+    """torch.profiler over `launches` calls of `fn` after one warm-up call:
+    the device time of the kernels they ran, per launch (us), and the
+    kernels' classes."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def burst():
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+
+    prof = device_time_by_class(burst)
+    return prof["device_busy_ms"] * 1e3 / launches, sorted(prof["device_ms_by_class"])
+
+
+def rotating(fn, args: list):
+    """A call of `fn` on the next of `args` each time, round and round."""
+    it = itertools.cycle(args)
+    return lambda: fn(*next(it))
+
+
+def k5_row(gen, R: int, C: int) -> dict:
+    """K5 against its plain version at (R, C) bf16, timed with F.layer_norm
+    as the one-call yardstick in three readings each: warm (`ms`,
+    `library_ms`: back to back on one x, which stays in L2 where it fits),
+    cold (`cold_ms`, `library_cold_ms`: rotating over distinct inputs, and
+    for K5 outputs, whose x bytes together exceed LN_COLD_BYTES, so no
+    launch finds its x in L2) and the device time per launch from
+    torch.profiler (`device_us` cold, `device_warm_us` warm). The bound
+    share and GB/s are from the cold device time; a cold event reading more
+    than LN_HOST_BOUND times it measured the host (`host_bound`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from stable_virtual_camera_tpu_torch.ops.layer_norm import ln_fused, ln_fused_cuda, ln_reduce
+
+    def bf16(shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen, device=DEVICE)).to(torch.bfloat16)
+
+    x, g, b = bf16((R, C)), bf16((C,), 0.1, 1.0), bf16((C,), 0.1)
+    out = ln_fused(x, g, b).float()
+    ref = ln_reduce(x, g, b).float()
+    torch.cuda.synchronize()
+    nbytes = 2 * R * C * 2 + 2 * C * 2  # x read and y written once, gamma and beta read once
+    row = {"rows": R, "C": C, "max_abs_err": (out - ref).abs().max().item(),
+           "max_bf16_steps": bf16_steps(out, ref), "finite": bool(torch.isfinite(out).all())}
+    del out, ref
+    # ~8 fp32 operations an element (sum, square-sum, subtract, two multiplies, add)
+    row["bound_ms"], row["bound_by"] = bound(8.0 * R * C, nbytes, PEAK_FP32_FLOPS)
+    n = -(-int(LN_COLD_BYTES) // (R * C * 2))
+    xs = [x] + [bf16((R, C)) for _ in range(n - 1)]
+    k5_cold = rotating(lambda xi, yi: ln_fused_cuda(xi, g, b, out=yi), [(xi, torch.empty_like(xi)) for xi in xs])
+    lib_cold = rotating(lambda xi: F.layer_norm(xi, (C,), g, b), [(xi,) for xi in xs])
+    k5_warm = lambda: ln_fused(x, g, b)  # noqa: E731
+    lib_warm = lambda: F.layer_norm(x, (C,), g, b)  # noqa: E731
+    row |= {"cold_inputs": n,
+            "ms": cuda_ms(k5_warm, LN_REPS), "cold_ms": cuda_ms(k5_cold, LN_REPS),
+            "plain_ms": cuda_ms(lambda: ln_reduce(x, g, b), 20),
+            "library_ms": cuda_ms(lib_warm, LN_REPS), "library_cold_ms": cuda_ms(lib_cold, LN_REPS)}
+    row["device_us"], row["kernel_classes"] = device_us(k5_cold, LN_PROFILED)
+    row["device_warm_us"], _ = device_us(k5_warm, LN_PROFILED)
+    row["library_device_us"], row["library_kernel_classes"] = device_us(lib_cold, LN_PROFILED)
+    row["library_device_warm_us"], _ = device_us(lib_warm, LN_PROFILED)
+    row["bound_share"] = row["bound_ms"] * 1e3 / row["device_us"]
+    row["library_bound_share"] = row["bound_ms"] * 1e3 / row["library_device_us"]
+    row["gb_per_s"] = nbytes / (row["device_us"] * 1e-6) / 1e9
+    row["host_bound"] = row["cold_ms"] * 1e3 > LN_HOST_BOUND * row["device_us"]
+    row["library_host_bound"] = row["library_cold_ms"] * 1e3 > LN_HOST_BOUND * row["library_device_us"]
+    if C == LN_REPEAT_WIDTH:  # one launch repeated on the same inputs gives the same bits
+        row["repeat_identical"] = bool(torch.equal(ln_fused(x, g, b), ln_fused(x, g, b)))
+    return row
+
+
 def check_k5_layer_norm(gen) -> dict:
     """K5 against its plain version at the probe's shape and at the UNet's
-    wider widths with ragged rows, with F.layer_norm as the one-call
-    yardstick; then the probe's loop (benchmark/ln_probe.py `make`: 32
-    dependent LayerNorms, h <- LN(h) + 1e-3 h) with its launches counted."""
+    wider widths with ragged rows (`k5_row`: warm, cold and device
+    readings of K5 and F.layer_norm); then the probe's loop
+    (benchmark/ln_probe.py `make`: 32 dependent LayerNorms, h <- LN(h) +
+    1e-3 h) with its launches counted."""
     import torch
 
     from stable_virtual_camera_tpu_torch import _kernels
-    from stable_virtual_camera_tpu_torch.ops.layer_norm import ln_fused, ln_reduce
+    from stable_virtual_camera_tpu_torch.ops.layer_norm import ln_fused
 
-    rows = []
-    for R, C in LN_SHAPES:
-        x = torch.randn((R, C), generator=gen, device=DEVICE).to(torch.bfloat16)
-        g = (1.0 + 0.1 * torch.randn((C,), generator=gen, device=DEVICE)).to(torch.bfloat16)
-        b = (0.1 * torch.randn((C,), generator=gen, device=DEVICE)).to(torch.bfloat16)
-        out = ln_fused(x, g, b).float()
-        ref = ln_reduce(x, g, b).float()
-        torch.cuda.synchronize()
-        row = {"rows": R, "C": C, "max_abs_err": (out - ref).abs().max().item(),
-               "max_bf16_steps": bf16_steps(out, ref), "finite": bool(torch.isfinite(out).all()),
-               "ms": cuda_ms(lambda: ln_fused(x, g, b), 50),
-               "plain_ms": cuda_ms(lambda: ln_reduce(x, g, b), 20),
-               "library_ms": cuda_ms(lambda: torch.nn.functional.layer_norm(x, (C,), g, b), 50)}
-        # x read and y written once, gamma and beta read once; ~8 fp32
-        # operations an element (sum, square-sum, subtract, two multiplies, add)
-        row["bound_ms"], row["bound_by"] = bound(8.0 * R * C, 2 * R * C * 2 + 2 * C * 2, PEAK_FP32_FLOPS)
-        row["gb_per_s"] = (2 * R * C * 2) / (row["ms"] * 1e-3) / 1e9
-        rows.append(row)
-        del x, out, ref
+    rows = [k5_row(gen, R, C) for R, C in LN_SHAPES]
+    torch.cuda.empty_cache()
     # the probe's loop at its shape, on the port's kernel
     R, C = LN_SHAPES[0]
     h = torch.randn((R, C), generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -911,17 +984,23 @@ def check_k5_layer_norm(gen) -> dict:
     counts = _kernels.counts()
     probe = {"iterations": LN_PROBE_ITERS, "ms_per_iteration": start.elapsed_time(end) / LN_PROBE_ITERS,
              "finite": bool(torch.isfinite(h).all()), "launches": counts}
-    ok = (all(r["finite"] and r["max_bf16_steps"] <= 1.0 for r in rows) and probe["finite"]
-          and counts["layer_norm"] == LN_PROBE_ITERS)
+    ok = (all(r["finite"] and r["max_bf16_steps"] <= 1.0 and r.get("repeat_identical", True) for r in rows)
+          and any("repeat_identical" in r for r in rows)
+          and probe["finite"] and counts["layer_norm"] == LN_PROBE_ITERS)
+    host_bound = [[r["rows"], r["C"]] for r in rows if r["host_bound"]]
     emit({"phase": "k5_layer_norm", "ok": ok, "bar": {"bf16_steps": 1.0}, "dtype": "bfloat16",
           "shapes": rows, "probe_loop": probe,
+          "host_bound": (f"K5's cold event reading exceeds its device time by more than "
+                         f"{LN_HOST_BOUND - 1:.0%} at {host_bound}: the burst measured the host; "
+                         f"bound_share uses the device time") if host_bound else None,
           "library": "torch.nn.functional.layer_norm (two-pass variance, bf16 in and out)"})
     if not ok:
-        raise AssertionError("K5 disagrees with its plain version or missed its launches")
+        raise AssertionError("K5 disagrees with its plain version, repeats differ, or it missed its launches")
     first = rows[0]
-    return {"result": {k: first[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms")} | {"shape": [first["rows"], first["C"]],
-                                                               "library": "torch.nn.functional.layer_norm"},
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cold_ms",
+            "library_cold_ms", "device_us", "library_device_us", "bound_share")
+    return {"result": {k: first[k] for k in keys} | {"shape": [first["rows"], first["C"]],
+                                                     "library": "torch.nn.functional.layer_norm"},
             "counts": counts}
 
 
@@ -1382,6 +1461,7 @@ _KERNEL_CLASSES = [
     ("K2 temporal attention", r"time_attn_kernel"),
     ("K3 flash attention", r"flash_blhd_kernel"),
     ("K4 flash attention", r"flash_packed_kernel"),
+    ("K5 layer norm", r"^void \(anonymous namespace\)::layer_norm_kernel<"),
     ("convolution (cuDNN)", r"conv|Conv|cudnn|dgrad|wgrad|fprop|implicit"),
     ("GEMM (cuBLAS)", r"gemm|Gemm|cutlass|xmma|nvjet|sm90_|sm80_"),
     ("optimizer", r"multi_tensor|adam|Adam|foreach"),
@@ -1679,8 +1759,9 @@ def main() -> int:
             "launches_by_path": {path: c.get(k.name, 0) for path, c in counts.items()},
             **{key: r.get(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")},
-            **{key: r[key] for key in ("library", "plain_and_library_cover", "delta_ms", "path_shapes")
-               if key in r},
+            **{key: r[key] for key in ("library", "plain_and_library_cover", "delta_ms", "path_shapes",
+                                       "cold_ms", "library_cold_ms", "device_us", "library_device_us",
+                                       "bound_share") if key in r},
         })
     emit({"kernels": rows})
     missing = [f"{k}@{path}" for path, ks in (

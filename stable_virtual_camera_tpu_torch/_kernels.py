@@ -130,8 +130,9 @@ FLASH_ATTENTION_PACKED = Kernel("flash_attention_packed", "svc_flash_attention_p
 LAYER_NORM = Kernel(
     "layer_norm",
     "svc_layer_norm_fwd",
-    # x, gamma, beta, y, rows, C, dtype (0 bf16, 1 fp32), eps, stream
-    [_P, _P, _P, _P, _LL, _I, _I, ctypes.c_float, _P],
+    # x, gamma, beta, y, rows, C, dtype (0 bf16, 1 fp32), eps, rows per
+    # tile, ring stages, stream
+    [_P, _P, _P, _P, _LL, _I, _I, ctypes.c_float, _I, _I, _P],
 )
 KERNELS = {
     k.name: k

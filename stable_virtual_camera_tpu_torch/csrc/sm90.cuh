@@ -1,9 +1,10 @@
 // Hopper device primitives shared by the forward tile (flash_fwd_sm90.cuh:
-// K1, K3, K4) and the backward kernels (flash_attention_bwd.cu: K1-dKV,
-// K1-dQ): shared-memory addresses, mbarriers with a wait that traps, 4-D TMA
-// loads, 128-byte-swizzle wgmma descriptors, the wgmma products the tiles
-// use (bf16 in, fp32 accumulators), the accumulator-to-A-fragment identity,
-// and the host-side tensor map of a (B, H, L, 64) view.
+// K1, K3, K4), the backward kernels (flash_attention_bwd.cu: K1-dKV, K1-dQ)
+// and the LayerNorm (layer_norm.cu: K5): shared-memory addresses, mbarriers
+// with a wait that traps, 4-D TMA loads and 1-D bulk copies, 128-byte-swizzle
+// wgmma descriptors, the wgmma products the tiles use (bf16 in, fp32
+// accumulators), the accumulator-to-A-fragment identity, and the host-side
+// tensor map of a (B, H, L, 64) view.
 //
 // wgmma accumulator layout (m64nNk16, one warpgroup): warp w holds rows
 // 16 w + g and 16 w + g + 8 (g = lane / 4, t4 = lane % 4); register 4 j + e
@@ -65,6 +66,27 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap& map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// An L2 cache policy that evicts first what it covers: for data read or
+// written once, so that a stream does not displace what L2 holds for others.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// A 1-D bulk copy (TMA without a tensor map) of `bytes` contiguous bytes
+// from device memory into shared memory under the L2 cache `policy`;
+// completion is reported to `bar`. Both addresses must be 16-byte aligned
+// and `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
       : "memory");
 }
 

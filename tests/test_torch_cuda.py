@@ -355,11 +355,14 @@ def test_unet_backends_launch_their_kernels(cuda, attention, kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,C", [(42 * 5184, 320), (1001, 640), (77, 1280), (3, 2)])
+@pytest.mark.parametrize("rows,C", [(42 * 5184, 320), (1001, 640), (77, 1280), (3, 2), (42 * 324 + 5, 1280),
+                                    (5, 640), (1001, 322), (1, 2048)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_layer_norm_kernel_matches_plain(cuda, rows, C, dtype):
     """K5 against ln_reduce: the probe's shape, ragged row counts, the
-    UNet's other widths."""
+    UNet's other widths, fewer rows than one tile, a width whose rows are
+    not a multiple of 16 bytes, the widest row, and (3, 2), whose 12 bytes
+    the bulk copy cannot take."""
     rng = np.random.default_rng(rows + C)
     x = torch.from_numpy((rng.normal(size=(rows, C)) * 3 + 1.5).astype(np.float32)).to(cuda, dtype)
     g, b = (torch.from_numpy(rng.normal(size=(C,)).astype(np.float32)).to(cuda, dtype) for _ in range(2))
@@ -388,6 +391,9 @@ def test_layer_norm_refuses_what_the_kernel_does_not_take(cuda):
         ln_fused(x.t().contiguous().t(), g, g)  # not contiguous
     with pytest.raises(ValueError):
         ln_fused(x, g.float(), g)  # gamma of another dtype
+    buf = torch.zeros(4 * 320 + 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ln_fused(buf[2:2 + 4 * 320].view(4, 320), g, g)  # 4 bytes past a 16-byte boundary
 
 
 @pytest.mark.cuda
