@@ -8,7 +8,12 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
   2. K1 (flash attention) against its plain version at every self-attention
      shape of a 576x576 render, on the packed-qkv views the UNet passes;
   3. K2 (temporal attention) against its plain version at every time-mix
-     shape of a 576x576 render (T=21, b=2);
+     shape of a 576x576 render (T=21, b=2), with SDPA on permuted views as
+     the one-call yardstick, each timed warm (back to back on one
+     projection), cold (rotating over projections larger than the L2
+     together) and by its device time in torch.profiler, with the bound
+     share from the cold device time; a repeated launch at (5184, 5, 21, 2)
+     that must give the same bits;
   4. `k1_bwd` and `k1_lse`: K1-dKV and K1-dQ against the plain backward, and
      K1's log-sum-exp against the plain one, at every self-attention shape
      of a 576x576 training chunk (T=21, b=1), with each kernel's TFLOP/s,
@@ -72,7 +77,7 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
  16. `k1_k2_path_shapes`: K1 and K2 against their plain versions at every
      shape the two render paths gave them (noted around each render) that
      phases 2 and 3 did not hold: the first passes' shorter chunks and all
-     of the Advanced path's 768x576 shapes;
+     of the Advanced path's 768x576 shapes (K2 in phase 3's readings);
 then a `kernels` summary line and the final `ok` line.
 Every phase prints one JSON line. Cuts against a real render, the CLI, a
 real fine-tune and the Advanced mode are printed in phases 7, 8, 11 and 15. Any failed phase exits
@@ -110,6 +115,14 @@ K1_MAX_ABS, K1_MEAN_ABS = 2e-2, 2e-3
 # K2 keeps fp32 throughout and rounds only its output: one bf16 step at the
 # output's magnitude (8e-3 while |o| < 2, as at T=21; a T=3 chunk reaches 4)
 K2_BF16_STEPS = 1.0
+# K2's timing: launches an event reading averages, launches a profiler
+# window sums, the bytes of q, k and v a cold reading rotates over (at least
+# two projections wherever one is under 200 MB, so no launch reads the
+# projection the launch before it read), and the shape whose launch is
+# repeated for identical bits
+K2_REPS, K2_PROFILED = 20, 20
+K2_COLD_BYTES = 200e6
+K2_REPEAT_SHAPE = (5184, 5, 21, 2)
 UNET_REL_L2 = 3e-2
 # the fp32 network through the plain versions against the bf16 one through
 # the kernels, on one 21-frame scene: 1.26e-2 read on an H100 (PERF.md),
@@ -230,11 +243,18 @@ def k2_ok(row: dict) -> bool:
 
 
 def summary(rows: list[dict]) -> dict:
-    """The sums over several shapes that the `kernels` line carries."""
+    """The sums over several shapes that the `kernels` line carries; where
+    the rows hold cold and device readings (K2), their sums too, with the
+    bound share of the summed cold device time."""
     bound_ms, bound_by = sum_bounds(rows)
-    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms")},
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    out = {"max_abs_err": max(r["max_abs_err"] for r in rows),
+           **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms")},
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    cold = ("cold_ms", "library_cold_ms", "device_us", "library_device_us")
+    if all(k in r for r in rows for k in cold):
+        out |= {k: sum(r[k] for r in rows) for k in cold}
+        out["bound_share"] = bound_ms * 1e3 / out["device_us"]
+    return out
 
 
 def check_k1(gen) -> dict:
@@ -248,8 +268,18 @@ def check_k1(gen) -> dict:
 
 
 def k2_row(gen, S: int, H: int, num_frames: int = T, b: int = 2) -> dict:
-    """K2 against its plain version at one (S, H, T, b), with times, SDPA
-    on permuted views as the one-call yardstick, and the bound."""
+    """K2 against its plain version at one (S, H, T, b), on the UNet's views
+    of a (b*T, 3, H, 64, S) projection, timed with SDPA on permuted views as
+    the one-call yardstick in three readings each: warm (`ms`, `library_ms`:
+    back to back on one projection, which stays in L2 where it fits), cold
+    (`cold_ms`, `library_cold_ms`: rotating over `cold_inputs` distinct
+    projections, and for K2 outputs, together at least K2_COLD_BYTES, so no
+    launch reads what the launch before it read) and the device time per
+    launch from torch.profiler over the cold rotation (`device_us`,
+    `library_device_us`). The bound share and GB/s are from the cold device
+    time; a cold event reading more than LN_HOST_BOUND times it measured
+    the host (`host_bound`). At K2_REPEAT_SHAPE one launch is repeated on
+    the same inputs and must give the same bits (`repeat_identical`)."""
     import torch
 
     from stable_virtual_camera_tpu_torch.ops.time_attention import (
@@ -257,9 +287,11 @@ def k2_row(gen, S: int, H: int, num_frames: int = T, b: int = 2) -> dict:
         time_attention_plain,
     )
 
-    # the UNet's layout: (b*T, H, 64, S) views of a (b*T, 3, H, 64, S) projection
-    qkv = torch.randn((b * num_frames, 3, H, 64, S), generator=gen, device=DEVICE).to(torch.bfloat16)
-    q, k, v = qkv.unbind(1)
+    def projection():
+        qkv = torch.randn((b * num_frames, 3, H, 64, S), generator=gen, device=DEVICE).to(torch.bfloat16)
+        return qkv.unbind(1)
+
+    q, k, v = projection()
     out = time_attention_cuda(q, k, v, num_frames).float()
     ref = time_attention_plain(q, k, v, num_frames).float()
     torch.cuda.synchronize()
@@ -269,23 +301,51 @@ def k2_row(gen, S: int, H: int, num_frames: int = T, b: int = 2) -> dict:
         "max_abs_err": diff.max().item(), "mean_abs_err": diff.mean().item(),
         "max_bf16_steps": bf16_steps(out, ref),
         "finite": bool(torch.isfinite(out).all()),
-        "ms": cuda_ms(lambda: time_attention_cuda(q, k, v, num_frames), 10),
-        "plain_ms": cuda_ms(lambda: time_attention_plain(q, k, v, num_frames), 3),
-        "library_ms": cuda_ms(lambda: time_sdpa(q, k, v, num_frames), 10),
     }
+    del out, ref, diff
     # q, k, v read once, o written once; 4 T^2 64 fp32 FLOP per (scene,
-    # position, head)
-    row["bound_ms"], row["bound_by"] = bound(4.0 * num_frames * num_frames * 64 * b * S * H,
-                                             4 * b * num_frames * H * 64 * S * 2)
+    # position, head), on the CUDA cores
+    nbytes = 4 * b * num_frames * H * 64 * S * 2
+    row["bound_ms"], row["bound_by"] = bound(4.0 * num_frames * num_frames * 64 * b * S * H, nbytes,
+                                             PEAK_FP32_FLOPS)
+    n = -(-int(K2_COLD_BYTES) // (nbytes * 3 // 4))
+    inputs = [(q, k, v)] + [projection() for _ in range(n - 1)]
+    k2_cold = rotating(lambda qi, ki, vi, oi: time_attention_cuda(qi, ki, vi, num_frames, out=oi),
+                       [(*qkv, torch.empty_like(qkv[0], memory_format=torch.contiguous_format))
+                        for qkv in inputs])
+    lib_cold = rotating(lambda qi, ki, vi: time_sdpa(qi, ki, vi, num_frames), inputs)
+    row |= {"cold_inputs": n,
+            "ms": cuda_ms(lambda: time_attention_cuda(q, k, v, num_frames), K2_REPS),
+            "cold_ms": cuda_ms(k2_cold, K2_REPS),
+            "plain_ms": cuda_ms(lambda: time_attention_plain(q, k, v, num_frames), 3),
+            "library_ms": cuda_ms(lambda: time_sdpa(q, k, v, num_frames), K2_REPS),
+            "library_cold_ms": cuda_ms(lib_cold, K2_REPS)}
+    row["device_us"], row["kernel_classes"] = device_us(k2_cold, K2_PROFILED)
+    row["library_device_us"], row["library_kernel_classes"] = device_us(lib_cold, K2_PROFILED)
+    row["bound_share"] = row["bound_ms"] * 1e3 / row["device_us"]
+    row["library_bound_share"] = row["bound_ms"] * 1e3 / row["library_device_us"]
+    row["gb_per_s"] = nbytes / (row["device_us"] * 1e-6) / 1e9
+    row["host_bound"] = row["cold_ms"] * 1e3 > LN_HOST_BOUND * row["device_us"]
+    row["library_host_bound"] = row["library_cold_ms"] * 1e3 > LN_HOST_BOUND * row["library_device_us"]
+    if (S, H, num_frames, b) == K2_REPEAT_SHAPE:
+        row["repeat_identical"] = bool(torch.equal(time_attention_cuda(q, k, v, num_frames),
+                                                   time_attention_cuda(q, k, v, num_frames)))
+    del inputs, k2_cold, lib_cold, q, k, v
+    torch.cuda.empty_cache()
     return row
 
 
 def check_k2(gen) -> dict:
     rows = [k2_row(gen, S, H) for S, H in K2_SHAPES]
-    ok = all(k2_ok(r) for r in rows)
-    emit({"phase": "k2_time_attention", "ok": ok, "bar": {"bf16_steps": K2_BF16_STEPS}, "shapes": rows})
+    ok = (all(k2_ok(r) and r.get("repeat_identical", True) for r in rows)
+          and any("repeat_identical" in r for r in rows))
+    host_bound = [[r["S"], r["H"], r["T"]] for r in rows if r["host_bound"]]
+    emit({"phase": "k2_time_attention", "ok": ok, "bar": {"bf16_steps": K2_BF16_STEPS}, "shapes": rows,
+          "host_bound": (f"K2's cold event reading exceeds its device time by more than "
+                         f"{LN_HOST_BOUND - 1:.0%} at {host_bound}: the burst measured the host; "
+                         f"bound_share uses the device time") if host_bound else None})
     if not ok:
-        raise AssertionError("K2 disagrees with its plain version")
+        raise AssertionError("K2 disagrees with its plain version or a repeated launch differs")
     return {**summary(rows),
             "library": "scaled_dot_product_attention on (b, S, H, T, 64) permuted views; their "
                        "head dim is strided, so the call includes the copy it makes"}
@@ -881,20 +941,35 @@ def bf16_steps(out, ref):
 
 def device_us(fn, launches: int) -> tuple[float, list[str]]:
     """torch.profiler over `launches` calls of `fn` after one warm-up call:
-    the device time of the kernels they ran, per launch (us), and the
-    kernels' classes."""
+    the device time of the kernels one call runs (us), and their classes.
+    Each kernel counts at its mean time times the launches of it a call
+    makes, ceil(its records / `launches`): late in a long process the
+    profiler was seen to drop a quarter of a window's kernel records, which
+    a sum over `launches` would read as a faster kernel. A window with no
+    kernel record is taken again, up to twice."""
+    import math
+
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-
-    def burst():
-        for _ in range(launches):
-            fn()
-        torch.cuda.synchronize()
-
-    prof = device_time_by_class(burst)
-    return prof["device_busy_ms"] * 1e3 / launches, sorted(prof["device_ms_by_class"])
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        us, classes = 0.0, set()
+        for e in prof.key_averages():
+            total = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+            if e.device_type != DeviceType.CUDA or not e.count or not total:
+                continue
+            us += total / e.count * math.ceil(e.count / launches)
+            classes.add(next((c for c, rx in _KERNEL_CLASSES if re.search(rx, e.key)), "other"))
+        if us > 0:
+            return us, sorted(classes)
+    raise RuntimeError("torch.profiler recorded no device time in three windows")
 
 
 def rotating(fn, args: list):

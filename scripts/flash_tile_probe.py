@@ -8,7 +8,8 @@ the repository root:
     python3 scripts/flash_tile_probe.py --time     # + times against SDPA
 
 `ptxas`: each kernel's registers, shared memory and spills (-Xptxas -v),
-K5's LayerNorm (csrc/layer_norm.cu) included.
+K2's temporal attention (csrc/time_attention.cu, one entry per key-frame
+ceiling) and K5's LayerNorm (csrc/layer_norm.cu) included.
 `check`: K1 (with its log-sum-exp), K3, K4 and then K1-dKV, K1-dQ against
 their plain versions at small and ragged shapes, at chip_smoke.py's bars.
 `time`: K1 against SDPA at the render shapes, the backward pair and D
@@ -31,10 +32,11 @@ CHECK_SHAPES = [(128, 1, 1), (64, 1, 1), (100, 2, 3), (1100, 1, 2), (1296, 3, 1)
 TIME_SHAPES = [(5184, 42, 5), (1296, 42, 10), (27216, 2, 10), (6804, 2, 20), (1701, 2, 20)]
 TRAIN_SHAPES = [(L, B // 2, H) for L, B, H in TIME_SHAPES]
 MAX_ABS, MEAN_ABS, LSE_ABS, BWD_REL_L2 = 2e-2, 2e-3, 1e-2, 2e-2
-# the sources whose ptxas report is printed: the flash kernels and K5's
-# LayerNorm (csrc/layer_norm.cu), which share csrc/sm90.cuh
+# the sources whose ptxas report is printed: the flash kernels, K2's
+# temporal attention (csrc/time_attention.cu) and K5's LayerNorm
+# (csrc/layer_norm.cu), which share csrc/sm90.cuh
 SOURCES = ("flash_attention", "flash_attention_blhd", "flash_attention_packed", "flash_attention_bwd",
-           "layer_norm")
+           "time_attention", "layer_norm")
 
 
 def emit(obj: dict) -> None:
@@ -73,7 +75,7 @@ def ptxas_report() -> dict:
         text, _ = p.communicate()
         lines = []
         for ln in text.splitlines():
-            kernel = re.findall(r"flash_[a-z_]*_kernel|layer_norm_kernelI\w+?EE", ln) if "Compiling entry" in ln else None
+            kernel = re.findall(r"flash_[a-z_]*_kernel|time_attn_kernelILi\d+EE|layer_norm_kernelI\w+?EE", ln) if "Compiling entry" in ln else None
             if kernel:
                 lines.append(f"entry {kernel[-1]}")
             elif "Function properties" not in ln and "Compiling entry" not in ln:

@@ -122,8 +122,8 @@ TIME_ATTENTION = Kernel(
     "time_attention",
     "svc_time_attention_fwd",
     # q, k, v, o, b, T, H, S, then (frame, head, channel) strides of q, k, v,
-    # o, scale, stream
-    [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _P],
+    # o, scale*log2(e), key-frame ceiling, ring stages, copy granule, stream
+    [_P, _P, _P, _P, _I, _I, _I, _I] + [_LL] * 12 + [ctypes.c_float, _I, _I, _I, _P],
 )
 FLASH_ATTENTION_BLHD = Kernel("flash_attention_blhd", "svc_flash_attention_blhd_fwd", _FWD_ARGS)
 FLASH_ATTENTION_PACKED = Kernel("flash_attention_packed", "svc_flash_attention_packed_fwd", _FWD_ARGS)

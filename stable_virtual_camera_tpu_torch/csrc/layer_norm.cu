@@ -46,9 +46,6 @@
 // of elements (4 bytes in bf16, 8 in fp32) instead.
 
 #include <algorithm>
-#include <map>
-#include <mutex>
-#include <utility>
 
 #include "sm90.cuh"
 
@@ -261,32 +258,6 @@ layer_norm_kernel(const T* __restrict__ x, const T* __restrict__ gamma, const T*
   }
 }
 
-// How many blocks of `kernel` with `smem` bytes fit on the current device at
-// once, setting the kernel's shared-memory limit on first use; remembered
-// per device and size.
-template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int smem, int* blocks) {
-  static std::mutex mu;
-  static std::map<std::pair<int, int>, int> known;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = known.find({dev, smem});
-  if (it != known.end()) {
-    *blocks = it->second;
-    return cudaSuccess;
-  }
-  int sms = 0, per_sm = 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  *blocks = known[{dev, smem}] = per_sm * sms;
-  return cudaSuccess;
-}
-
 template <typename T, bool kWide>
 cudaError_t launch(const void* x, const void* g, const void* b, void* y, long long rows, int C,
                    int rows_per_tile, int stages, float eps, cudaStream_t stream) {
@@ -295,7 +266,7 @@ cudaError_t launch(const void* x, const void* g, const void* b, void* y, long lo
   const int smem = static_cast<int>(need);
   const auto kernel = layer_norm_kernel<T, kWide>;
   int resident = 0;
-  const cudaError_t err = resident_blocks(kernel, smem, &resident);
+  const cudaError_t err = resident_blocks(kernel, kThreads, smem, kMaxSmem, &resident);
   if (err != cudaSuccess) return err;
   const long long tiles = (rows + rows_per_tile - 1) / rows_per_tile;
   const int blocks = static_cast<int>(std::min<long long>(tiles, resident));

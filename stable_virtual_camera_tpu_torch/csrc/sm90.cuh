@@ -1,10 +1,11 @@
 // Hopper device primitives shared by the forward tile (flash_fwd_sm90.cuh:
-// K1, K3, K4), the backward kernels (flash_attention_bwd.cu: K1-dKV, K1-dQ)
-// and the LayerNorm (layer_norm.cu: K5): shared-memory addresses, mbarriers
-// with a wait that traps, 4-D TMA loads and 1-D bulk copies, 128-byte-swizzle
-// wgmma descriptors, the wgmma products the tiles use (bf16 in, fp32
-// accumulators), the accumulator-to-A-fragment identity, and the host-side
-// tensor map of a (B, H, L, 64) view.
+// K1, K3, K4), the backward kernels (flash_attention_bwd.cu: K1-dKV, K1-dQ),
+// the temporal attention (time_attention.cu: K2) and the LayerNorm
+// (layer_norm.cu: K5): shared-memory addresses, mbarriers with a wait that
+// traps, 4-D TMA loads, 1-D bulk copies and cp.async copies that complete on
+// an mbarrier, 128-byte-swizzle wgmma descriptors, the wgmma products the
+// tiles use (bf16 in, fp32 accumulators), the accumulator-to-A-fragment
+// identity, and the host-side tensor maps.
 //
 // wgmma accumulator layout (m64nNk16, one warpgroup): warp w holds rows
 // 16 w + g and 16 w + g + 8 (g = lane / 4, t4 = lane % 4); register 4 j + e
@@ -16,6 +17,10 @@
 #pragma once
 
 #include <cuda.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "flash_common.cuh"
 
@@ -88,6 +93,21 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       " [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar), "l"(policy)
       : "memory");
+}
+
+// An asynchronous copy of N (4, 8 or 16) bytes from device memory into
+// shared memory, both addresses N-byte aligned, tracked per thread.
+template <int N>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(N) : "memory");
+}
+
+// An arrive on `bar` once every cp.async this thread issued before it has
+// landed. It does not add to the barrier's pending count, so the barrier's
+// expected count includes this thread.
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // A wgmma shared-memory descriptor for a 128-byte-swizzled tile: start
@@ -228,17 +248,48 @@ __device__ __forceinline__ void pack_a(uint32_t (&p)[KS][4], const float (&s)[8 
 }
 
 
-// Host side: the tensor map of one operand, dims {64, L, H, B}, byte strides
-// {row, head, batch}, box {64, box_rows, 1, 1}. cuTensorMapEncodeTiled is a
-// driver function; it is looked up through the runtime, so the library
-// needs no -lcuda.
+// Host side. How many blocks of `kernel` with `threads` threads and `smem`
+// bytes of dynamic shared memory fit on the current device at once, raising
+// the kernel's shared-memory limit to `max_smem` on first use; remembered
+// per device, kernel, block size and shared memory (the persistent grids of
+// K2 and K5).
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, int smem, int max_smem, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, int>, int> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, reinterpret_cast<const void*>(kernel), threads, smem);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *blocks = it->second;
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = known[key] = per_sm * sms;
+  return cudaSuccess;
+}
+
+// cuTensorMapEncodeTiled is a driver function; it is looked up
+// through the runtime, so the libraries need no -lcuda.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-inline cudaError_t encode_map(CUtensorMap* map, const void* base, int B, int H, int L,
-                              const long long strides[3], int box_rows) {
+// The tensor map of a 4-D bf16 view: dims innermost first (the first
+// contiguous), byte strides of the other three (multiples of 16), box in
+// elements, zero fill out of bounds.
+inline cudaError_t encode_4d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+                             const cuuint64_t (&bytes)[3], const cuuint32_t (&box)[4],
+                             CUtensorMapSwizzle swizzle) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -249,18 +300,24 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base, int B, int H, 
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                            bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of one flash operand: dims {64, L, H, B}, byte strides
+// {row, head, batch}, box {64, box_rows, 1, 1}, 128-byte swizzle.
+inline cudaError_t encode_map(CUtensorMap* map, const void* base, int B, int H, int L,
+                              const long long strides[3], int box_rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[0]),
                                static_cast<cuuint64_t>(strides[1]),
                                static_cast<cuuint64_t>(strides[2])};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(kD), static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_4d(map, base, dims, bytes, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -9,9 +9,18 @@ and runs `time_attention_plain` on a CPU tensor. Its backward is
 T x T attentions, exactly as the JAX package's custom VJP has it
 (time_attention.py:156-178): the JAX package has no backward kernel here, so
 there is none to port.
+
+The kernel streams channel chunks of q, k and v through a ring of
+shared-memory stages, filled by TMA boxes where every row is 16-byte aligned
+and by cp.async or plain copies where it is not; `_k2_plan` checks what it
+takes and plans the launch (key-frame ceiling, tile, ring, copy granule).
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -19,6 +28,108 @@ from stable_virtual_camera_tpu_torch import _kernels
 
 HEAD_DIM = 64
 MAX_FRAMES = 32
+# the kernel's key-frame ceilings (one instantiation each; 21 is the model's
+# chunk length); a launch takes the smallest that holds T
+CEILINGS = (4, 8, 16, 21, 24, 32)
+CHUNK = 16  # channels of q, k or v in a ring unit
+STAGES = 4  # ring units, or as many as fit in a block's shared memory
+MAX_SMEM = 232448  # 227 KB, a block's most dynamic shared memory
+_SMEM_HEAD = 256  # base alignment slack and the ring's mbarriers
+# how the producer warp fills the ring (csrc/time_attention.cu `Copy`)
+COPIES = {"tma": 0, "cp.async.8": 1, "cp.async.4": 2, "span": 3, "loads": 4}
+
+
+class TimePlan(NamedTuple):
+    """K2's launch: the key-frame `ceiling` (Tc), `positions` (P) a tile and
+    `frames_per_thread` (R), `chunk` channels a ring unit and `stages`
+    units, the `copy` mode (a key of COPIES: "tma" where every row of q, k
+    and v starts on a 16-byte boundary and S * 2 is a multiple of 16, so a
+    unit is one TMA box; "cp.async.8" / "cp.async.4" where the rows start on
+    8- / 4-byte boundaries; "span" where they start on 2-byte boundaries, a
+    chunk's rows are packed and frames and heads start on 16-byte ones, so
+    each frame's chunk is one bulk copy into a staging area; "loads"
+    otherwise), `tiles` of P positions a (scene, head), `items` = b * H *
+    tiles (item i is tile i % tiles of (scene, head) = divmod(i // tiles,
+    H)), `threads` a block (the consumer warps, then one producer warp) and
+    `smem_bytes`."""
+
+    ceiling: int
+    positions: int
+    frames_per_thread: int
+    chunk: int
+    stages: int
+    copy: str
+    tiles: int
+    items: int
+    threads: int
+    smem_bytes: int
+
+
+def _copy_mode(q, k, v, o, S: int) -> str:
+    """How the producer copies q, k and v (a key of COPIES): from the
+    largest of 16, 8, 4 and 2 bytes that divides every row start (base
+    address and frame, head and channel strides) of q, k, v and o and the
+    row length S * 2; where that is 2, "span" if every chunk of q, k and v
+    is packed (channel stride S) from a 16-byte boundary, else "loads"."""
+    g, packed = 16, True
+    for t in (q, k, v, o):
+        st, sh, sd, _ = t.stride()
+        ptr = t.data_ptr()
+        g = math.gcd(g, ptr, 2 * st, 2 * sh, 2 * sd, 2 * S)
+        packed = packed and (t is o or (sd == S and math.gcd(16, ptr, 2 * st, 2 * sh) == 16))
+    if g > 2:
+        return {16: "tma", 8: "cp.async.8", 4: "cp.async.4"}[g]
+    return "span" if packed else "loads"
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(T: int, S: int, scene_heads: int, copy: str) -> TimePlan:
+    """The launch geometry of T frames of S positions for `scene_heads`
+    (scene, head) pairs, given the copy mode; "span" falls back to "loads"
+    where its staging areas do not fit beside two ring stages."""
+    ceiling = next(c for c in CEILINGS if c >= T)
+    R, P = (2, 32) if ceiling > 21 else (3, 64)
+    consumers = -(-math.ceil(T / R) * (P // 2) // 32) * 32
+    tiles = -(-S // P)
+    stage = ceiling * CHUNK * P * 2
+    # "span": two staging areas, each a unit's T packed spans of CHUNK rows
+    # and one word past them
+    staging = 2 * (-(-(T * CHUNK * S * 2 + 16) // 128) * 128) if copy == "span" else 0
+    if copy == "span" and _SMEM_HEAD + 2 * stage + staging > MAX_SMEM:
+        copy, staging = "loads", 0
+    stages = min(STAGES, (MAX_SMEM - _SMEM_HEAD - staging) // stage)
+    return TimePlan(ceiling, P, R, CHUNK, stages, copy, tiles, scene_heads * tiles, consumers + 32,
+                    _SMEM_HEAD + stages * stage + staging)
+
+
+def _k2_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int,
+             out: torch.Tensor | None = None) -> TimePlan:
+    """Raise on what K2 does not take; else its launch plan, for writing
+    into `out` (a new contiguous tensor where None). Needs no card: it
+    reads shapes, dtypes, strides and addresses only."""
+    shape = q.shape
+    BT, H, D, S = shape
+    T = num_frames
+    if D != HEAD_DIM:
+        raise ValueError(f"time attention needs head dim {HEAD_DIM}, got {D}")
+    if not 1 <= T <= MAX_FRAMES or BT % T:
+        raise ValueError(f"time attention takes 1..{MAX_FRAMES} frames dividing {BT}, got {T}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"time attention takes bfloat16, got {name}.dtype={t.dtype}")
+        if t.shape != shape or t.stride(3) != 1:
+            raise ValueError(
+                f"time attention: {name} must be (b*T, H, 64, S) with S contiguous, "
+                f"got shape {tuple(t.shape)} strides {t.stride()}"
+            )
+        if t.device != q.device:
+            raise ValueError("time attention: q, k and v must be on one device")
+    if out is None:
+        out = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    elif (out.shape != shape or out.dtype != torch.bfloat16 or out.device != q.device
+          or not out.is_contiguous()):
+        raise ValueError("time attention: out must be a contiguous (b*T, H, 64, S) bf16 tensor on q's device")
+    return _launch_plan(T, S, BT // T * H, _copy_mode(q, k, v, out, S))
 
 
 def time_attention_plain(
@@ -39,33 +150,23 @@ def time_attention_plain(
 
 
 def time_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch K2. q, k, v: (b*T, H, 64, S) bf16 with S contiguous (any
-    frame/head/channel strides). Returns a contiguous (b*T, H, 64, S)."""
+    frame/head/channel strides). Writes into `out` (a contiguous
+    (b*T, H, 64, S) bf16 tensor) when given, else into a new one, and
+    returns it."""
     BT, H, D, S = q.shape
-    T = num_frames
-    if D != HEAD_DIM:
-        raise ValueError(f"time attention needs head dim {HEAD_DIM}, got {D}")
-    if not 1 <= T <= MAX_FRAMES or BT % T:
-        raise ValueError(f"time attention takes 1..{MAX_FRAMES} frames dividing {BT}, got {T}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"time attention takes bfloat16, got {name}.dtype={t.dtype}")
-        if tuple(t.shape) != (BT, H, D, S) or t.stride(-1) != 1:
-            raise ValueError(
-                f"time attention: {name} must be (b*T, H, 64, S) with S contiguous, "
-                f"got shape {tuple(t.shape)} strides {t.stride()}"
-            )
-        if t.device != q.device:
-            raise ValueError("time attention: q, k and v must be on one device")
-    o = torch.empty((BT, H, D, S), dtype=torch.bfloat16, device=q.device)
+    o = torch.empty((BT, H, D, S), dtype=torch.bfloat16, device=q.device) if out is None else out
+    plan = _k2_plan(q, k, v, num_frames, o)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _kernels.TIME_ATTENTION.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            BT // T, T, H, S, *strides, D**-0.5, stream,
+            BT // num_frames, num_frames, H, S, *strides, D**-0.5 * math.log2(math.e),
+            plan.ceiling, plan.stages, COPIES[plan.copy], stream,
         )
     return o
 
