@@ -78,9 +78,18 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      shape the two render paths gave them (noted around each render) that
      phases 2 and 3 did not hold: the first passes' shorter chunks and all
      of the Advanced path's 768x576 shapes (K2 in phase 3's readings);
+ 17. `checkpoint_path`, after `cli_path`: the bundle of --random_model full
+     written as the released files (model/vae/clip.safetensors) through the
+     port's inverse key maps and safetensors writer, converted by
+     apps.convert_weights into the cache, loaded back from both layouts by
+     models/io.load_bundle (bit-equal to the bundle), then the CLI's
+     img2img run of phase 8 with --checkpoint_dir on the cache, its frames
+     within one uint8 step of phase 8's and K1/K2 launch counts read around
+     it; with the write, convert and load seconds and the files' bytes;
 then a `kernels` summary line and the final `ok` line.
 Every phase prints one JSON line. Cuts against a real render, the CLI, a
-real fine-tune and the Advanced mode are printed in phases 7, 8, 11 and 15. Any failed phase exits
+real fine-tune, the Advanced mode and the released checkpoints are printed
+in phases 7, 8, 11, 15 and 17. Any failed phase exits
 non-zero without the final line; so does a machine with no CUDA device, or a
 directory without the port.
 """
@@ -828,11 +837,11 @@ def run_main_path(bundle, shapes: dict) -> dict:
     return counts
 
 
-def run_cli_path() -> dict:
+def run_cli_path(frames_by_run: dict) -> dict:
     """The demo CLI at full width: three renders through apps.cli.main, each
     with its own --random_model full bundle, outputs in a temporary
     directory, launch counts read around each. Returns the counts summed
-    over the three runs."""
+    over the three runs; each run's frames go into `frames_by_run`."""
     import cv2
     import numpy as np
     import torch
@@ -894,6 +903,7 @@ def run_cli_path() -> dict:
                 pngs = sorted(f for f in os.listdir(os.path.join(out_dir, "samples-rgb")) if f.endswith(".png"))
                 frames = np.stack([cv2.imread(os.path.join(out_dir, "samples-rgb", f))[..., ::-1]
                                    for f in pngs]) if pngs else np.zeros((0,))
+                frames_by_run[name] = frames
                 with open(os.path.join(out_dir, "transforms.json")) as f:
                     n_frames = len(json.load(f)["frames"])
                 run_ok = (
@@ -927,6 +937,91 @@ def run_cli_path() -> dict:
     if not ok:
         raise AssertionError("the CLI path's outputs or launch counts are wrong")
     return total
+
+
+def run_checkpoint_path(reference_frames) -> dict:
+    """`checkpoint_path`: the full-width bf16 bundle that --random_model full
+    builds, written as the released files (model/vae/clip.safetensors,
+    through the port's inverse key maps and safetensors writer), converted
+    by apps.convert_weights, loaded back from both layouts (each bit-equal
+    to the bundle), then cli_path's img2img run (c) again with
+    --checkpoint_dir on the converted cache, its frames within one uint8
+    step of run (c)'s and K1/K2 launched. Returns the render's counts."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps import cli, convert_weights
+    from stable_virtual_camera_tpu_torch.config import SevaSpec
+    from stable_virtual_camera_tpu_torch.models import convert
+    from stable_virtual_camera_tpu_torch.models import io as mio
+    from stable_virtual_camera_tpu_torch.models.clip import ClipVisionSpec
+
+    spec, clip_spec = SevaSpec(), ClipVisionSpec()
+    bundle = mio.random_bundle(spec, clip_spec, dtype=torch.bfloat16, device=DEVICE,
+                               generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    ref = {"unet": bundle.unet, "vae": bundle.vae.module, "clip": bundle.clip.module}
+    inverse = {"unet": lambda sd: convert.seva_to_released(sd, spec), "vae": convert.vae_to_released,
+               "clip": lambda sd: convert.clip_to_open_clip(sd, clip_spec)}
+    seconds: dict = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        return out
+
+    def equal(loaded) -> bool:
+        got = {"unet": loaded.unet, "vae": loaded.vae.module, "clip": loaded.clip.module}
+        for name, module in ref.items():
+            a, b = module.state_dict(), got[name].state_dict()
+            if a.keys() != b.keys() or not all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                                               for k in a):
+                return False
+        return True
+
+    with tempfile.TemporaryDirectory() as tmp:
+        released, cache = os.path.join(tmp, "released"), os.path.join(tmp, "converted")
+        os.makedirs(released)
+        files = {name: os.path.join(released, f"{'model' if name == 'unet' else name}.safetensors")
+                 for name in ref}
+        for name, module in ref.items():
+            timed(f"write_{name}", lambda: mio.write_safetensors(inverse[name](module.state_dict()),
+                                                                 files[name]))
+        manifest = timed("convert", lambda: convert_weights.main(**files, out=cache, device=DEVICE))
+        sizes = {f"released_{k}": os.path.getsize(p) for k, p in files.items()}
+        sizes.update({f"converted_{k}": os.path.getsize(mio.cache_file(cache, k)) for k in ref})
+        loads = {}
+        for layout, directory in (("released", released), ("converted", cache)):
+            loaded = timed(f"load_bundle_{layout}", lambda: mio.load_bundle(directory, device=DEVICE))
+            loads[layout] = equal(loaded)
+            del loaded
+        del bundle, ref
+        torch.cuda.empty_cache()
+        _kernels.reset_counts()
+        (out_dir,) = timed("cli_render", lambda: cli.main(
+            GOLDEN, task="img2img", checkpoint_dir=cache, work_dir=os.path.join(tmp, "work"),
+            num_steps=NUM_STEPS, device=DEVICE, sampler_verbose=False, use_traj_prior=False))
+        counts = _kernels.counts()
+        pngs = sorted(f for f in os.listdir(os.path.join(out_dir, "samples-rgb")) if f.endswith(".png"))
+        frames = np.stack([cv2.imread(os.path.join(out_dir, "samples-rgb", f))[..., ::-1] for f in pngs])
+    diff = int(np.abs(frames.astype(np.int16) - reference_frames.astype(np.int16)).max()) \
+        if frames.shape == reference_frames.shape else None
+    ok = (all(loads.values()) and diff is not None and diff <= 1
+          and counts["flash_attention"] > 0 and counts["time_attention"] > 0)
+    emit({"phase": "checkpoint_path", "ok": ok, "dtype": "bfloat16", "seconds": seconds,
+          "bytes": sizes, "params": manifest["totals"], "bit_equal_loads": loads,
+          "frames": list(frames.shape), "max_uint8_diff_vs_cli_img2img": diff, "bar_uint8": 1,
+          "launches": counts, "cuts": {
+              "weights": "random bf16 (flax-default init, seed 0), full width: the released "
+                         "files are not in the repository",
+              "num_steps": f"{NUM_STEPS} (CLI default 50)"}})
+    if not ok:
+        raise AssertionError("the checkpoint path's loads, frames or launch counts are wrong")
+    return counts
 
 
 def bf16_steps(out, ref):
@@ -1737,7 +1832,8 @@ def main() -> int:
             traceback.print_exc()
             failures.append(key)
 
-    counts: dict[str, dict] = {"render": {}, "advanced": {}, "cli": {}, "train": {}, "k5": {}}
+    counts: dict[str, dict] = {"render": {}, "advanced": {}, "cli": {}, "checkpoint": {}, "train": {},
+                               "k5": {}}
     try:
         k5 = check_k5_layer_norm(gen)
         results["layer_norm"] = k5["result"]
@@ -1758,6 +1854,7 @@ def main() -> int:
         failures.append("dust3r_forward")
     upstream: dict = {}
     recorded: dict[str, dict] = {"render": {}, "advanced": {}}
+    cli_frames: dict = {}
     try:
         t0 = time.perf_counter()
         bundle = random_bundle(SevaSpec(), ClipVisionSpec(), dtype=torch.bfloat16, device=DEVICE,
@@ -1771,7 +1868,9 @@ def main() -> int:
                         ("main_path", lambda: run_main_path(bundle, recorded["render"])),
                         ("advanced_path", lambda: run_advanced_path(bundle, pipe, recorded["advanced"])),
                         ("k1_k2_path_shapes", lambda: check_path_shapes(gen, recorded)),
-                        ("cli_path", run_cli_path),
+                        ("cli_path", lambda: run_cli_path(cli_frames)),
+                        ("checkpoint_path",
+                         lambda: run_checkpoint_path(cli_frames["img2img_single_pass"])),
                         ("train_grad", lambda: check_train_grad(bundle, gen)),
                         ("train_profile", lambda: profile_train_step(bundle, gen)),
                         ("train_path", lambda: run_train_path(bundle))):
@@ -1790,6 +1889,8 @@ def main() -> int:
                                                + [p["max_abs_err"] for p in by_path.values()])
                 elif key == "cli_path":
                     counts["cli"] = out
+                elif key == "checkpoint_path":
+                    counts["checkpoint"] = out
                 elif key == "train_path":
                     counts["train"] = out
             except Exception:  # noqa: BLE001
@@ -1845,6 +1946,7 @@ def main() -> int:
                    ("k5", ("layer_norm",)),
                    ("cli", ("flash_attention", "time_attention", "flash_attention_blhd",
                             "flash_attention_packed")),
+                   ("checkpoint", ("flash_attention", "time_attention")),
                    ("train", TRAIN_KERNELS))
                for k in ks if counts[path].get(k, 0) == 0]
     if missing and not failures:

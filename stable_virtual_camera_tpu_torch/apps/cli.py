@@ -6,10 +6,12 @@ img2trajvid_s-prob), reconfusion split resolution, anchor synthesis
 (spiral / interpolated / orbit / presets), the per-scene loop with
 skip_saved, and the OpenCV -> OpenGL transforms.json export.
 
-Model loading: --random_model True runs the tiny fp32 bundle at 64x64,
---random_model full the full-width bf16 one at 576x576. Loading released
-weights (--checkpoint_dir) is not ported yet, and the TPU package's mesh,
-platform and quantisation flags have no counterpart yet: each raises.
+Model loading: --checkpoint_dir loads a directory holding the converted
+cache (apps/convert_weights.py) or the released `model.safetensors`,
+`vae.safetensors` and `clip.safetensors`, in bf16 (models/io.load_bundle);
+--random_model True runs the tiny fp32 bundle at 64x64, --random_model
+full the full-width bf16 one at 576x576. The TPU package's mesh, platform
+and quantisation flags have no counterpart yet: each raises.
 
 The port's own flags: --device (default cuda) and --attention, the
 self-attention backend ("upstream", kernel K1; "flash", kernel K3;
@@ -229,7 +231,8 @@ def _default_options() -> EngineOptions:
 
 def _build_bundle(checkpoint_dir, random_model, device="cuda", attention=None):
     """(bundle, is_tiny): the tiny fp32 random bundle for
-    `--random_model True`, the full-width bf16 one for `--random_model full`."""
+    `--random_model True`, the full-width bf16 one for `--random_model full`,
+    else the weights in `checkpoint_dir`."""
     from stable_virtual_camera_tpu_torch.models import io as mio
 
     if random_model:
@@ -250,10 +253,7 @@ def _build_bundle(checkpoint_dir, random_model, device="cuda", attention=None):
         raise SystemExit(
             "Provide --checkpoint_dir with converted weights or --random_model for a smoke run."
         )
-    raise NotImplementedError(
-        f"loading released weights (--checkpoint_dir {checkpoint_dir}) is not ported yet "
-        "(ROADMAP queue 1, item 2); use --random_model True or full"
-    )
+    return mio.load_bundle(checkpoint_dir, device=device, attention=attention), False
 
 
 def main(

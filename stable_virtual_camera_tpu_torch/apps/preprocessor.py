@@ -13,6 +13,8 @@ Basic mode. PIL is imported where images are read.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -89,22 +91,26 @@ class NativeDust3rPipeline:
 
     Weights come from `state_dict=` (the port's names, e.g. from
     models/io.load_dust3r_state or a bridged JAX tree), `weight_path=` (the
-    released `.pth`), or, with neither, flax-default random weights drawn
-    from `generator` (tests and smoke runs). Pairs follow the complete
-    symmetric scene graph and run in buckets of equal (shape1, shape2), in
-    `batch_size` chunks, under `torch.inference_mode()`.
+    released `.pth` or `.safetensors`, or a converted-cache directory from
+    apps/convert_weights.py --dust3r), or, with neither, flax-default random
+    weights drawn from `generator` (tests and smoke runs). Pairs follow the
+    complete symmetric scene graph and run in buckets of equal (shape1,
+    shape2), in `batch_size` chunks, under `torch.inference_mode()`.
     """
 
     def __init__(self, state_dict: dict | None = None, spec=None, weight_path: str | None = None,
                  generator: torch.Generator | None = None, device="cuda",
                  dtype: torch.dtype = torch.float32):
         from stable_virtual_camera_tpu_torch.models.dust3r import AsymmetricCroCoStereo, Dust3rSpec
-        from stable_virtual_camera_tpu_torch.models.io import init_flax_defaults, load_dust3r_state
+        from stable_virtual_camera_tpu_torch.models import io as mio
 
         self.spec = spec or Dust3rSpec()
         self.device = torch.device(device)
         if state_dict is None and weight_path is not None:
-            state_dict = load_dust3r_state(weight_path, self.spec)
+            if os.path.isdir(weight_path):
+                state_dict = mio.load_converted(weight_path, "dust3r", device="cpu")
+            else:
+                state_dict = mio.load_dust3r_state(weight_path, self.spec)
         if state_dict is None and generator is None:
             raise ValueError(
                 "NativeDust3rPipeline needs weights (state_dict= or weight_path=); "
@@ -113,7 +119,7 @@ class NativeDust3rPipeline:
         with torch.device(self.device):
             model = AsymmetricCroCoStereo(self.spec)
         if state_dict is None:
-            init_flax_defaults(model, generator)
+            mio.init_flax_defaults(model, generator)
         else:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(dtype=dtype, memory_format=torch.channels_last).eval()

@@ -14,10 +14,12 @@ Invocation (the same fire-style flags as the JAX package's CLI, less
       --ema_decay 0.9999 --num_input_frames 3
 Parameter-efficient: --lora_rank 16 [--lora_alpha 16] [--save_merged True]
 trains low-rank adapters only (training/lora.py) and can fold them back into
-one weight set (`merged.pt` in the work dir). --random_model True draws
+one weight set, written as the converted cache in `<work_dir>/merged`, which
+`--checkpoint_dir` of this CLI and of apps/cli.py reads. --checkpoint_dir
+loads the converted cache or the released files in bf16
+(models/io.load_bundle) and trains at 576x576; --random_model True draws
 full-width bf16 weights at 576x576 on the card, or the tiny spec at 64x64 in
-fp32 with --device cpu. Loading released weights (--checkpoint_dir) is not
-ported yet.
+fp32 with --device cpu.
 """
 
 from __future__ import annotations
@@ -106,12 +108,14 @@ def main(
     device: str = "cuda",
 ):
     seed_everything(seed)
-    if not random_model:
-        raise NotImplementedError(
-            f"loading released weights (--checkpoint_dir {checkpoint_dir}) is not ported yet; "
-            "use --random_model True"
-        )
-    bundle, (W0, H0) = random_model_bundle(device)
+    if random_model:
+        bundle, (W0, H0) = random_model_bundle(device)
+    elif checkpoint_dir:
+        from stable_virtual_camera_tpu_torch.models.io import load_bundle
+
+        bundle, (W0, H0) = load_bundle(checkpoint_dir, device=device), (576, 576)
+    else:
+        raise SystemExit("--checkpoint_dir or --random_model required")
     if parser == "auto":
         parser = _detect_parser(data_path)
     scene_parser = get_parser(parser, data_dir=data_path)
@@ -254,16 +258,19 @@ def train(
             save_train_state(ckpt_path, state(), opt.state_dict(), step=step, ema_params=ema_params)
             print(f"[train] checkpoint at step {step}: {ckpt_path}")
     if lora is not None and save_merged:
-        # one served weight set: base + adapters folded in
+        # one served weight set: base + adapters folded in, written as the
+        # converted cache that load_bundle reads
+        from stable_virtual_camera_tpu_torch.models.io import save_converted
         from stable_virtual_camera_tpu_torch.training.lora import merge_lora
 
         with torch.no_grad():
             unet_sd = {n: p.detach() for n, p in unet.named_parameters()}
             unet_sd.update(merge_lora(unet, lora, lora_alpha))
-        merged_path = osp.join(osp.abspath(work_dir), "merged.pt")
-        torch.save({"unet": unet_sd, "vae": bundle.vae.module.state_dict(),
-                    "clip": bundle.clip.module.state_dict()}, merged_path)
-        print(f"[train] merged LoRA weights -> {merged_path}")
+        merged_dir = osp.join(osp.abspath(work_dir), "merged")
+        save_converted({"unet": unet_sd, "vae": bundle.vae.module.state_dict(),
+                        "clip": bundle.clip.module.state_dict()}, merged_dir,
+                       specs={"seva": bundle.spec, "clip": bundle.clip.module.spec})
+        print(f"[train] merged LoRA weights -> {merged_dir}")
     print(f"[train] done: {ckpt_path}")
     return {"losses": losses, "step_seconds": step_seconds, "ckpt_path": ckpt_path,
             "lora": lora, "ema_params": ema_params}

@@ -232,9 +232,12 @@ def test_train_cli_smoke_and_resume(tmp_path):
     """The fine-tuning CLI runs end to end on a reconfusion scene on disk
     with the tiny random model on the CPU, checkpoints (params, optimizer,
     step, EMA), and resumes from its own state; a LoRA run saves merged
-    weights."""
+    weights as the converted cache, which load_bundle reads back exactly and
+    --checkpoint_dir trains from."""
     from stable_virtual_camera_tpu_torch.apps import train_cli
+    from stable_virtual_camera_tpu_torch.models.io import load_bundle
     from stable_virtual_camera_tpu_torch.training.checkpoint import restore_train_state
+    from stable_virtual_camera_tpu_torch.training.lora import merge_lora
 
     scene = _reconfusion_scene(tmp_path / "scene0")
     work = str(tmp_path / "work")
@@ -249,9 +252,22 @@ def test_train_cli_smoke_and_resume(tmp_path):
 
     out = train_cli.main(num_steps=1, lora_rank=4, save_merged=True,
                          **{**kw, "work_dir": str(tmp_path / "lora")})
-    merged = torch.load(str(tmp_path / "lora" / "merged.pt"), weights_only=True)
-    assert merged.keys() == {"unet", "vae", "clip"} and len(out["lora"]) > 0
-    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
-        train_cli.main(**{**kw, "random_model": False, "checkpoint_dir": "ckpts"})
+    assert len(out["lora"]) > 0
+    base, _ = train_cli.random_model_bundle("cpu")
+    expected = dict(base.unet.state_dict())
+    expected.update(merge_lora(base.unet, out["lora"], None))
+    merged_dir = str(tmp_path / "lora" / "merged")
+    merged = load_bundle(merged_dir, dtype=torch.float32, device="cpu")
+    assert merged.spec == base.spec
+    got = merged.unet.state_dict()
+    assert got.keys() == expected.keys()
+    assert all(torch.equal(got[k], expected[k]) for k in expected)
+    vae = merged.vae.module.state_dict()
+    assert all(torch.equal(vae[k], v) for k, v in base.vae.module.state_dict().items())
+    out = train_cli.main(**{**kw, "random_model": False, "checkpoint_dir": merged_dir, "W": 64,
+                            "H": 64, "num_steps": 1, "work_dir": str(tmp_path / "from_ckpt")})
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
+    with pytest.raises(SystemExit, match="checkpoint_dir"):
+        train_cli.main(**{**kw, "random_model": False})
     assert train_cli._parse_argv(["--num_steps", "3", "--lr=1e-4", "--remat"]) == {
         "num_steps": 3, "lr": 1e-4, "remat": True}

@@ -144,15 +144,24 @@ def test_synthetic_checkpoint_forward_matches_jax(tmp_path):
     _assert_outputs_close(out, ref)
 
 
-def test_load_dust3r_state_reads_a_plain_state_dict_and_refuses_safetensors(tmp_path):
+def test_load_dust3r_state_reads_pt_and_safetensors(tmp_path):
+    """A plain state dict in a `.pt` file and the same keys in a
+    `.safetensors` file (written by the `safetensors` package, read by the
+    port's own reader) load to the same tensors."""
+    from safetensors.torch import save_file
+
     state = synthetic_state(seed=3)
     path = str(tmp_path / "plain.pt")
     torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
     sd = load_dust3r_state(path, SPEC)
     torch.testing.assert_close(sd["head1.act1_up.weight"],
                                torch.from_numpy(state["downstream_head1.dpt.act_1_postprocess.1.weight"]))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        load_dust3r_state(str(tmp_path / "dust3r.safetensors"), SPEC)
+    st_path = str(tmp_path / "dust3r.safetensors")
+    save_file({k: torch.from_numpy(v).clone() for k, v in state.items()}, st_path)
+    st = load_dust3r_state(st_path, SPEC)
+    assert st.keys() == sd.keys()
+    for k in sd:
+        assert torch.equal(st[k], sd[k]), k
 
 
 def test_flax_bridge_round_trip_is_exact_and_forwards_agree():

@@ -1,8 +1,10 @@
-"""The port's main path, its CLI, its fine-tuning path and its Advanced-mode
-path import no JAX, nothing of the JAX package and no image library.
+"""The port's main path, its CLI, its fine-tuning path, its Advanced-mode
+path and its weight loading import no JAX, nothing of the JAX package, no
+`safetensors` and no image library.
 
-The machine with the card has PyTorch but no JAX, and no `imageio` (so the
-port keeps its own image transforms, and imports its readers' and writers'
+The machine with the card has PyTorch but no JAX, no `safetensors` (so the
+port reads and writes the format itself) and no `imageio` (so the port
+keeps its own image transforms, and imports its readers' and writers'
 libraries only when they read or write). A fresh interpreter blocks those
 packages, then imports the port's entry points, its training and data
 modules and `chip_smoke`; any import of a blocked package fails the import.
@@ -57,13 +59,18 @@ import stable_virtual_camera_tpu_torch.core.kb_splines
 import stable_virtual_camera_tpu_torch.models.convert_dust3r
 import stable_virtual_camera_tpu_torch.models.dust3r
 import stable_virtual_camera_tpu_torch.ops.layer_norm
+import stable_virtual_camera_tpu_torch.models.convert
+import stable_virtual_camera_tpu_torch.apps.convert_weights
+from stable_virtual_camera_tpu_torch.models.io import load_bundle, read_safetensors, save_converted
 print("imported")
 """
 
 
-@pytest.mark.parametrize(
-    "blocked", [("jax", "flax", "optax", "stable_virtual_camera_tpu"), ("cv2", "PIL", "imageio")]
-)
+@pytest.mark.parametrize("blocked", [
+    ("jax", "flax", "optax", "stable_virtual_camera_tpu", "safetensors"),
+    ("cv2", "PIL", "imageio"),
+    ("jax", "flax", "optax", "stable_virtual_camera_tpu", "safetensors", "cv2", "PIL", "imageio"),
+])
 def test_main_path_imports_without(blocked):
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(blocked=set(blocked))],
