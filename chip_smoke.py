@@ -86,6 +86,25 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      img2img run of phase 8 with --checkpoint_dir on the cache, its frames
      within one uint8 step of phase 8's and K1/K2 launch counts read around
      it; with the write, convert and load seconds and the files' bytes;
+ 18. `quant_ops`: the W8A8 products (ops/quant.py) at full-width shapes:
+     FF proj_gate and proj_out and the fused qkv at 42*5184 rows, to_v at 6
+     rows (padded), the ResBlock 3x3 conv at (42, 72, 72, 320), the
+     Downsample and the rearranged Upsample at 1280 channels; torch._int_mm
+     on the card bit-equal to the integer product on the CPU (float64 on a
+     subset of rows, exact), each op within fp32 rounding of its dequantized
+     fp32 form, with ms, TOPS, the bound and bf16's ms at the same shape, and
+     the quantize pass's GB/s; plus _int_mm's rule on this torch (rows,
+     operand layouts);
+ 19. `quant_path`: the Basic render of phase 7 under --quant w8a8 and
+     w8a8-static (calibration timed apart, K1/K2 launch counts, a second
+     static render bit-identical), the latents' rel L2 and the frames' PSNR
+     against the bf16 render, and one UNet forward (42 frames, 576x576) per
+     mode with device time by class and peak memory;
+ 20. `server_path`: apps/server.py on 127.0.0.1 (port 0) over the bundle of
+     phase 8's --random_model full: warmup_buckets at T=21, two img2img jobs
+     over HTTP whose frames must equal phase 8's run (c), a third job
+     aborted while it runs, then a w8a8-static service, warmed, whose one
+     job calibrates once, inside the job;
 then a `kernels` summary line and the final `ok` line.
 Every phase prints one JSON line. Cuts against a real render, the CLI, a
 real fine-tune, the Advanced mode and the released checkpoints are printed
@@ -97,6 +116,7 @@ directory without the port.
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -1041,7 +1061,9 @@ def device_us(fn, launches: int) -> tuple[float, list[str]]:
     makes, ceil(its records / `launches`): late in a long process the
     profiler was seen to drop a quarter of a window's kernel records, which
     a sum over `launches` would read as a faster kernel. A window with no
-    kernel record is taken again, up to twice."""
+    kernel record is taken again, up to twice; if the third is empty too
+    (seen once, late in a whole run), CUDA events over `launches` calls
+    give the time instead, and the classes say so."""
     import math
 
     import torch
@@ -1064,7 +1086,13 @@ def device_us(fn, launches: int) -> tuple[float, list[str]]:
             classes.add(next((c for c, rx in _KERNEL_CLASSES if re.search(rx, e.key)), "other"))
         if us > 0:
             return us, sorted(classes)
-    raise RuntimeError("torch.profiler recorded no device time in three windows")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / launches, ["no profiler records: CUDA events"]
 
 
 def rotating(fn, args: list):
@@ -1624,7 +1652,384 @@ def check_train_grad(bundle, gen) -> dict:
                         "remat_whole_network": whole["peak_gb"]}}
 
 
+
+# W8A8 (ops/quant.py) at full width: (name, kind, x shape, C_out, k, stride)
+QUANT_OPS = [
+    ("proj_gate", "dense", (42 * 5184, 320), 2560, 1, 1),
+    ("proj_out", "dense", (42 * 5184, 1280), 320, 1, 1),
+    ("qkv", "dense", (42 * 5184, 320), 960, 1, 1),
+    ("to_v", "dense", (6, 1024), 320, 1, 1),
+    ("in_conv", "conv", (42, 72, 72, 320), 320, 3, 1),
+    ("downsample", "conv", (42, 72, 72, 320), 320, 3, 2),
+    ("upsample", "upsample", (42, 9, 9, 1280), 1280, 3, 1),
+]
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate of one H100 SXM (data sheet)
+QUANT_CHECK_ROWS = 512  # rows of each _int_mm result held against the CPU product
+QUANT_REPS = 10
+QUANT_MODES = ("0", "w8a8", "w8a8-static")
+
+
+def int_mm_rule() -> dict:
+    """What torch._int_mm takes on this card: row counts around 16, and
+    the second operand column-major (w.t() of an (N, K) tensor) or row-major."""
+    import torch
+
+    out = {}
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=DEVICE, dtype=torch.int8)
+
+    for name, (m, k, n, col_major) in {"M16": (16, 64, 64, True), "M17": (17, 64, 64, True),
+                                       "K12": (32, 12, 64, True), "N12": (32, 64, 12, True),
+                                       "row_major_b": (32, 64, 64, False)}.items():
+        a, w = i8(m, k), i8(n, k)
+        b = w.t() if col_major else w.t().contiguous()
+        try:
+            acc = torch._int_mm(a, b)
+            out[name] = "ok" if torch.equal(acc.cpu().double(), a.cpu().double() @ w.cpu().double().t()) \
+                else "WRONG"
+        except RuntimeError as e:
+            out[name] = str(e).splitlines()[0][:120]
+    return out
+
+
+def quant_op_row(gen, name, kind, xshape, c_out, k, stride) -> dict:
+    """One W8A8 op at a full-width shape: the int8 product bit-equal to the
+    CPU's, the op within fp32 rounding of its dequantized form, and times."""
+    import torch
+    import torch.nn.functional as F
+
+    from stable_virtual_camera_tpu_torch.ops import quant as tq
+    from stable_virtual_camera_tpu_torch.ops.resize import (
+        conv_nhwc,
+        rearranged_upsample_weight,
+        upsample_2x_conv3x3,
+    )
+
+    x = torch.randn(xshape, generator=gen, device=DEVICE).to(torch.bfloat16)
+    c_in = xshape[-1]
+    pad = k // 2
+    if kind == "dense":
+        w = (torch.randn((c_out, c_in), generator=gen, device=DEVICE) * c_in ** -0.5).to(torch.bfloat16)
+        b = torch.zeros(c_out, device=DEVICE, dtype=torch.bfloat16)
+        op = lambda out_dtype=None: tq.quantized_dense(x, w, b, out_dtype=out_dtype)  # noqa: E731
+        plain = lambda: F.linear(x, w, b)  # noqa: E731
+        xq, sx = tq.quantize_rowwise(x)
+        wq, sw = tq.quantize_colwise(w)
+        cols = xq
+        quantize = lambda: tq.quantize_rowwise(x)  # noqa: E731
+        M, K, N = xshape[0], c_in, c_out
+    else:
+        w = (torch.randn((c_out, c_in, 3, 3), generator=gen, device=DEVICE) * (9 * c_in) ** -0.5)
+        w = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        b = torch.zeros(c_out, device=DEVICE, dtype=torch.bfloat16)
+        if kind == "upsample":
+            w2 = rearranged_upsample_weight(w)
+            op = lambda out_dtype=None: tq.quantized_conv(x, w2, None, 1, 1, out_dtype=out_dtype)  # noqa: E731
+            plain = lambda: upsample_2x_conv3x3(x, w, b)  # noqa: E731
+            wk = w2
+        else:
+            op = lambda out_dtype=None: tq.quantized_conv(x, w, b, stride, pad, out_dtype=out_dtype)  # noqa: E731
+            plain = lambda: conv_nhwc(x, w, b, stride, pad)  # noqa: E731
+            wk = w
+        xq, sx = tq.quantize_persample(x)
+        wq, sw = tq.quantize_conv_kernel(wk)
+        cols = tq.im2col_nhwc(xq, 3, stride, pad)
+        quantize = lambda: tq.quantize_persample(x)  # noqa: E731
+        wq = tq.conv_matrix(wq.contiguous(memory_format=torch.channels_last))
+        M, K, N = cols.shape[0], cols.shape[1], wq.shape[0]
+    acc = tq.int8_matmul(cols, wq)
+    rows = torch.arange(M, device=DEVICE)
+    if M > QUANT_CHECK_ROWS:
+        rows = torch.cat([rows[: QUANT_CHECK_ROWS // 2], rows[-QUANT_CHECK_ROWS // 2:]])
+    cpu_ref = cols[rows].cpu().double() @ wq.cpu().double().t()
+    bit_equal = bool(torch.equal(acc[rows].cpu().double(), cpu_ref))
+    del acc
+    # the op in fp32 against the fp32 GEMM (TF32 off) of the dequantized
+    # operands: each row of the columns scaled by its token's or sample's scale
+    got = op(torch.float32).reshape(M, N)
+    sx_rows = sx.reshape(-1).repeat_interleave(M // sx.numel())[:, None]
+    ref = (cols.float() * sx_rows) @ (wq.float() * sw.reshape(-1, 1)).t()
+    if kind != "upsample":
+        ref = ref + b.float()
+    fp32_bar = 4 * 2.0 ** -24 * K ** 0.5
+    rel = ((got - ref).norm() / ref.norm()).item()
+    del got, ref
+    ms = cuda_ms(op, QUANT_REPS)
+    mm_ms = cuda_ms(lambda: tq.int8_matmul(cols, wq), QUANT_REPS)
+    q_ms = cuda_ms(quantize, QUANT_REPS)
+    plain_ms = cuda_ms(plain, QUANT_REPS)
+    out_elems = M * N if kind != "upsample" else M * c_out * 4
+    nbytes = 2 * x.numel() + w.numel() * 2 + 2 * out_elems
+    bound_ms, bound_by = bound(2.0 * M * K * N, nbytes, PEAK_INT8_OPS)
+    bf16_bound_ms, _ = bound(2.0 * M * K * N, nbytes)
+    return {"name": name, "kind": kind, "x": list(xshape), "M": M, "K": K, "N": N,
+            "int_mm_bit_equal_to_cpu": bit_equal, "rows_checked": int(rows.numel()),
+            "rel_vs_dequantized_fp32": rel, "fp32_bar": fp32_bar,
+            "ms": ms, "int_mm_ms": mm_ms, "int_mm_tops": 2.0 * M * K * N / mm_ms / 1e9,
+            "bf16_ms": plain_ms, "bf16_tflops": 2.0 * M * K * N / plain_ms / 1e9,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bf16_bound_ms": bf16_bound_ms,
+            "quantize_ms": q_ms, "quantize_gbs": (2 * x.numel() + x.numel()) / q_ms / 1e6,
+            "ok": bit_equal and rel <= fp32_bar}
+
+
+def check_quant_ops(gen) -> None:
+    import torch
+
+    rule = int_mm_rule()
+    rows = []
+    for spec in QUANT_OPS:
+        rows.append(quant_op_row(gen, *spec))
+        torch.cuda.empty_cache()
+    ok = all(r["ok"] for r in rows) and rule["M17"] == "ok"
+    emit({"phase": "quant_ops", "ok": ok, "int_mm_rule": rule, "ops": rows,
+          "bound": "int8 at 1979 TOPS (bf16: 989 TFLOP/s) or x, w and the bf16 output at 3.35 TB/s"})
+    if not ok:
+        raise AssertionError("a W8A8 op disagrees with the CPU product or its dequantized form")
+
+
+def psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def basic_render(bundle) -> tuple:
+    """Phase 7's Basic render: (frames, decoded latents by chunk, seconds,
+    K1/K2 launch counts)."""
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps.renderer import HeadlessRenderer, preprocess_basic
+
+    img = np.random.default_rng(SEED).integers(0, 256, (RES, RES, 3), dtype=np.uint8)
+    renderer = HeadlessRenderer(bundle, work_dir=None)
+    plan = renderer.prepare(preprocess_basic(img, RES), seed=SEED, preset_traj="orbit",
+                            num_frames=NUM_TARGETS, num_steps=NUM_STEPS)
+    latents = []
+    decode = bundle.vae.decode
+
+    def recording(z, *a, **k):
+        latents.append(torch.as_tensor(z).float().cpu())
+        return decode(z, *a, **k)
+
+    bundle.vae.decode = recording
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        gen = renderer.run(plan)
+        next(gen)
+        frames = next(gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _kernels.counts()
+    finally:
+        del bundle.vae.decode
+    return frames, latents, seconds, counts
+
+
+def check_quant_path(bundle, upstream: dict) -> dict:
+    """The Basic render under w8a8 and w8a8-static against the bf16 one, and
+    one forward per mode. Leaves the bundle exact, without quant state."""
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch.engine import runner as runner_mod
+
+    unet = bundle.unet
+    calib = []
+    ensure = runner_mod.ensure_quant_calibrated
+
+    def timed_calibration(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ran = ensure(*a, **k)
+        torch.cuda.synchronize()
+        if ran:
+            calib.append(time.perf_counter() - t0)
+        return ran
+
+    renders, counts, forwards = {}, {}, {}
+    runner_mod.ensure_quant_calibrated = timed_calibration
+    try:
+        for mode in ("0", "w8a8", "w8a8-static", "w8a8-static"):
+            unet.set_quant(mode)
+            key = mode if mode not in renders else mode + "_again"
+            frames, latents, seconds, c = basic_render(bundle)
+            renders[key] = {"frames": frames, "latents": latents, "s": seconds}
+            counts[key] = c
+        x, t_idx, ctx, dense = upstream["inputs"]
+        for mode in QUANT_MODES:
+            unet.set_quant(mode)
+
+            def forward():
+                with torch.inference_mode():
+                    out = unet(x, t_idx, ctx, dense, T)
+                torch.cuda.synchronize()
+                return out
+
+            forward()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = forward()
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            prof = device_time_by_class(forward, top=8)
+            forwards[mode] = {"wall_s": wall, "peak_gb_above_weights_and_inputs": peak,
+                              "finite": bool(torch.isfinite(out).all()), "profile": prof}
+            del out
+    finally:
+        runner_mod.ensure_quant_calibrated = ensure
+        unet.set_quant("0")
+        unet.clear_quant_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = renders["0"]
+    modes = {}
+    for key in ("w8a8", "w8a8-static"):
+        r = renders[key]
+        lat = torch.cat([z.flatten() for z in r["latents"]])
+        lat_ref = torch.cat([z.flatten() for z in ref["latents"]])
+        modes[key] = {"render_s": r["s"], "launches": counts[key],
+                      "finite": bool(np.isfinite(r["frames"]).all()) and bool(torch.isfinite(lat).all()),
+                      "latent_rel_l2_vs_bf16": ((lat - lat_ref).norm() / lat_ref.norm()).item(),
+                      "psnr_vs_bf16_db": psnr(r["frames"], ref["frames"])}
+    identical = bool(np.array_equal(renders["w8a8-static"]["frames"], renders["w8a8-static_again"]["frames"]))
+    launched = all(counts[k]["flash_attention"] > 0 and counts[k]["time_attention"] > 0
+                   for k in ("w8a8", "w8a8-static", "w8a8-static_again"))
+    ok = (launched and identical and len(calib) == 1 and all(m["finite"] for m in modes.values())
+          and all(f["finite"] for f in forwards.values()))
+    emit({"phase": "quant_path", "ok": ok, "bf16_render_s": ref["s"], "modes": modes,
+          "calibration_s": calib, "static_again_render_s": renders["w8a8-static_again"]["s"],
+          "static_repeat_bit_identical": identical, "forward_42_frames": forwards,
+          "cuts": {"num_steps": f"{NUM_STEPS} (released default 50)",
+                   "weights": "random bf16, full width: rel L2 and PSNR are findings, not bars"}})
+    if not ok:
+        raise AssertionError("the quantized render path is wrong (launches, repeat, calibration or values)")
+    return {"w8a8": counts["w8a8"], "static": counts["w8a8-static"]}
+
+
+def check_server_path(cli_frames: dict) -> dict:
+    """apps/server.py over HTTP on the full-width bundle of cli_path."""
+    import http.client
+    import threading
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps import cli, server
+    from stable_virtual_camera_tpu_torch.config import VersionConfig
+    from stable_virtual_camera_tpu_torch.engine import runner as runner_mod
+
+    def request(conn, method, path, body=None):
+        conn.request(method, path, body=json.dumps(body) if body else None)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read() or b"{}")
+
+    def wait(conn, jid, pred, timeout):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            rec = request(conn, "GET", f"/v1/jobs/{jid}")[1]
+            if pred(rec):
+                return rec
+            time.sleep(0.02)
+        return request(conn, "GET", f"/v1/jobs/{jid}")[1]
+
+    def frames_of(out_dir):
+        pngs = sorted(f for f in os.listdir(os.path.join(out_dir, "samples-rgb")) if f.endswith(".png"))
+        return np.stack([cv2.imread(os.path.join(out_dir, "samples-rgb", f))[..., ::-1] for f in pngs])
+
+    img2img = {"data_path": GOLDEN, "task": "img2img", "use_traj_prior": False,
+               "num_steps": NUM_STEPS, "sampler_verbose": False}
+    final = ("done", "error", "aborted")
+    result: dict = {}
+    calls = []
+    ensure = runner_mod.ensure_quant_calibrated
+
+    def counting(*a, **k):
+        ran = ensure(*a, **k)
+        calls.append(ran)
+        return ran
+
+    counts: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for quant in ("0", "w8a8-static"):
+            bundle, _ = cli._build_bundle(None, "full", DEVICE, quant=quant)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server.warmup_buckets(bundle, VersionConfig(T=T), num_steps=NUM_STEPS)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            svc = server.RenderService(server.engine_runner(
+                bundle, VersionConfig, cli._default_options, os.path.join(tmp, f"work_{quant}")))
+            httpd = server.build_http_server(svc, "127.0.0.1", 0)
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            conn = http.client.HTTPConnection(*httpd.server_address)
+            runner_mod.ensure_quant_calibrated = counting
+            try:
+                entry = {"warmup_s": warm_s, "calibrated_after_warmup": bundle.unet.quant_calibrated}
+                jobs = []
+                _kernels.reset_counts()
+                for _ in range(2 if quant == "0" else 1):
+                    t0 = time.perf_counter()
+                    code, out = request(conn, "POST", "/v1/jobs", img2img)
+                    rec = wait(conn, out["id"], lambda r: r["status"] in final, 600)
+                    jobs.append({"status": rec["status"], "error": rec["error"],
+                                 "s": time.perf_counter() - t0, "outputs": rec["outputs"]})
+                counts["server" if quant == "0" else "server_static"] = _kernels.counts()
+                for j in jobs:
+                    j["frames"] = frames_of(j["outputs"][0]) if j["status"] == "done" else None
+                if quant == "0":
+                    ref = cli_frames["img2img_single_pass"]
+                    entry["identical_to_cli_c"] = [j["frames"] is not None and np.array_equal(j["frames"], ref)
+                                                   for j in jobs]
+                    long = dict(img2img, task="img2trajvid", use_traj_prior=True, num_steps=50)
+                    code, out = request(conn, "POST", "/v1/jobs", long)
+                    rec = wait(conn, out["id"], lambda r: r["progress"].get("step", 0) >= 1
+                               or r["status"] in final, 600)
+                    step_at_abort = rec["progress"].get("step")
+                    abort_code = request(conn, "DELETE", f"/v1/jobs/{out['id']}")[0]
+                    rec = wait(conn, out["id"], lambda r: r["status"] in final, 600)
+                    entry["abort"] = {"http": abort_code, "status": rec["status"],
+                                      "step_at_abort": step_at_abort, "progress": rec["progress"]}
+                else:
+                    entry["calibrations_in_job"] = sum(calls)
+                    entry["calibrated_after_job"] = bundle.unet.quant_calibrated
+                    entry["frames_finite"] = all(j["frames"] is not None and np.isfinite(j["frames"]).all()
+                                                 and j["frames"].shape[1:] == (RES, RES, 3) for j in jobs)
+                entry["jobs"] = [{k: v for k, v in j.items() if k not in ("frames", "outputs")} for j in jobs]
+                result[quant] = entry
+            finally:
+                runner_mod.ensure_quant_calibrated = ensure
+                conn.close()
+                httpd.shutdown()
+                httpd.server_close()
+                svc.shutdown()
+                del bundle, svc, httpd, thread
+                gc.collect()
+                torch.cuda.empty_cache()
+    bf, st = result["0"], result["w8a8-static"]
+    ok = (all(j["status"] == "done" for j in bf["jobs"] + st["jobs"]) and all(bf["identical_to_cli_c"])
+          and bf["abort"]["status"] == "aborted" and not st["calibrated_after_warmup"]
+          and st["calibrations_in_job"] == 1 and st["calibrated_after_job"] and st["frames_finite"])
+    emit({"phase": "server_path", "ok": ok, "bf16": bf, "w8a8_static": st, "cuts": {
+        "num_steps": f"{NUM_STEPS} (server default 50); the aborted job asks for 50",
+        "weights": "--random_model full: random bf16 (flax-default init, seed 0), full width"}})
+    if not ok:
+        raise AssertionError("the HTTP service's jobs, frames, abort or calibration are wrong")
+    return counts
+
+
 _KERNEL_CLASSES = [
+    ("int8 GEMM (cuBLASLt)", r"(?i)(gemm|xmma|nvjet|cutlass).*(s8|i8|imma)|(s8|i8|imma).*gemm"),
     ("K1 flash attention", r"flash_fwd_kernel"),
     ("K1-dKV", r"flash_bwd_dkv_kernel"),
     ("K1-dQ", r"flash_bwd_dq_kernel"),
@@ -1640,9 +2045,10 @@ _KERNEL_CLASSES = [
 ]
 
 
-def device_time_by_class(fn) -> dict:
+def device_time_by_class(fn, top: int = 0) -> dict:
     """torch.profiler over one call of `fn` (which ends in a synchronize):
-    wall time, device time by kernel class (ms) and the idle share."""
+    wall time, device time by kernel class (ms) and the idle share; with
+    `top`, the names (cut to 90 characters) and ms of the longest kernels."""
     import torch  # noqa: F401
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1652,16 +2058,21 @@ def device_time_by_class(fn) -> dict:
         fn()
         wall = time.perf_counter() - t0
     classes: dict[str, float] = {}
+    kernels: dict[str, float] = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
         cls = next((c for c, rx in _KERNEL_CLASSES if re.search(rx, e.key)), "other")
         classes[cls] = classes.get(cls, 0.0) + us / 1e3
+        kernels[e.key[:90]] = kernels.get(e.key[:90], 0.0) + us / 1e3
     busy = sum(classes.values())
-    return {"wall_s": wall, "device_busy_ms": busy,
-            "idle_share": (1 - busy / (wall * 1e3)) if busy else "not measured",
-            "device_ms_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1]))}
+    out = {"wall_s": wall, "device_busy_ms": busy,
+           "idle_share": (1 - busy / (wall * 1e3)) if busy else "not measured",
+           "device_ms_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1]))}
+    if top:
+        out["top_kernels_ms"] = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:top])
+    return out
 
 
 def profile_train_step(bundle, gen) -> None:
@@ -1833,7 +2244,8 @@ def main() -> int:
             failures.append(key)
 
     counts: dict[str, dict] = {"render": {}, "advanced": {}, "cli": {}, "checkpoint": {}, "train": {},
-                               "k5": {}}
+                               "k5": {}, "quant_w8a8": {}, "quant_static": {}, "server": {},
+                               "server_static": {}}
     try:
         k5 = check_k5_layer_norm(gen)
         results["layer_norm"] = k5["result"]
@@ -1871,6 +2283,9 @@ def main() -> int:
                         ("cli_path", lambda: run_cli_path(cli_frames)),
                         ("checkpoint_path",
                          lambda: run_checkpoint_path(cli_frames["img2img_single_pass"])),
+                        ("quant_ops", lambda: check_quant_ops(gen)),
+                        ("quant_path", lambda: check_quant_path(bundle, upstream)),
+                        ("server_path", lambda: check_server_path(cli_frames)),
                         ("train_grad", lambda: check_train_grad(bundle, gen)),
                         ("train_profile", lambda: profile_train_step(bundle, gen)),
                         ("train_path", lambda: run_train_path(bundle))):
@@ -1891,6 +2306,10 @@ def main() -> int:
                     counts["cli"] = out
                 elif key == "checkpoint_path":
                     counts["checkpoint"] = out
+                elif key == "quant_path":
+                    counts["quant_w8a8"], counts["quant_static"] = out["w8a8"], out["static"]
+                elif key == "server_path":
+                    counts.update(out)
                 elif key == "train_path":
                     counts["train"] = out
             except Exception:  # noqa: BLE001
@@ -1947,6 +2366,10 @@ def main() -> int:
                    ("cli", ("flash_attention", "time_attention", "flash_attention_blhd",
                             "flash_attention_packed")),
                    ("checkpoint", ("flash_attention", "time_attention")),
+                   ("quant_w8a8", ("flash_attention", "time_attention")),
+                   ("quant_static", ("flash_attention", "time_attention")),
+                   ("server", ("flash_attention", "time_attention")),
+                   ("server_static", ("flash_attention", "time_attention")),
                    ("train", TRAIN_KERNELS))
                for k in ks if counts[path].get(k, 0) == 0]
     if missing and not failures:

@@ -10,8 +10,10 @@ Model loading: --checkpoint_dir loads a directory holding the converted
 cache (apps/convert_weights.py) or the released `model.safetensors`,
 `vae.safetensors` and `clip.safetensors`, in bf16 (models/io.load_bundle);
 --random_model True runs the tiny fp32 bundle at 64x64, --random_model
-full the full-width bf16 one at 576x576. The TPU package's mesh, platform
-and quantisation flags have no counterpart yet: each raises.
+full the full-width bf16 one at 576x576. --quant w8a8 | w8a8-static | 0
+sets the UNet's W8A8 serving mode (ops/quant.py; the static form calibrates
+on the first chunk it renders). The TPU package's mesh and platform flags
+have no counterpart yet: each raises.
 
 The port's own flags: --device (default cuda) and --attention, the
 self-attention backend ("upstream", kernel K1; "flash", kernel K3;
@@ -52,6 +54,7 @@ from stable_virtual_camera_tpu_torch.engine.prior import (
 )
 from stable_virtual_camera_tpu_torch.engine.runner import SceneEngine
 from stable_virtual_camera_tpu_torch.engine.saving import create_transforms_simple
+from stable_virtual_camera_tpu_torch.ops.quant import serving_mode
 from stable_virtual_camera_tpu_torch.sampling.sampler import torch_noise
 
 WORK_DIR = "work_dirs/demo"
@@ -229,10 +232,10 @@ def _default_options() -> EngineOptions:
     )
 
 
-def _build_bundle(checkpoint_dir, random_model, device="cuda", attention=None):
+def _build_bundle(checkpoint_dir, random_model, device="cuda", attention=None, quant=None):
     """(bundle, is_tiny): the tiny fp32 random bundle for
     `--random_model True`, the full-width bf16 one for `--random_model full`,
-    else the weights in `checkpoint_dir`."""
+    else the weights in `checkpoint_dir`; `quant` is the UNet's W8A8 mode."""
     from stable_virtual_camera_tpu_torch.models import io as mio
 
     if random_model:
@@ -245,15 +248,17 @@ def _build_bundle(checkpoint_dir, random_model, device="cuda", attention=None):
             from stable_virtual_camera_tpu_torch.models.clip import ClipVisionSpec
 
             bundle = mio.random_bundle(SevaSpec(), ClipVisionSpec(), dtype=torch.bfloat16,
-                                       device=device, generator=generator, attention=attention)
+                                       device=device, generator=generator, attention=attention,
+                                       quant=quant)
             return bundle, False
         print("[cli] --random_model: tiny randomly initialized bundle (smoke mode)")
-        return mio.random_bundle(device=device, generator=generator, attention=attention), True
+        return mio.random_bundle(device=device, generator=generator, attention=attention,
+                                 quant=quant), True
     if checkpoint_dir is None:
         raise SystemExit(
             "Provide --checkpoint_dir with converted weights or --random_model for a smoke run."
         )
-    return mio.load_bundle(checkpoint_dir, device=device, attention=attention), False
+    return mio.load_bundle(checkpoint_dir, device=device, attention=attention, quant=quant), False
 
 
 def main(
@@ -279,15 +284,17 @@ def main(
 ):
     """Render every scene under `data_path` (or the `data_items` among
     them) for `task`; returns the scenes' output directories."""
-    for flag, value, item in (("mesh_view", mesh_view, 4), ("mesh_data", mesh_data, 4),
-                              ("mesh_model", mesh_model, 4), ("platform", platform, 4),
-                              ("quant", quant, 5)):
+    try:
+        quant = serving_mode(quant)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    for flag, value in (("mesh_view", mesh_view), ("mesh_data", mesh_data),
+                        ("mesh_model", mesh_model), ("platform", platform)):
         if value is not None:
             raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP queue 1, item {item}: "
-                + ("multi-GPU" if item == 4 else "W8A8 quantisation") + ")"
+                f"--{flag} is not ported yet (ROADMAP queue 1, item 4: multi-GPU)"
             )
-    bundle, is_tiny = _build_bundle(checkpoint_dir, random_model, device, attention)
+    bundle, is_tiny = _build_bundle(checkpoint_dir, random_model, device, attention, quant)
     version = VersionConfig()
     if is_tiny:
         version = VersionConfig(H=64, W=64, T=bundle.spec.num_frames)

@@ -15,6 +15,11 @@ Differences by design: VAE/CLIP en/decode chunk with a Python loop over
 and mp4 writes are synchronous and happen only when a `save_path` is given.
 Without one, `run_one_scene` yields each pass's uint8 frames instead of file
 paths. Initial and churn noise come from `noise_fn` (sampling/sampler.py).
+
+Under static W8A8 (`bundle.unet.set_quant("w8a8-static")`, ops/quant.py) the
+bundle's first `sample_chunk` calibrates the UNet on that chunk's own
+conditioning (`ensure_quant_calibrated`), as JAX's
+`UNetDenoiser.ensure_quant_calibrated` does.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from stable_virtual_camera_tpu_torch.sampling.sampler import (
     ChunkConditioning,
     NoiseFn,
     SamplingPlan,
+    euler_edm_capture,
     euler_edm_sample,
     make_sampling_plan,
     torch_noise,
@@ -212,6 +218,61 @@ def build_chunk_conditioning(
     return cond, (T, h, w, C)
 
 
+def calibration_points(num_steps: int, num_points: int = 6) -> np.ndarray:
+    """The steps of a trajectory the static calibration runs the UNet at:
+    `num_points` spread over the schedule (JAX's choice)."""
+    return np.unique(
+        np.linspace(0, num_steps - 1, min(num_points, num_steps)).round().astype(np.int32)
+    )
+
+
+@torch.inference_mode()
+def calibrate_unet(unet: SevaUNet, net_xs: torch.Tensor, t_vecs: torch.Tensor,
+                   cond: ChunkConditioning, num_frames: int, points) -> None:
+    """Run the UNet in calibration mode on the captured network inputs at
+    `points` (steps of the capture), one serving-sized forward each: every
+    site quantizes its weight and raises its activation abs-max to the
+    largest seen, the max over points JAX's merge takes. Leaves the UNet in
+    "w8a8-static"."""
+    unet.set_quant("w8a8-calib")
+    try:
+        for k in points:
+            unet(assemble_network_input(net_xs[int(k)], cond.concat), t_vecs[int(k)],
+                 cond.crossattn, cond.dense, num_frames)
+    except BaseException:
+        unet.clear_quant_state()
+        raise
+    finally:
+        unet.set_quant("w8a8-static")
+
+
+def ensure_quant_calibrated(bundle: "ModelBundle", shape, plan: SamplingPlan,
+                            cond: ChunkConditioning, num_points: int = 6) -> bool:
+    """Static-W8A8 calibration on this chunk's own conditioning; a no-op
+    in every other mode and once calibrated (returns whether it ran).
+
+    One exact sampling trajectory on the serving schedule captures every
+    step's network inputs (`euler_edm_capture`), then the UNet runs in
+    calibration mode at `calibration_points` of it. The trajectory's noise
+    is the port's own draw from a generator seeded with 0 on the bundle's
+    device (initial noise, then each step's churn noise), not JAX's
+    `PRNGKey(0)` draw, so the calibrated scales are the port's."""
+    unet = bundle.unet
+    if getattr(unet, "quant", "0") != "w8a8-static" or unet.quant_calibrated:
+        return False
+    dev = bundle.device
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def draw(_step=None):
+        return torch.randn(tuple(shape), generator=g, device=dev, dtype=torch.float32)
+
+    with unet.quant_mode("0"):
+        net_xs, t_vecs = euler_edm_capture(bundle.network, draw(), plan, cond, shape[0], draw)
+    calibrate_unet(unet, net_xs, t_vecs, cond, shape[0],
+                   calibration_points(plan.num_steps, num_points))
+    return True
+
+
 def sample_chunk(
     bundle: ModelBundle,
     values: ChunkValues,
@@ -232,12 +293,14 @@ def sample_chunk(
 ) -> np.ndarray | None:
     """One chunk: conditioning, denoising loop, decode. `noise_fn(pass_id,
     chunk_id, step, shape, device)` supplies the noise. Returns the decoded
-    frames (uint8 with `output_uint8`), or None when aborted."""
+    frames (uint8 with `output_uint8`), or None when aborted. Under static
+    W8A8 the bundle's first chunk calibrates first (`ensure_quant_calibrated`)."""
     cond, shape = build_chunk_conditioning(
         bundle, values, cfg=cfg, guider_type=guider_type, cfg_min=cfg_min,
         encoding_t=encoding_t, latent_downsample=latent_downsample,
     )
     dev = bundle.device
+    ensure_quant_calibrated(bundle, shape, bundle.plan(num_steps), cond)
 
     def draw(step):
         return noise_fn(pass_id, chunk_id, step, shape, dev).to(dev, torch.float32)

@@ -35,6 +35,7 @@ from stable_virtual_camera_tpu_torch.models import convert
 from stable_virtual_camera_tpu_torch.models.clip import ClipVisionSpec, ClipVisionTower
 from stable_virtual_camera_tpu_torch.models.unet import Affine, SevaUNet
 from stable_virtual_camera_tpu_torch.models.vae import AutoEncoderKL
+from stable_virtual_camera_tpu_torch.ops.quant import serving_mode
 
 # flax's lecun_normal draws from a normal truncated at +-2 std and rescales
 # by this constant so the truncated distribution keeps variance 1/fan_in
@@ -123,18 +124,22 @@ def random_bundle(
     device="cuda",
     generator: torch.Generator | None = None,
     attention: str | None = None,
+    quant=None,
 ):
     """A ModelBundle with flax-default random weights (tests, smoke runs),
     on the card unless `device` says otherwise. Weights are drawn in fp32 on
     `device` from `generator` (seed 0 on that device when omitted), then
     cast to `dtype`. `attention` is the UNet's self-attention backend
-    (`attention_backend`); the weights do not depend on it."""
+    (`attention_backend`) and `quant` its W8A8 mode (`load_bundle`); the
+    weights depend on neither."""
     spec = spec or SevaSpec.tiny()
     clip_spec = clip_spec or ClipVisionSpec.tiny()
+    mode = serving_mode(quant)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     models = _modules(spec, clip_spec, device, attention_backend(attention, dtype, device))
     models = [_finish(init_flax_defaults(m, generator), dtype, device) for m in models]
+    models[0].set_quant(mode)
     return _bundle(spec, *models)
 
 
@@ -393,6 +398,7 @@ def load_bundle(
     dtype: torch.dtype = torch.bfloat16,
     device="cuda",
     attention: str | None = None,
+    quant=None,
 ):
     """A ModelBundle from `checkpoint_dir`, which holds either the converted
     cache (`converted_{unet,vae,clip}.safetensors`) or the released files
@@ -400,7 +406,11 @@ def load_bundle(
     come from the arguments, else from `specs.json`, else the released
     model's. Weights are cast to `dtype` (bf16, as the reference loads
     them) on `device`; `attention` is the UNet's self-attention backend
-    (`attention_backend`)."""
+    (`attention_backend`). `quant` is the UNet's W8A8 serving mode
+    (ops/quant.py): None or "0" exact, "w8a8" dynamic, "w8a8-static"
+    calibrated on the bundle's first chunk (engine/runner.py); anything else
+    raises ValueError."""
+    mode = serving_mode(quant)
     stored = load_checkpoint_specs(checkpoint_dir)
     if spec is None and "seva" in stored:
         spec = _spec_from_dict(SevaSpec, stored["seva"])
@@ -420,7 +430,7 @@ def load_bundle(
         unet_sd = load_seva_state(path("model.safetensors"), spec, dtype, device)
         vae_sd = load_vae_state(path("vae.safetensors"), dtype, device)
         clip_sd = load_clip_state(path("clip.safetensors"), clip_spec, dtype, device)
-    unet = _loaded(lambda: SevaUNet(spec, backend), unet_sd, "UNet", dtype, device)
+    unet = _loaded(lambda: SevaUNet(spec, backend), unet_sd, "UNet", dtype, device).set_quant(mode)
     vae = _loaded(AutoEncoderKL, vae_sd, "VAE", dtype, device)
     clip = _loaded(lambda: ClipVisionTower(clip_spec), clip_sd, "CLIP", dtype, device)
     return _bundle(spec, unet, vae, clip)

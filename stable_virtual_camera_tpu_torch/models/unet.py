@@ -27,10 +27,23 @@ A block's routes follow from its backend and head dim, and per call from L
 and T, as in JAX; never from a tensor's dtype, strides or address, so a
 CUDA tensor routed to a kernel launches it or raises. On CPU tensors the
 kernel wrappers run their plain versions.
+
+W8A8 serving (ops/quant.py) quantizes exactly the JAX package's sites, and
+`SevaUNet.set_quant(mode)` sets the mode on each: the attention projections
+(qkv/to_out of the generic and flash self-attention paths, the temporal path
+above 32 frames, the cross-attention's to_v/to_out), the GEGLU
+feed-forwards, the MultiviewTransformer's proj_in/proj_out (`QuantLinear`),
+the ResBlock convs and the Downsample (`QuantConv`) and the Upsample's
+rearranged kernel. At T <= 32 frames the temporal projections stay exact in
+every mode, as on JAX's time-kernel branch. The time-embedding MLPs,
+emb_proj, dense_proj, the stem and out convs, the VAE and CLIP are never
+quantized. Mode "0" runs the same operations as a model without this
+support.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -38,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from stable_virtual_camera_tpu_torch.config import SevaSpec
+from stable_virtual_camera_tpu_torch.models.common import QuantSite
 from stable_virtual_camera_tpu_torch.ops.attention import BACKENDS, sdpa_packed
 from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
     HEAD_DIM as FLASH_HEAD_DIM,
@@ -45,8 +59,17 @@ from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
     flash_attention_upstream_bhld,
 )
 from stable_virtual_camera_tpu_torch.ops.norms import group_norm_nhwc, layer_norm_fp32
+from stable_virtual_camera_tpu_torch.ops.quant import (
+    check_mode,
+    quantized_conv,
+    quantized_conv_static,
+    quantized_dense,
+    quantized_dense_static,
+)
 from stable_virtual_camera_tpu_torch.ops.resize import (
     conv_nhwc,
+    pixel_shuffle_2x,
+    rearranged_upsample_weight,
     resize_bilinear_align_corners,
     upsample_2x_conv3x3,
 )
@@ -117,6 +140,57 @@ class Conv(nn.Conv2d):
         return conv_nhwc(x, self.weight, self.bias, self.stride, self.padding)
 
 
+class _Quantizable:
+    """A layer with a W8A8 mode ("0" unless `set_quant` says otherwise) and,
+    in the static and calibration modes, a QuantSite submodule `qsite` for
+    the weight `_site_shape()` describes."""
+
+    quant = "0"
+
+    def _site_shape(self) -> tuple[int, ...]:
+        return tuple(self.weight.shape)
+
+    def site(self) -> QuantSite | None:
+        return self._modules.get("qsite")
+
+    def set_quant(self, mode: str) -> None:
+        self.quant = check_mode(mode)
+        if mode in ("w8a8-static", "w8a8-calib") and self.site() is None:
+            self.qsite = QuantSite(self._site_shape(), device=self.weight.device)
+
+    def clear_quant_state(self) -> None:
+        self._modules.pop("qsite", None)
+
+
+class QuantLinear(_Quantizable, nn.Linear):
+    """nn.Linear with the W8A8 serving modes (ops/quant.py)."""
+
+    def forward(self, x):
+        mode = self.quant
+        if mode == "w8a8":
+            return quantized_dense(x, self.weight, self.bias)
+        if mode == "w8a8-static":
+            return quantized_dense_static(x, *self.qsite.frozen(), bias=self.bias)
+        if mode == "w8a8-calib":
+            self.qsite.record(self.weight, x)
+        return F.linear(x, self.weight, self.bias)
+
+
+class QuantConv(_Quantizable, Conv):
+    """Conv with the W8A8 serving modes (ops/quant.py)."""
+
+    def forward(self, x):
+        mode, stride, pad = self.quant, self.stride[0], self.padding[0]
+        if mode == "w8a8":
+            return quantized_conv(x, self.weight, self.bias, stride, pad)
+        if mode == "w8a8-static":
+            return quantized_conv_static(x, *self.qsite.frozen(), bias=self.bias,
+                                         stride=stride, padding=pad)
+        if mode == "w8a8-calib":
+            self.qsite.record(self.weight, x)
+        return conv_nhwc(x, self.weight, self.bias, self.stride, self.padding)
+
+
 class SelfAttention(nn.Module):
     """Fused-qkv multi-head self-attention (spatial, joint or temporal);
     `attention` picks the backend of the spatial and joint path."""
@@ -129,15 +203,17 @@ class SelfAttention(nn.Module):
         self.dim_head = dim_head
         self.attention = attention
         inner = heads * dim_head
-        self.qkv = nn.Linear(query_dim, 3 * inner, bias=False)
-        self.to_out = nn.Linear(inner, query_dim)
+        self.qkv = QuantLinear(query_dim, 3 * inner, bias=False)
+        self.to_out = QuantLinear(inner, query_dim)
 
     def forward(self, x, time_frames: int | None = None):
         if time_frames is not None:
             return self._temporal(x, time_frames)
         B, L, _ = x.shape
         H, D = self.heads, self.dim_head
-        qkv = F.linear(x, self.qkv.weight)  # (B, L, 3 * inner)
+        # (B, L, 3 * inner); under W8A8 the int8 product writes the same
+        # layout, so the flash route takes the same strided views
+        qkv = self.qkv(x)
         if self.attention in ("upstream", "plain") and D == FLASH_HEAD_DIM and L >= FLASH_MIN_LEN:
             # (B, H, L, D) strided views of the packed projection; the kernel
             # writes (B, L, H, D), so to_out reads it with no copy
@@ -154,15 +230,17 @@ class SelfAttention(nn.Module):
         inner = H * D
         if T <= TIME_MAX_FRAMES:
             # W x^T writes the kernel's (b*T, H, D, S) layout (S contiguous)
-            # straight from the GEMM; to_out reads it back transposed
+            # straight from the GEMM; to_out reads it back transposed. Both
+            # projections stay exact in every W8A8 mode (JAX's time-kernel
+            # branch keeps them as einsums)
             qkv = torch.matmul(self.qkv.weight, x.transpose(1, 2))  # (B, 3*inner, S)
             q, k, v = qkv.view(B, 3, H, D, S).unbind(1)
             kernel = self.attention != "plain" and D == TIME_HEAD_DIM  # K2's one head dim
             o = (time_attention_bhds if kernel else time_attention_plain)(q, k, v, T)
-            return self.to_out(o.reshape(B, inner, S).transpose(1, 2))
+            return F.linear(o.reshape(B, inner, S).transpose(1, 2), self.to_out.weight, self.to_out.bias)
         b = B // T
         q, k, v = (
-            t.reshape(b, T, S, H, D) for t in F.linear(x, self.qkv.weight).chunk(3, dim=-1)
+            t.reshape(b, T, S, H, D) for t in self.qkv(x).chunk(3, dim=-1)
         )
         s = torch.einsum("bqshd,bkshd->bshqk", q.float(), k.float()) * D**-0.5
         p = torch.softmax(s, dim=-1).to(v.dtype)
@@ -177,8 +255,8 @@ class CrossAttention(nn.Module):
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int):
         super().__init__()
         inner = heads * dim_head
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, query_dim)
+        self.to_v = QuantLinear(context_dim, inner, bias=False)
+        self.to_out = QuantLinear(inner, query_dim)
 
     def forward(self, context):  # (B, 1, ctx) -> (B, 1, query_dim)
         return self.to_out(self.to_v(context))
@@ -190,8 +268,8 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, dim_out: int | None = None, mult: int = 4):
         super().__init__()
         inner = int(dim * mult)
-        self.proj_gate = nn.Linear(dim, 2 * inner)
-        self.proj_out = nn.Linear(inner, dim_out or dim)
+        self.proj_gate = QuantLinear(dim, 2 * inner)
+        self.proj_out = QuantLinear(inner, dim_out or dim)
 
     def forward(self, x):
         val, gate = self.proj_gate(x).chunk(2, dim=-1)
@@ -257,7 +335,7 @@ class MultiviewTransformer(nn.Module):
         self.depth = depth
         self.unflatten = unflatten
         self.norm = GroupNorm32(channels, eps=1e-6)
-        self.proj_in = nn.Linear(channels, inner)
+        self.proj_in = QuantLinear(channels, inner)
         for d in range(depth):
             self.add_module(
                 f"spatial_{d}", TransformerBlock(inner, heads, dim_head, context_dim, attention)
@@ -265,7 +343,7 @@ class MultiviewTransformer(nn.Module):
             self.add_module(
                 f"temporal_{d}", TransformerBlockTimeMix(inner, heads, dim_head, context_dim, attention)
             )
-        self.proj_out = nn.Linear(inner, channels)
+        self.proj_out = QuantLinear(inner, channels)
 
     def forward(self, x, context, num_frames: int):
         B, h, w, C = x.shape
@@ -291,11 +369,11 @@ class ResBlock(nn.Module):
         super().__init__()
         self.in_gn = GroupNorm32(channels)
         self.dense_proj = Conv(dense_in, 2 * channels, 1)
-        self.in_conv = Conv(channels, out_channels, 3)
+        self.in_conv = QuantConv(channels, out_channels, 3)
         self.emb_proj = nn.Linear(emb_dim, out_channels)
         self.out_gn = GroupNorm32(out_channels)
-        self.out_conv = Conv(out_channels, out_channels, 3)
-        self.skip = Conv(channels, out_channels, 1) if out_channels != channels else None
+        self.out_conv = QuantConv(out_channels, out_channels, 3)
+        self.skip = QuantConv(channels, out_channels, 1) if out_channels != channels else None
 
     def forward(self, x, emb, dense_emb):
         h = F.silu(self.in_gn(x))
@@ -314,21 +392,41 @@ class Downsample(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = Conv(channels, channels, 3, stride=2)
+        self.conv = QuantConv(channels, channels, 3, stride=2)
 
     def forward(self, x):
         return self.conv(x)
 
 
-class Upsample(nn.Module):
-    """Nearest-2x upsample + 3x3 conv."""
+class Upsample(_Quantizable, nn.Module):
+    """Nearest-2x upsample + 3x3 conv. Under W8A8 it runs as JAX's does: a
+    low-resolution 3x3 conv with the rearranged (4 C, C, 3, 3) kernel, whose
+    per-output-channel scales run over the four sub-pixel phases, then a
+    pixel shuffle; the site quantizes the rearranged kernel."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
 
+    @property
+    def weight(self) -> torch.Tensor:
+        return self.conv.weight
+
+    def _site_shape(self) -> tuple[int, ...]:
+        c_out, c_in = self.conv.weight.shape[:2]
+        return (4 * c_out, c_in, 3, 3)
+
     def forward(self, x):
-        return upsample_2x_conv3x3(x, self.conv.weight, self.conv.bias)
+        mode, w, b = self.quant, self.conv.weight, self.conv.bias
+        if mode == "w8a8":
+            y = quantized_conv(x, rearranged_upsample_weight(w), None, 1, 1)
+            return pixel_shuffle_2x(y + b.to(y.dtype).repeat(4))
+        if mode == "w8a8-static":
+            y = quantized_conv_static(x, *self.qsite.frozen(), stride=1, padding=1)
+            return pixel_shuffle_2x(y + b.to(y.dtype).repeat(4))
+        if mode == "w8a8-calib":
+            self.qsite.record(rearranged_upsample_weight(w), x)
+        return upsample_2x_conv3x3(x, w, b)
 
 
 class SevaUNet(nn.Module):
@@ -419,6 +517,42 @@ class SevaUNet(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.out_conv.weight.dtype
+
+    quant = "0"
+
+    def _quant_layers(self):
+        return [m for m in self.modules() if isinstance(m, _Quantizable)]
+
+    def set_quant(self, mode: str) -> "SevaUNet":
+        """Set the W8A8 mode (ops/quant.py) of every quantized site. The
+        static and calibration modes give each site a QuantSite (kept across
+        later mode changes; `clear_quant_state` drops them)."""
+        for m in self._quant_layers():
+            m.set_quant(mode)
+        self.quant = mode
+        return self
+
+    def clear_quant_state(self) -> None:
+        for m in self._quant_layers():
+            m.clear_quant_state()
+
+    @property
+    def quant_calibrated(self) -> bool:
+        """True once a calibration ran (or a calibrated state was loaded). A
+        calibration reaches every site its forwards run: all of them but the
+        temporal self-attention projections, which stay exact at T <= 32
+        frames (JAX's calibrated collection lacks them too)."""
+        return any(m.site() is not None and m.site().ready for m in self._quant_layers())
+
+    @contextlib.contextmanager
+    def quant_mode(self, mode: str):
+        """Run the block in `mode`, then restore the mode before it."""
+        prev = self.quant
+        self.set_quant(mode)
+        try:
+            yield self
+        finally:
+            self.set_quant(prev)
 
     def forward(self, x, t_idx, context, dense_emb, num_frames: int):
         dt = self.dtype

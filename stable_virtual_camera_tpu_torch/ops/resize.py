@@ -3,7 +3,10 @@
 Counterpart of stable_virtual_camera_tpu/ops/resize.py: the align-corners
 bilinear resize of the ResBlock FiLM path as two small matrix contractions,
 and the nearest-2x upsample followed by a 3x3 conv (computed directly, which
-is the same math as the JAX package's pixel-shuffle form).
+is the same math as the JAX package's pixel-shuffle form). Under W8A8 the
+UNet's upsample takes JAX's form instead (`rearranged_upsample_weight`, a
+low-resolution conv, `pixel_shuffle_2x`), so that its int8 scales are the
+rearranged kernel's.
 """
 
 from __future__ import annotations
@@ -61,3 +64,31 @@ def upsample_2x_conv3x3(
     """Nearest-2x upsample then a 3x3 SAME conv, NHWC in and out."""
     up = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
     return F.conv2d(up, weight, bias, padding=1).permute(0, 2, 3, 1)
+
+
+# output offset d in {0, 1} of the nearest-2x upsample reads, for kernel tap
+# k in {0, 1, 2}, the low-resolution row i + _TAPS[d][k]
+_TAPS = ((-1, 0, 0), (0, 0, 1))
+
+
+def rearranged_upsample_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The OIHW 3x3 weight of nearest-2x + conv as the (4 C_out, C_in, 3, 3)
+    weight of a low-resolution 3x3 conv whose output channel
+    (2 di + dj) * C_out + o is sub-pixel phase (di, dj) of channel o (JAX's
+    ops/resize.upsample_2x_conv3x3, summed in its order)."""
+    c_out, c_in = weight.shape[:2]
+    w2 = torch.zeros((4, c_out, c_in, 3, 3), dtype=weight.dtype, device=weight.device)
+    for di in (0, 1):
+        for dj in (0, 1):
+            o = di * 2 + dj
+            for ki in range(3):
+                for kj in range(3):
+                    w2[o, :, :, _TAPS[di][ki] + 1, _TAPS[dj][kj] + 1] += weight[:, :, ki, kj]
+    return w2.reshape(4 * c_out, c_in, 3, 3)
+
+
+def pixel_shuffle_2x(y: torch.Tensor) -> torch.Tensor:
+    """(b, h, w, 4 C) with phase-major channels -> (b, 2h, 2w, C), NHWC."""
+    b, h, w, c4 = y.shape
+    c = c4 // 4
+    return y.reshape(b, h, w, 2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, c)

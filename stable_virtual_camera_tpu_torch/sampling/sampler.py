@@ -2,7 +2,7 @@
 
 Counterpart of stable_virtual_camera_tpu/sampling/sampler.py
 (`SamplingPlan`, `make_sampling_plan`, `ChunkConditioning`, `euler_edm_step`,
-`euler_edm_sample`). The schedule is the same host-side numpy plan; each step
+`euler_edm_sample`, `euler_edm_capture`). The schedule is the same host-side numpy plan; each step
 is one CFG-doubled UNet forward. Where the JAX sampler runs one jitted scan
 with `io_callback` ticks, this loop calls `progress_cb(step, total)` and polls
 `abort_event` after every step.
@@ -167,3 +167,27 @@ def euler_edm_sample(
         if abort_event is not None and abort_event.is_set():
             return None
     return x
+
+
+@torch.inference_mode()
+def euler_edm_capture(
+    network_fn: NetworkFn,
+    noise: torch.Tensor,
+    plan: SamplingPlan,
+    cond: ChunkConditioning,
+    num_frames: int,
+    step_noise: Callable[[int], torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`euler_edm_sample` that also stacks every step's network inputs:
+    returns (net_x (n, 2T, h, w, 4), t_vecs (n, 2T)). The static-W8A8
+    calibration (engine/runner.ensure_quant_calibrated) feeds them to the
+    UNet to observe the activations the serving loop will see."""
+    xs, ts = [], []
+
+    def recording(x, concat, t_vec, crossattn, dense, T):
+        xs.append(x)
+        ts.append(t_vec)
+        return network_fn(x, concat, t_vec, crossattn, dense, T)
+
+    euler_edm_sample(recording, noise, plan, cond, num_frames, step_noise)
+    return torch.stack(xs), torch.stack(ts)

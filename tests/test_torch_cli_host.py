@@ -203,7 +203,7 @@ def test_run_one_scene_defaults_match_jax():
 
 @pytest.mark.parametrize("flag,value,item", [
     ("mesh_view", 2, "item 4"), ("mesh_data", 2, "item 4"), ("mesh_model", 2, "item 4"),
-    ("platform", "cpu", "item 4"), ("quant", "w8a8", "item 5"),
+    ("platform", "cpu", "item 4"),
 ])
 def test_cli_refuses_what_is_not_ported(flag, value, item):
     from stable_virtual_camera_tpu_torch.apps import cli

@@ -1,6 +1,6 @@
 """The port's main path, its CLI, its fine-tuning path, its Advanced-mode
-path and its weight loading import no JAX, nothing of the JAX package, no
-`safetensors` and no image library.
+path, its weight loading, its W8A8 serving and its HTTP service import no
+JAX, nothing of the JAX package, no `safetensors` and no image library.
 
 The machine with the card has PyTorch but no JAX, no `safetensors` (so the
 port reads and writes the format itself) and no `imageio` (so the port
@@ -61,6 +61,9 @@ import stable_virtual_camera_tpu_torch.models.dust3r
 import stable_virtual_camera_tpu_torch.ops.layer_norm
 import stable_virtual_camera_tpu_torch.models.convert
 import stable_virtual_camera_tpu_torch.apps.convert_weights
+import stable_virtual_camera_tpu_torch.ops.quant
+import stable_virtual_camera_tpu_torch.models.common
+import stable_virtual_camera_tpu_torch.apps.server
 from stable_virtual_camera_tpu_torch.models.io import load_bundle, read_safetensors, save_converted
 print("imported")
 """
