@@ -105,10 +105,29 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      over HTTP whose frames must equal phase 8's run (c), a third job
      aborted while it runs, then a w8a8-static service, warmed, whose one
      job calibrates once, inside the job;
+ 21. `gui_path`, after `advanced_path`: the Gradio app (apps/gradio_app.py)
+     at full width on stand-in gradio and viser modules (the card's machine
+     has neither): (a) Basic preprocess and render with phase 7's arguments,
+     the first pass streamed before the second pass's first step, both
+     passes' progress reaching its total, the PNGs bit-equal to phase 7's
+     frames; (b) Advanced: three seeded 512x384 PNGs through the app's
+     DUSt3R preprocess, the scene view, the editor's orbit preset and "Set
+     camera trajectory", the render's frame count that trajectory's and its
+     PNGs bit-equal to HeadlessRenderer on it, which runs with the engine's
+     stage timer (JAX's stage names, each stage synchronized, the report
+     printed); (c) a Basic render in a thread aborted after its first
+     progress tick, ending within one step;
+     K1/K2 launches over (a) and (b), and the host time the app adds to the
+     renderer;
+ 22. `profile_trace`: utils/profiling.trace around one 42-frame forward,
+     utils/trace_analysis on the Chrome trace it wrote, K1's and K2's class
+     totals within 2% of torch.profiler's key_averages over the same window;
+ 23. `lpips`: models/lpips with synthetic weights on two of (a)'s frames,
+     fp32 on the card against the CPU score (1e-4 relative), ms per pair;
 then a `kernels` summary line and the final `ok` line.
 Every phase prints one JSON line. Cuts against a real render, the CLI, a
-real fine-tune, the Advanced mode and the released checkpoints are printed
-in phases 7, 8, 11, 15 and 17. Any failed phase exits
+real fine-tune, the Advanced mode, the released checkpoints and the GUI
+are printed in phases 7, 8, 11, 15, 17 and 21. Any failed phase exits
 non-zero without the final line; so does a machine with no CUDA device, or a
 directory without the port.
 """
@@ -119,8 +138,8 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -187,6 +206,12 @@ LN_REPEAT_WIDTH = 1280
 # Advanced mode: DUSt3R at 512x384, 500 alignment steps, render at 768x576
 ADV_W, ADV_H, ADV_IMAGES, ADV_SHORTER = 512, 384, 3, 576
 ALIGN_STEPS = 500
+# the GUI's Advanced render: the editor's orbit preset over this many seconds
+ADV_PRESET_S = 0.5
+# profile_trace: K1's and K2's device time in the trace against key_averages
+TRACE_CLASS_REL = 0.02
+# lpips: the card's fp32 score against the CPU's, and the pairs timed
+LPIPS_REL, LPIPS_REPS = 1e-4, 10
 # the synthetic alignment scene: 8 images of 384x512, every ordered pair
 SCENE_N, SCENE_H, SCENE_W = 8, 384, 512
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -808,7 +833,9 @@ def check_path_shapes(gen, recorded: dict) -> dict:
             for name, by_path in rows.items()}
 
 
-def run_main_path(bundle, shapes: dict) -> dict:
+def run_main_path(bundle, shapes: dict, out: dict) -> dict:
+    """The Basic render at full width; its uint8 anchors and frames go into
+    `out` (gui_path holds the app's render against them)."""
     import numpy as np
     import torch
 
@@ -840,6 +867,7 @@ def run_main_path(bundle, shapes: dict) -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     counts = _kernels.counts()
+    out.update(anchors=anchors, frames=frames)
 
     ok = (
         frames.dtype == np.uint8
@@ -1064,11 +1092,11 @@ def device_us(fn, launches: int) -> tuple[float, list[str]]:
     kernel record is taken again, up to twice; if the third is empty too
     (seen once, late in a whole run), CUDA events over `launches` calls
     give the time instead, and the classes say so."""
-    import math
-
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from stable_virtual_camera_tpu_torch.utils.trace_analysis import categorize
 
     fn()
     torch.cuda.synchronize()
@@ -1083,7 +1111,7 @@ def device_us(fn, launches: int) -> tuple[float, list[str]]:
             if e.device_type != DeviceType.CUDA or not e.count or not total:
                 continue
             us += total / e.count * math.ceil(e.count / launches)
-            classes.add(next((c for c, rx in _KERNEL_CLASSES if re.search(rx, e.key)), "other"))
+            classes.add(categorize(e.key))
         if us > 0:
             return us, sorted(classes)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2028,44 +2056,513 @@ def check_server_path(cli_frames: dict) -> dict:
     return counts
 
 
-_KERNEL_CLASSES = [
-    ("int8 GEMM (cuBLASLt)", r"(?i)(gemm|xmma|nvjet|cutlass).*(s8|i8|imma)|(s8|i8|imma).*gemm"),
-    ("K1 flash attention", r"flash_fwd_kernel"),
-    ("K1-dKV", r"flash_bwd_dkv_kernel"),
-    ("K1-dQ", r"flash_bwd_dq_kernel"),
-    ("K2 temporal attention", r"time_attn_kernel"),
-    ("K3 flash attention", r"flash_blhd_kernel"),
-    ("K4 flash attention", r"flash_packed_kernel"),
-    ("K5 layer norm", r"^void \(anonymous namespace\)::layer_norm_kernel<"),
-    ("convolution (cuDNN)", r"conv|Conv|cudnn|dgrad|wgrad|fprop|implicit"),
-    ("GEMM (cuBLAS)", r"gemm|Gemm|cutlass|xmma|nvjet|sm90_|sm80_"),
-    ("optimizer", r"multi_tensor|adam|Adam|foreach"),
-    ("reductions", r"reduce|Reduce|norm"),
-    ("elementwise and copies", r"elementwise|Elementwise|vectorized|CatArray|copy|fill|index|Memcpy|Memset"),
-]
+# ---------------------------------------------------------------------------
+# The GUI demo (apps/gradio_app.py) on stand-ins for gradio and viser, which
+# the card's machine does not have: the widget and scene surface the port's
+# apps/ui_manifest.py pins, recording events instead of serving a page
+# ---------------------------------------------------------------------------
 
 
-def device_time_by_class(fn, top: int = 0) -> dict:
-    """torch.profiler over one call of `fn` (which ends in a synchronize):
-    wall time, device time by kernel class (ms) and the idle share; with
-    `top`, the names (cut to 90 characters) and ms of the longest kernels."""
-    import torch  # noqa: F401
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+class _Widget:
+    """A gradio widget: its arguments, its value and the events wired to it."""
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def __init__(self, *args, **kw):
+        self.args, self.value, self.label = args, kw.get("value"), kw.get("label")
+        self.events: list[tuple] = []
+
+    def click(self, fn, inputs=None, outputs=None, **kw):
+        self.events.append((fn, list(inputs or []), list(outputs or [])))
+
+
+class _Blocks:
+    def __init__(self, *a, **kw):
+        self.loads: list[tuple] = []
+        self.unloads: list = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+    def load(self, fn, inputs=None, outputs=None, **kw):
+        self.loads.append((fn, list(inputs or []), list(outputs or [])))
+
+    def unload(self, fn, **kw):
+        self.unloads.append(fn)
+
+    def queue(self, **kw):
+        return self
+
+    def launch(self, **kw):
+        raise RuntimeError("the stand-in serves no page")
+
+
+class _Progress:
+    def __init__(self, *a, **kw):
+        self.descs: list[str] = []
+
+    def __call__(self, *a, desc: str = "", **kw):
+        self.descs.append(desc)
+
+
+class _Node:
+    """A viser scene node or GUI handle."""
+
+    def __init__(self, name, *args, **kw):
+        self.name, self.kw = name, kw
+        self.value = kw.get("initial_value")
+        self.visible, self.disabled = kw.get("visible", True), kw.get("disabled", False)
+        self.callbacks: list = []
+
+    def on_click(self, fn):
+        self.callbacks.append(fn)
+        return fn
+
+    on_update = on_click
+
+    def remove(self):
+        self.removed = True
+
+    def fire(self, event=None):
+        for fn in self.callbacks:
+            fn(event)
+
+
+class _Scene:
+    def __init__(self):
+        self.nodes: dict[str, _Node] = {}
+
+    def reset(self):
+        self.nodes.clear()
+
+    def _add(self, name, **kw):
+        self.nodes[name] = _Node(name, **kw)
+        return self.nodes[name]
+
+    add_camera_frustum = add_point_cloud = add_spline_catmull_rom = _add
+
+
+class _Gui:
+    def __init__(self):
+        self.widgets: list[_Node] = []
+
+    def _add(self, label, *args, **kw):
+        self.widgets.append(_Node(label, *args, **kw))
+        return self.widgets[-1]
+
+    add_button = add_checkbox = add_dropdown = add_number = add_slider = _add
+
+    def add_folder(self, label, **kw):
+        return contextlib.nullcontext()
+
+
+class _ViserServer:
+    def __init__(self, *a, **kw):
+        self.scene, self.gui = _Scene(), _Gui()
+
+    def get_host(self):
+        return "localhost"
+
+    def get_port(self):
+        return 8080
+
+    def get_clients(self):
+        return {}
+
+    def stop(self):
+        self.stopped = True
+
+
+@contextlib.contextmanager
+def ui_standins():
+    """`gradio` and `viser` stand-ins in sys.modules for the block; yields
+    the gradio one (its `widgets`, and `infos`, the gr.Info messages)."""
+    import types
+
+    gr = types.ModuleType("gradio")
+    gr.widgets, gr.infos = [], []
+
+    def factory(kind):
+        def make(*args, **kw):
+            w = _Widget(*args, **kw)
+            w.kind = kind
+            gr.widgets.append(w)
+            return w
+        return make
+
+    for kind in ("State", "HTML", "Number", "Dropdown", "Slider", "Button", "Image", "File", "Video"):
+        setattr(gr, kind, factory(kind))
+    gr.Blocks, gr.Tab, gr.Progress = _Blocks, _Blocks, _Progress
+    gr.Error = type("Error", (Exception,), {})
+    gr.Info = gr.infos.append
+    gr.Request = object
+    viser = types.ModuleType("viser")
+    viser.ViserServer = _ViserServer
+    viser.Icon = types.SimpleNamespace(PICK="pick", PLUS="plus", TRASH="trash", PLAYER_PLAY="play",
+                                       CAMERA_CHECK="camera-check", CHECK="check")
+    saved = {name: sys.modules.get(name) for name in ("gradio", "viser")}
+    sys.modules.update(gradio=gr, viser=viser)
+    try:
+        yield gr
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+
+
+def read_pngs(directory: str):
+    import numpy as np
+    import PIL.Image
+
+    names = sorted(n for n in os.listdir(directory) if n.endswith(".png"))
+    return np.stack([np.asarray(PIL.Image.open(os.path.join(directory, n)).convert("RGB")) for n in names])
+
+
+def run_gui_path(bundle, pipe, main_frames: dict, out: dict) -> dict:
+    """The Gradio app (build_app) at full width on the stand-ins: (a) Basic
+    preprocess and render with main_path's arguments, its PNGs bit-equal to
+    main_path's frames; (b) Advanced: DUSt3R preprocess, scene view, the
+    editor's orbit preset and "Set camera trajectory", the render's PNGs
+    bit-equal to HeadlessRenderer on that trajectory, run with the engine's
+    stage timer (its stages synchronized, its report printed); (c) a Basic render in
+    a thread aborted after its first progress tick. K1/K2 launches are
+    counted over the app's renders (a) and (b); the app's host time is each
+    handler's wall minus the renderer's (prepare + engine) wall."""
+    import threading
+    import types
+
+    import numpy as np
+    import PIL.Image
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps.renderer import HeadlessRenderer
+    from stable_virtual_camera_tpu_torch.utils.profiling import StageTimer
+
+    render_s, plans = [0.0], []
+
+    with ui_standins() as gr, tempfile.TemporaryDirectory() as tmp:
+        from stable_virtual_camera_tpu_torch.apps.gradio_app import build_app
+
+        renderer = HeadlessRenderer(bundle, work_dir=os.path.join(tmp, "renders"))
+        prepare, run = renderer.prepare, renderer.run
+
+        def timed_prepare(*a, **kw):
+            t0 = time.perf_counter()
+            plans.append(prepare(*a, **kw))
+            render_s[0] += time.perf_counter() - t0
+            return plans[-1]
+
+        def timed_run(*a, **kw):
+            gen = run(*a, **kw)
+            while True:
+                t0 = time.perf_counter()
+                item = next(gen, None)
+                torch.cuda.synchronize()
+                render_s[0] += time.perf_counter() - t0
+                if item is None:
+                    return
+                yield item
+
+        renderer.prepare, renderer.run = timed_prepare, timed_run
+        app = build_app(bundle, renderer=renderer, num_steps=NUM_STEPS, dust3r=pipe)
+        start_session, _, (session_w, html_w) = app.loads[0]
+        session_w.value, html_w.value = start_session(types.SimpleNamespace(session_hash="smoke"))
+        server = app.svc_sessions["servers"]["smoke"]
+
+        def widget(kind, label):
+            return next(w for w in gr.widgets if w.kind == kind and (w.label == label or w.args[:1] == (label,)))
+
+        def button(text, fn_name):
+            return next(w for w in gr.widgets if w.kind == "Button" and w.args[:1] == (text,)
+                        and w.events and w.events[0][0].__name__ == fn_name)
+
+        def press(btn):
+            fn, inputs, outputs = btn.events[0]
+            result = fn(*[w.value for w in inputs])
+            if outputs:
+                outputs[0].value = result
+            return result
+
+        def render(btn, progress):
+            """Drain a render handler: (yields, handler wall, second-pass
+            ticks seen at the first yield)."""
+            fn, inputs, _ = btn.events[0]
+            render_s[0], yields, second_at_first = 0.0, [], None
+            t0 = time.perf_counter()
+            for item in fn(*[w.value for w in inputs], progress=progress):
+                if not yields:
+                    second_at_first = sum(d.startswith("Second") for d in progress.descs)
+                yields.append(item)
+            return yields, time.perf_counter() - t0, second_at_first
+
+        def reached(progress, plan):
+            last = {p: [d for d in progress.descs if d.startswith(p)] for p in ("First", "Second")}
+            return all(ds and ds[-1].endswith(f" {n}/{n} steps") for ds, n in (
+                (last["First"], plan["first_pass_steps"]), (last["Second"], plan["second_pass_steps"])))
+
+        # (a) Basic, with main_path's arguments (orbit ignores the zoom widget)
+        widget("Image", "Input image").value = np.random.default_rng(SEED).integers(
+            0, 256, (RES, RES, 3), dtype=np.uint8)
+        widget("Number", "Seed").value = SEED
+        widget("Slider", "#frames").value = NUM_TARGETS
+        press(button("Preprocess", "do_preprocess_basic"))
+        editor_a = app.svc_sessions["gui_states"].get("smoke") is not None
+        prog_a = _Progress()
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        yields_a, handler_a, second_at_first_a = render(button("Render video", "do_render"), prog_a)
+        counts = _kernels.counts()
+        plan_a, render_a = plans[-1], render_s[0]
+        first, final = yields_a[-1]
+        anchors_png = read_pngs(os.path.join(os.path.dirname(first), "samples-rgb"))
+        frames_png = read_pngs(os.path.join(os.path.dirname(final), "samples-rgb"))
+        out["frames"] = frames_png
+        basic_ok = (
+            editor_a and len(yields_a) == 2 and yields_a[0] == (first, None) and second_at_first_a == 0
+            and reached(prog_a, plan_a)
+            and np.array_equal(anchors_png, main_frames["anchors"])
+            and np.array_equal(frames_png, main_frames["frames"])
+        )
+
+        # (b) Advanced: DUSt3R, scene view, the editor's orbit preset
+        paths, rng = [], np.random.default_rng(SEED)
+        for i in range(ADV_IMAGES):
+            paths.append(os.path.join(tmp, f"view{i}.png"))
+            PIL.Image.fromarray(rng.integers(0, 256, (ADV_H, ADV_W, 3), dtype=np.uint8)).save(paths[-1])
+        widget("File", "Input images").value = [types.SimpleNamespace(name=p) for p in paths]
+        n_widgets = len(server.gui.widgets)
         t0 = time.perf_counter()
-        fn()
-        wall = time.perf_counter() - t0
+        pre_b = press(button("Preprocess (DUSt3R)", "do_preprocess_advanced"))
+        preprocess_b = time.perf_counter() - t0
+        nodes = sorted(server.scene.nodes)
+        editor = server.gui.widgets[n_widgets:]  # the widgets of the editor this preprocess defined
+
+        def editor_widget(label, index=0):
+            return [w for w in editor if w.name == label][index]
+
+        editor_widget("Options").value = "orbit"
+        editor_widget("Duration (sec)").value = ADV_PRESET_S
+        editor_widget("Submit").fire()
+        editor_widget("Set camera trajectory").fire()
+        traj = app.svc_sessions["gui_states"]["smoke"].camera_traj_list
+        prog_b = _Progress()
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        yields_b, handler_b, second_at_first_b = render(button("Render video", "do_render_advanced"), prog_b)
+        counts = {k: counts[k] + v for k, v in _kernels.counts().items()}
+        plan_b, render_b = plans[-1], render_s[0]
+        first_b, final_b = yields_b[-1]
+        direct = HeadlessRenderer(bundle, work_dir=None)
+        direct_plan = direct.prepare(pre_b, seed=SEED, chunk_strategy="interp-gt", cfg=4.0, camera_scale=2.0,
+                                     num_steps=NUM_STEPS, camera_traj_list=traj)
+        # the reference render runs with the engine's stage timer: each stage
+        # ends in a device synchronize, and the frames must not change
+        timer = StageTimer()
+        anchors_b, frames_b = list(direct.run(direct_plan, timer=timer))
+        print("[engine timing] (the Advanced reference render)\n" + timer.report(), flush=True)
+        timing_ok = (
+            {"prepare_images", "first_pass_sample", "second_pass_sample", "final_save"} <= set(timer.totals)
+            and timer.counts["first_pass_sample"] == direct_plan["first_pass_chunks"]
+            and timer.counts["second_pass_sample"] == direct_plan["second_pass_chunks"]
+        )
+        frames_b_png = read_pngs(os.path.join(os.path.dirname(final_b), "samples-rgb"))
+        W, H = pre_b["input_wh"]
+        advanced_ok = (
+            (W, H) == (768, 576) and any(n.startswith("/scene_assets/cameras/") for n in nodes)
+            and "/scene_assets/points" in nodes and traj is not None
+            and len(frames_b_png) == len(traj) and second_at_first_b == 0 and reached(prog_b, plan_b)
+            and np.array_equal(read_pngs(os.path.join(os.path.dirname(first_b), "samples-rgb")), anchors_b)
+            and np.array_equal(frames_b_png, frames_b) and timing_ok
+        )
+
+        # (c) abort a Basic render after its first progress tick (the session's
+        # scene is the Advanced one now: preprocess the Basic image again)
+        press(button("Preprocess", "do_preprocess_basic"))
+        ticked, ticks_at_press = threading.Event(), []
+
+        class AbortProgress(_Progress):
+            def __call__(self, *a, desc: str = "", **kw):
+                super().__call__(desc=desc)
+                ticked.set()
+
+        prog_c, result = AbortProgress(), {}
+        fn, inputs, _ = button("Render video", "do_render").events[0]
+
+        def drain():
+            try:
+                result["yields"] = list(fn(*[w.value for w in inputs], progress=prog_c))
+            finally:
+                ticked.set()  # a render that fails before its first tick ends the wait too
+
+        infos_before = len(gr.infos)
+        worker = threading.Thread(target=drain)
+        t0 = time.perf_counter()
+        worker.start()
+        ticked.wait(timeout=300)
+        ticks_at_press.append(len(prog_c.descs))
+        t_press = time.perf_counter()
+        press(next(w for w in gr.widgets if w.kind == "Button" and w.args[:1] == ("Abort",)))
+        worker.join(timeout=300)
+        plan_c = plans[-1]
+        abort_ok = (
+            not worker.is_alive() and result.get("yields") == [] and ticks_at_press == [1]
+            and len(prog_c.descs) <= 2 < plan_c["first_pass_steps"] + plan_c["second_pass_steps"]
+            and gr.infos[infos_before:] == ["Render aborted."]
+        )
+        abort = {"ticks_at_press": ticks_at_press[0], "ticks": len(prog_c.descs),
+                 "steps_planned": plan_c["first_pass_steps"] + plan_c["second_pass_steps"],
+                 "press_to_end_s": time.perf_counter() - t_press, "render_s": time.perf_counter() - t0}
+
+    ok = basic_ok and advanced_ok and abort_ok and counts["flash_attention"] > 0 and counts["time_attention"] > 0
+    emit({"phase": "gui_path", "ok": ok, "basic_ok": basic_ok, "advanced_ok": advanced_ok,
+          "abort_ok": abort_ok, "launches": counts,
+          "basic": {"handler_s": handler_a, "render_s": render_a, "app_host_s": handler_a - render_a,
+                    "first_pass_chunks": plan_a["first_pass_chunks"],
+                    "second_pass_chunks": plan_a["second_pass_chunks"],
+                    "second_pass_ticks_at_first_yield": second_at_first_a,
+                    "frames_equal_main_path": bool(np.array_equal(frames_png, main_frames["frames"]))},
+          "advanced": {"input_wh": [W, H], "preprocess_s": preprocess_b, "scene_nodes": len(nodes),
+                       "trajectory_frames": len(traj or []), "handler_s": handler_b, "render_s": render_b,
+                       "app_host_s": handler_b - render_b, "first_pass_chunks": plan_b["first_pass_chunks"],
+                       "second_pass_chunks": plan_b["second_pass_chunks"],
+                       "frames_equal_renderer": bool(np.array_equal(frames_b_png, frames_b)),
+                       "engine_timing_ok": timing_ok,
+                       "engine_timing_s": {k: [v, timer.counts[k]] for k, v in timer.totals.items()}},
+          "abort": abort,
+          "host_time": "app_host_s is host time: the handler's wall minus the renderer's "
+                       "(prepare + engine, each engine yield synchronized) wall",
+          "cuts": {"num_steps": f"{NUM_STEPS} (the app's default 50)",
+                   "basic_frames": f"{NUM_TARGETS} (the #frames widget's default 80)",
+                   "advanced": f"{ADV_IMAGES} seeded {ADV_W}x{ADV_H} PNGs, the editor's orbit preset "
+                               f"over {ADV_PRESET_S} s",
+                   "ui": "gradio and viser stand-ins (the packages are absent): events are called, "
+                         "no page is served"}})
+    if not ok:
+        raise AssertionError("the GUI's renders, streaming, progress, abort or launch counts are wrong")
+    return counts
+
+
+def check_profile_trace(bundle, upstream: dict) -> None:
+    """utils/profiling.trace around one full-width 42-frame UNet forward,
+    then utils/trace_analysis on the trace it wrote; K1's and K2's class
+    totals held to torch.profiler's key_averages over the same window."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.utils import profiling, trace_analysis
+
+    x, t_idx, ctx, dense = upstream["inputs"]
+
+    def forward():
+        with torch.inference_mode():
+            bundle.unet(x, t_idx, ctx, dense, T)
+        torch.cuda.synchronize()
+
+    forward()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp) as prof:
+            with profiling.annotate("unet_forward"):
+                forward()
+        traced_s = time.perf_counter() - t0
+        by_trace = trace_analysis.class_totals(tmp)
+        events = trace_analysis.load_trace(tmp)
+        device = trace_analysis.device_events(events)
+        pids = {e["pid"] for e in device}
+        gpu_process = [{e["name"]: e.get("args")} for e in events
+                       if e.get("ph") == "M" and e.get("pid") in pids and e.get("name", "").startswith("process")]
+        n_events = len(device)
+        summary = trace_analysis.summarize(tmp, top=5)
+        top = trace_analysis.top_fusion_details(tmp, top=3)
+    _, by_name = profiler_classes(prof)
+    by_name.pop("unet_forward", None)  # the annotation's range, not a kernel
+    by_prof, longest = {}, {}
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        cls = trace_analysis.categorize(name)
+        by_prof[cls] = by_prof.get(cls, 0.0) + ms
+        longest.setdefault(cls, name[:240])
+    rel = {}
+    for cls in ("K1 flash attention", "K2 temporal attention"):
+        a, b = by_trace.get(cls, 0.0), by_prof.get(cls, 0.0)
+        rel[cls] = abs(a - b) / b if b else None
+    ok = all(r is not None and r <= TRACE_CLASS_REL for r in rel.values())
+    emit({"phase": "profile_trace", "ok": ok, "device_events": n_events, "gpu_process": gpu_process,
+          "traced_wall_s": traced_s,
+          "trace_ms_by_class": by_trace, "key_averages_ms_by_class": by_prof, "k1_k2_rel": rel,
+          "bar": TRACE_CLASS_REL, "longest_kernel_by_class": longest,
+          "summarize": summary.splitlines(), "top_fusion_details": top.splitlines()})
+    if not ok:
+        raise AssertionError("the trace's K1/K2 class totals disagree with torch.profiler's")
+
+
+def check_lpips(frames) -> None:
+    """models/lpips on two 576x576 frames of the GUI's render, synthetic
+    weights, fp32 on the card (TF32 off) against the CPU score."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.models.lpips import lpips_apply_fn, synthetic_lpips_params
+
+    a, b = (f.astype("float32") / 255.0 for f in frames[:2])
+    params = synthetic_lpips_params(seed=SEED)
+    card = lpips_apply_fn(params, device=DEVICE)
+    score = card(a, b)  # warm-up (cuDNN algorithm selection)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LPIPS_REPS):
+        score = card(a, b)  # float() waits for the device
+    ms = (time.perf_counter() - t0) * 1e3 / LPIPS_REPS
+    t0 = time.perf_counter()
+    cpu_score = lpips_apply_fn(params, device="cpu")(a, b)
+    cpu_s = time.perf_counter() - t0
+    rel = abs(score - cpu_score) / abs(cpu_score)
+    # random heads may be negative, so the score's sign is not checked
+    ok = math.isfinite(score) and score != 0.0 and rel <= LPIPS_REL
+    emit({"phase": "lpips", "ok": ok, "score": score, "cpu_score": cpu_score, "rel": rel, "bar": LPIPS_REL,
+          "ms_per_pair": ms, "cpu_s_per_pair": cpu_s, "image_hw": list(frames.shape[1:3]),
+          "weights": f"synthetic (flax-default init, seed {SEED}), fp32; TF32 off",
+          "timing": f"host clock over {LPIPS_REPS} pairs after one warm-up, each pair copied to the "
+                    "card and its score read back"})
+    if not ok:
+        raise AssertionError("LPIPS on the card disagrees with the CPU")
+
+
+def profiler_classes(prof) -> tuple[dict[str, float], dict[str, float]]:
+    """(device ms by kernel class, device ms by kernel name) from a
+    torch.profiler window's key_averages, classed by
+    utils/trace_analysis.categorize."""
+    from torch.autograd import DeviceType
+
+    from stable_virtual_camera_tpu_torch.utils.trace_analysis import categorize
+
     classes: dict[str, float] = {}
     kernels: dict[str, float] = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-        cls = next((c for c, rx in _KERNEL_CLASSES if re.search(rx, e.key)), "other")
+        cls = categorize(e.key)
         classes[cls] = classes.get(cls, 0.0) + us / 1e3
-        kernels[e.key[:90]] = kernels.get(e.key[:90], 0.0) + us / 1e3
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    return classes, kernels
+
+
+def device_time_by_class(fn, top: int = 0) -> dict:
+    """torch.profiler over one call of `fn` (which ends in a synchronize):
+    wall time, device time by kernel class (ms) and the idle share; with
+    `top`, the names (cut to 90 characters) and ms of the longest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    classes, by_name = profiler_classes(prof)
+    kernels: dict[str, float] = {}
+    for name, ms in by_name.items():
+        kernels[name[:90]] = kernels.get(name[:90], 0.0) + ms
     busy = sum(classes.values())
     out = {"wall_s": wall, "device_busy_ms": busy,
            "idle_share": (1 - busy / (wall * 1e3)) if busy else "not measured",
@@ -2092,7 +2589,7 @@ def profile_train_step(bundle, gen) -> None:
         step(batch, draw)
         torch.cuda.synchronize()
 
-    prof = device_time_by_class(one_step)
+    prof = device_time_by_class(one_step, top=12)
     emit({"phase": "train_profile", "ok": True, "step_wall_s": prof.pop("wall_s"), **prof})
 
 
@@ -2116,8 +2613,6 @@ def orbit_scene(n: int = 24):
 def run_train_path(bundle) -> dict:
     """The train CLI's loop at full width on the card, then one LoRA step;
     each run's checkpoint restored and held against the live state."""
-    import math
-
     import torch
 
     from stable_virtual_camera_tpu_torch import _kernels
@@ -2243,8 +2738,8 @@ def main() -> int:
             traceback.print_exc()
             failures.append(key)
 
-    counts: dict[str, dict] = {"render": {}, "advanced": {}, "cli": {}, "checkpoint": {}, "train": {},
-                               "k5": {}, "quant_w8a8": {}, "quant_static": {}, "server": {},
+    counts: dict[str, dict] = {"render": {}, "advanced": {}, "gui": {}, "cli": {}, "checkpoint": {},
+                               "train": {}, "k5": {}, "quant_w8a8": {}, "quant_static": {}, "server": {},
                                "server_static": {}}
     try:
         k5 = check_k5_layer_norm(gen)
@@ -2267,6 +2762,8 @@ def main() -> int:
     upstream: dict = {}
     recorded: dict[str, dict] = {"render": {}, "advanced": {}}
     cli_frames: dict = {}
+    main_frames: dict = {}
+    gui_frames: dict = {}
     try:
         t0 = time.perf_counter()
         bundle = random_bundle(SevaSpec(), ClipVisionSpec(), dtype=torch.bfloat16, device=DEVICE,
@@ -2277,8 +2774,11 @@ def main() -> int:
         for key, fn in (("unet_forward", lambda: upstream.update(check_unet(bundle, gen))),
                         ("unet_forward_backends", lambda: check_unet_backends(bundle, upstream)),
                         ("f1_fp32_routes", lambda: check_fp32_routes(bundle, upstream)),
-                        ("main_path", lambda: run_main_path(bundle, recorded["render"])),
+                        ("main_path", lambda: run_main_path(bundle, recorded["render"], main_frames)),
                         ("advanced_path", lambda: run_advanced_path(bundle, pipe, recorded["advanced"])),
+                        ("gui_path", lambda: run_gui_path(bundle, pipe, main_frames, gui_frames)),
+                        ("profile_trace", lambda: check_profile_trace(bundle, upstream)),
+                        ("lpips", lambda: check_lpips(gui_frames["frames"])),
                         ("k1_k2_path_shapes", lambda: check_path_shapes(gen, recorded)),
                         ("cli_path", lambda: run_cli_path(cli_frames)),
                         ("checkpoint_path",
@@ -2295,6 +2795,8 @@ def main() -> int:
                     counts["render"] = out
                 elif key == "advanced_path":
                     counts["advanced"] = out
+                elif key == "gui_path":
+                    counts["gui"] = out
                     pipe = None  # free the DUSt3R weights
                 elif key == "k1_k2_path_shapes":
                     for kernel, by_path in out.items():
@@ -2362,6 +2864,7 @@ def main() -> int:
     missing = [f"{k}@{path}" for path, ks in (
                    ("render", ("flash_attention", "time_attention")),
                    ("advanced", ("flash_attention", "time_attention")),
+                   ("gui", ("flash_attention", "time_attention")),
                    ("k5", ("layer_norm",)),
                    ("cli", ("flash_attention", "time_attention", "flash_attention_blhd",
                             "flash_attention_packed")),

@@ -21,7 +21,10 @@ self-attention backend ("upstream", kernel K1; "flash", kernel K3;
 which takes the place of the JAX package's SVC_UPSTREAM_FLASH /
 SVC_PACKED_ATTENTION environment knobs. Left unset it is "upstream",
 except for the tiny fp32 bundle on the card: the kernels take bf16 only,
-so that one runs "plain" (models/io.attention_backend).
+so that one runs "plain" (models/io.attention_backend). --engine_timing
+True prints each scene's engine stages (utils/profiling.StageTimer, each
+stage closed by a device synchronize), which takes the place of the JAX
+package's SVC_ENGINE_TIMING.
 
 Invocation (fire-style `--key value` or `--key=value` flags):
   python -m stable_virtual_camera_tpu_torch.apps.cli --data_path ... --task img2img
@@ -56,6 +59,7 @@ from stable_virtual_camera_tpu_torch.engine.runner import SceneEngine
 from stable_virtual_camera_tpu_torch.engine.saving import create_transforms_simple
 from stable_virtual_camera_tpu_torch.ops.quant import serving_mode
 from stable_virtual_camera_tpu_torch.sampling.sampler import torch_noise
+from stable_virtual_camera_tpu_torch.utils.profiling import StageTimer
 
 WORK_DIR = "work_dirs/demo"
 
@@ -280,6 +284,7 @@ def main(
     quant=None,
     device="cuda",
     attention=None,
+    engine_timing=False,
     **overwrite_options,
 ):
     """Render every scene under `data_path` (or the `data_items` among
@@ -323,10 +328,13 @@ def main(
         if options.get("skip_saved", False) and osp.exists(osp.join(save_path_scene, "transforms.json")):
             print(f"Skipping {scene} as it is already sampled.")
             continue
+        timer = StageTimer() if engine_timing else None
         render_one_scene(
             bundle, version, options, task, scene, save_path_scene,
-            use_traj_prior=use_traj_prior, seed=seed, num_inputs=num_inputs,
+            use_traj_prior=use_traj_prior, seed=seed, num_inputs=num_inputs, timer=timer,
         )
+        if timer is not None:
+            print("[engine timing]\n" + timer.report())
         print(f"[cli] scene done: {save_path_scene}")
         done.append(save_path_scene)
     return done
@@ -347,10 +355,12 @@ def render_one_scene(
     first_pass_pbar=None,
     second_pass_pbar=None,
     noise_fn=torch_noise,
+    timer=None,
 ):
     """Render ONE scene end-to-end: parse_task -> SceneEngine.run_one_scene ->
     OpenCV -> OpenGL transforms.json export (reference demo.py:274-404 loop
-    body). `noise_fn` is the engine's (sampling/sampler.py). Returns
+    body). `noise_fn` is the engine's (sampling/sampler.py); `timer`
+    (utils/profiling.StageTimer) times the engine's stages. Returns
     save_path_scene, or None when aborted."""
     (
         all_imgs_path,
@@ -387,6 +397,7 @@ def render_one_scene(
         abort_event=abort_event,
         first_pass_pbar=first_pass_pbar,
         second_pass_pbar=second_pass_pbar,
+        timer=timer,
     ):
         if abort_event is not None and abort_event.is_set():
             return None

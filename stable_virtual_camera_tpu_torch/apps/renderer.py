@@ -209,8 +209,10 @@ class HeadlessRenderer:
             "second_pass_chunks": second_chunks,
         }
 
-    def run(self, plan: dict, abort_event=None, first_pass_pbar=None, second_pass_pbar=None):
-        """Execute a prepared plan; returns the engine's generator."""
+    def run(self, plan: dict, abort_event=None, first_pass_pbar=None, second_pass_pbar=None,
+            timer=None):
+        """Execute a prepared plan; returns the engine's generator. `timer`
+        (utils/profiling.StageTimer) times the engine's stages."""
         render_dir = None
         if self.work_dir is not None:
             render_dir = osp.join(self.work_dir, datetime.now().strftime("%Y%m%d_%H%M%S"))
@@ -227,6 +229,7 @@ class HeadlessRenderer:
             abort_event=abort_event,
             first_pass_pbar=first_pass_pbar,
             second_pass_pbar=second_pass_pbar,
+            timer=timer,
         )
 
     def render(self, preprocessed: dict, abort_event=None, first_pass_pbar=None,

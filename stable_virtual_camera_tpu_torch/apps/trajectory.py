@@ -1,12 +1,12 @@
 """Keyframe camera-trajectory core of the GUI's Advanced mode, without a GUI.
 
-A copy of `Keyframe`, `get_intrinsics` and `CameraTrajectoryCore` from
-stable_virtual_camera_tpu/apps/trajectory.py (numpy): keyframes with
-per-keyframe FOV and transition overrides, Kochanek-Bartels splines for
-position, orientation and FOV, PCHIP time parameterization, and the
+A copy of stable_virtual_camera_tpu/apps/trajectory.py (numpy): keyframes
+with per-keyframe FOV and transition overrides, Kochanek-Bartels splines
+for position, orientation and FOV, PCHIP time parameterization, the
 `camera_traj_list` ({w2c, K, img_wh} per frame) that
-`apps/renderer.HeadlessRenderer.prepare` takes. The viser preview classes
-of the JAX module belong to the GUI and are not here.
+`apps/renderer.HeadlessRenderer.prepare` takes, and the render-preview
+state machine (`SavedCamera`, `PreviewCamera`, `RenderPreviewController`)
+whose states the viser editor (apps/viser_gui.py) applies to its clients.
 """
 
 from __future__ import annotations
@@ -212,3 +212,59 @@ class CameraTrajectoryCore:
         kf.override_transition_enabled = enabled
         if transition_sec is not None:
             kf.override_transition_sec = transition_sec
+
+
+@dataclasses.dataclass
+class SavedCamera:
+    """A client camera state captured before the preview takeover."""
+
+    wxyz: np.ndarray
+    position: np.ndarray
+    fov_rad: float
+
+
+@dataclasses.dataclass
+class PreviewCamera:
+    """What the client cameras should be set to while previewing."""
+
+    c2w: np.ndarray
+    fov_rad: float
+    aspect: float
+
+
+class RenderPreviewController:
+    """Render-preview camera takeover (reference seva/gui.py:742-813):
+    entering preview saves every connected client's camera and drives them
+    along the trajectory with the render FOV/aspect locked; exiting restores
+    the saved cameras. Pure state machine — the viser shell applies the
+    returned states to real clients."""
+
+    def __init__(self, core: CameraTrajectoryCore):
+        self.core = core
+        self.preview_on = False
+        self._saved: dict[int, SavedCamera] = {}
+
+    def frame(self, normalized_t: float) -> PreviewCamera | None:
+        result = self.core.interpolate_pose_and_fov_rad(normalized_t)
+        if result is None:
+            return None
+        c2w, fov = result
+        return PreviewCamera(c2w=c2w, fov_rad=fov, aspect=self.core.get_aspect())
+
+    def enter(
+        self, client_cameras: dict[int, SavedCamera], normalized_t: float = 0.0
+    ) -> PreviewCamera | None:
+        """Save client cameras; returns the first preview frame (None and
+        no-op with <2 keyframes)."""
+        preview = self.frame(normalized_t)
+        if preview is None:
+            return None
+        self._saved = dict(client_cameras)
+        self.preview_on = True
+        return preview
+
+    def exit(self) -> dict[int, SavedCamera]:
+        """Returns the saved cameras for the shell to restore."""
+        self.preview_on = False
+        saved, self._saved = self._saved, {}
+        return saved

@@ -24,6 +24,7 @@ conditioning (`ensure_quant_calibrated`), as JAX's
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import os.path as osp
@@ -65,6 +66,7 @@ from stable_virtual_camera_tpu_torch.sampling.sampler import (
     make_sampling_plan,
     torch_noise,
 )
+from stable_virtual_camera_tpu_torch.utils.profiling import StageTimer
 
 
 def _device(module: torch.nn.Module) -> torch.device:
@@ -326,6 +328,23 @@ def _cfg_at(cfg, i: int) -> float:
     return float(cfg)
 
 
+def _stages(timer: StageTimer | None, device: torch.device):
+    """`timer.stage`, each stage ending in a synchronize of `device` when it
+    is a card, so that its time holds its device work; without a timer, a
+    stage that does nothing."""
+    if timer is None:
+        return lambda name: contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def stage(name: str):
+        with timer.stage(name):
+            yield
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+    return stage
+
+
 class SceneEngine:
     """Runs `run_one_scene` over a ModelBundle. The options are copied, so a
     run never sees later changes to the caller's object (engine/prior.py
@@ -440,6 +459,7 @@ class SceneEngine:
         abort_event=None,
         first_pass_pbar: Callable | None = None,
         second_pass_pbar: Callable | None = None,
+        timer: StageTimer | None = None,
     ) -> Iterator[str | np.ndarray]:
         """Render a scene. With `use_traj_prior`, two passes: anchors first,
         then every target conditioned on inputs and anchors. Without it (the
@@ -447,8 +467,11 @@ class SceneEngine:
         conditioned on the inputs and the targets generated so far. Yields
         after a saved first pass and at the end: file paths with a
         `save_path`, else the uint8 frames (anchors, then all targets in
-        order)."""
+        order). With a `timer` (utils/profiling.StageTimer), the render's
+        stages are timed under the JAX engine's stage names, each closed by
+        a device synchronize; without one nothing is added to the path."""
         options, version, bundle = self.options, self.version, self.bundle
+        stage = _stages(timer, bundle.device)
         T = version.T
         F = version.f
         noise = partial(self.noise_fn, seed)
@@ -457,7 +480,8 @@ class SceneEngine:
 
         camera_cond = dict(camera_cond)
         camera_cond["K"] = [np.asarray(k) for k in camera_cond["K"]]
-        imgs, imgs_clip, img_size = self._prepare_images(image_cond, camera_cond)
+        with stage("prepare_images"):
+            imgs, imgs_clip, img_size = self._prepare_images(image_cond, camera_cond)
         camera_cond["K"] = np.stack(camera_cond["K"]).astype(np.float32)
         all_c2ws = np.asarray(camera_cond["c2w"], np.float32)
         if traj_prior_Ks is not None:
@@ -578,48 +602,53 @@ class SceneEngine:
                 zip(plan1.input_inds_per_chunk, plan1.input_sels_per_chunk,
                     plan1.test_inds_per_chunk, plan1.test_sels_per_chunk)
             ):
-                curr_input_sels, _, curr_input_maps, curr_prior_maps = planner.pad_indices(
-                    c_in_sels, c_pri_sels, T=T_first,
-                    padding_mode=options.get("t_padding_mode", "last"),
-                )
-                gen = get_k_from_dict(all_samples, "samples-rgb")
-                pool_imgs = np.concatenate([input_imgs, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
-                pool_clip = np.concatenate([input_imgs_clip, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
-                pool_c2ws = np.concatenate([input_c2ws, traj_prior_c2ws[all_prior_inds]], 0)
-                pool_Ks = np.concatenate([input_Ks, traj_prior_Ks[all_prior_inds]], 0)
-                curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
-                    planner.assemble(input=x[c_in_inds], test=y[c_pri_inds],
-                                     input_maps=curr_input_maps, test_maps=curr_prior_maps)
-                    for x, y in zip(
-                        [pool_imgs, pool_clip, pool_c2ws, pool_Ks],
-                        [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
+                with stage("first_pass_build"):
+                    curr_input_sels, _, curr_input_maps, curr_prior_maps = planner.pad_indices(
+                        c_in_sels, c_pri_sels, T=T_first,
+                        padding_mode=options.get("t_padding_mode", "last"),
                     )
-                ]
-                values = chunk_values_for(
-                    curr_imgs, curr_imgs_clip, curr_input_sels, curr_c2ws, curr_Ks, list(range(T_first))
-                )
+                    gen = get_k_from_dict(all_samples, "samples-rgb")
+                    pool_imgs = np.concatenate([input_imgs, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
+                    pool_clip = np.concatenate([input_imgs_clip, gen.reshape((-1,) + input_imgs.shape[1:])], 0)
+                    pool_c2ws = np.concatenate([input_c2ws, traj_prior_c2ws[all_prior_inds]], 0)
+                    pool_Ks = np.concatenate([input_Ks, traj_prior_Ks[all_prior_inds]], 0)
+                    curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
+                        planner.assemble(input=x[c_in_inds], test=y[c_pri_inds],
+                                         input_maps=curr_input_maps, test_maps=curr_prior_maps)
+                        for x, y in zip(
+                            [pool_imgs, pool_clip, pool_c2ws, pool_Ks],
+                            [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
+                        )
+                    ]
+                    values = chunk_values_for(
+                        curr_imgs, curr_imgs_clip, curr_input_sels, curr_c2ws, curr_Ks, list(range(T_first))
+                    )
                 use_second_sampler = (
                     len(guiders) > 1 and options.get("ltr_first_pass", False)
                     and strategy1 != "gt" and i > 0
                 )
-                samples = sample_chunk(
-                    bundle, values, num_steps=num_steps, cfg=_cfg_at(cfg_opt, 0),
-                    guider_type=guiders[1] if use_second_sampler else guiders[0],
-                    cfg_min=cfg_min, noise_fn=noise, pass_id=1, chunk_id=i,
-                    encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
-                    abort_event=abort_event, progress_cb=first_pass_pbar,
-                )
+                with stage("first_pass_sample"):
+                    samples = sample_chunk(
+                        bundle, values, num_steps=num_steps, cfg=_cfg_at(cfg_opt, 0),
+                        guider_type=guiders[1] if use_second_sampler else guiders[0],
+                        cfg_min=cfg_min, noise_fn=noise, pass_id=1, chunk_id=i,
+                        encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
+                        abort_event=abort_event, progress_cb=first_pass_pbar,
+                    )
                 if samples is None:
                     return
-                extend_dict(all_samples, decode_output(samples, T_first, c_pri_sels))
+                with stage("first_pass_decode_extend"):
+                    extend_dict(all_samples, decode_output(samples, T_first, c_pri_sels))
                 all_prior_inds.extend(c_pri_inds)
 
             if options.get("save_first_pass", True):
-                if save_path is None:
-                    yield to_uint8(get_k_from_dict(all_samples, "samples-rgb"))
-                else:
-                    save_output(all_samples, save_path=osp.join(save_path, "first-pass"), video_save_fps=5)
-                    yield osp.join(save_path, "first-pass", "samples-rgb.mp4")
+                with stage("first_pass_save"):
+                    if save_path is None:
+                        first_pass = to_uint8(get_k_from_dict(all_samples, "samples-rgb"))
+                    else:
+                        save_output(all_samples, save_path=osp.join(save_path, "first-pass"), video_save_fps=5)
+                        first_pass = osp.join(save_path, "first-pass", "samples-rgb.mp4")
+                yield first_pass
 
             # ------------- second pass: interpolate all targets -------------
             prior_indices = image_cond["prior_indices"]
@@ -659,11 +688,12 @@ class SceneEngine:
             test_indices2 = [test_indices[j] for j in keep]
             test_imgs2, test_imgs_clip2 = test_imgs[keep], test_imgs_clip[keep]
             test_c2ws2, test_Ks2 = test_c2ws[keep], test_Ks[keep]
-            plan2 = planner.chunk_input_and_test(
-                T_second, traj_prior_c2ws, test_c2ws2, prior_indices, test_indices2,
-                options=options, task=task, chunk_strategy=strategy2,
-                gt_input_inds=gt_input_inds,
-            )
+            with stage("second_pass_plan"):
+                plan2 = planner.chunk_input_and_test(
+                    T_second, traj_prior_c2ws, test_c2ws2, prior_indices, test_indices2,
+                    options=options, task=task, chunk_strategy=strategy2,
+                    gt_input_inds=gt_input_inds,
+                )
             print(
                 f"Two passes (second) - chunking with `{strategy2}` strategy: total "
                 f"{len(plan2.input_inds_per_chunk)} forward(s) ..."
@@ -676,36 +706,39 @@ class SceneEngine:
                 zip(plan2.input_inds_per_chunk, plan2.input_sels_per_chunk,
                     plan2.test_inds_per_chunk, plan2.test_sels_per_chunk)
             ):
-                curr_prior_sels, _, curr_prior_maps, curr_test_maps = planner.pad_indices(
-                    c_pri_sels, c_test_sels, T=T_second, padding_mode="last"
-                )
-                curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
-                    planner.assemble(input=x[c_pri_inds], test=y[c_test_inds],
-                                     input_maps=curr_prior_maps, test_maps=curr_test_maps)
-                    for x, y in zip(
-                        [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
-                        [test_imgs2, test_imgs_clip2, test_c2ws2, test_Ks2],
+                with stage("second_pass_build"):
+                    curr_prior_sels, _, curr_prior_maps, curr_test_maps = planner.pad_indices(
+                        c_pri_sels, c_test_sels, T=T_second, padding_mode="last"
                     )
-                ]
-                values = chunk_values_for(
-                    curr_imgs, curr_imgs_clip, curr_prior_sels, curr_c2ws, curr_Ks, list(range(T_second))
-                )
-                samples = sample_chunk(
-                    bundle, values, num_steps=num_steps, cfg=cfg2, guider_type=guider2,
-                    cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
-                    encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
-                    abort_event=abort_event, progress_cb=second_pass_pbar, output_uint8=True,
-                )
+                    curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
+                        planner.assemble(input=x[c_pri_inds], test=y[c_test_inds],
+                                         input_maps=curr_prior_maps, test_maps=curr_test_maps)
+                        for x, y in zip(
+                            [traj_prior_imgs, traj_prior_imgs_clip, traj_prior_c2ws, traj_prior_Ks],
+                            [test_imgs2, test_imgs_clip2, test_c2ws2, test_Ks2],
+                        )
+                    ]
+                    values = chunk_values_for(
+                        curr_imgs, curr_imgs_clip, curr_prior_sels, curr_c2ws, curr_Ks, list(range(T_second))
+                    )
+                with stage("second_pass_sample"):
+                    samples = sample_chunk(
+                        bundle, values, num_steps=num_steps, cfg=cfg2, guider_type=guider2,
+                        cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
+                        encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
+                        abort_event=abort_event, progress_cb=second_pass_pbar, output_uint8=True,
+                    )
                 if samples is None:
                     return
-                samples = decode_output(samples, T_second, c_test_sels)
-                if save_path is not None and options.get("save_second_pass", False):
-                    save_output(
-                        replace_or_include_input_for_dict(samples, c_test_sels, curr_imgs, curr_c2ws, curr_Ks),
-                        save_path=osp.join(save_path, "second-pass", f"forward_{i}"),
-                        video_save_fps=2,
-                    )
-                extend_dict(all_samples, samples)
+                with stage("second_pass_flush"):
+                    samples = decode_output(samples, T_second, c_test_sels)
+                    if save_path is not None and options.get("save_second_pass", False):
+                        save_output(
+                            replace_or_include_input_for_dict(samples, c_test_sels, curr_imgs, curr_c2ws, curr_Ks),
+                            save_path=osp.join(save_path, "second-pass", f"forward_{i}"),
+                            video_save_fps=2,
+                        )
+                    extend_dict(all_samples, samples)
                 all_test_inds.extend(keep[k] for k in c_test_inds)
             if delivered:
                 rows = [r for _, r in delivered]
@@ -714,13 +747,15 @@ class SceneEngine:
             order = np.argsort(all_test_inds, kind="stable")
             all_samples = {key: value[order] for key, value in all_samples.items()}
 
-        if options.get("replace_or_include_input", False):
-            all_samples = replace_or_include_input_for_dict(
-                all_samples, test_indices, imgs.copy(),
-                np.asarray(camera_cond["c2w"]).copy(), camera_cond["K"].copy(),
-            )
-        if save_path is None:
-            yield to_uint8(all_samples["samples-rgb/image"])
-            return
-        save_output(all_samples, save_path=save_path, video_save_fps=options.get("video_save_fps", 2))
-        yield osp.join(save_path, "samples-rgb.mp4")
+        with stage("final_save"):
+            if options.get("replace_or_include_input", False):
+                all_samples = replace_or_include_input_for_dict(
+                    all_samples, test_indices, imgs.copy(),
+                    np.asarray(camera_cond["c2w"]).copy(), camera_cond["K"].copy(),
+                )
+            if save_path is None:
+                final = to_uint8(all_samples["samples-rgb/image"])
+            else:
+                save_output(all_samples, save_path=save_path, video_save_fps=options.get("video_save_fps", 2))
+                final = osp.join(save_path, "samples-rgb.mp4")
+        yield final

@@ -2,10 +2,10 @@
 helpers.
 
 Counterpart of stable_virtual_camera_tpu/engine/saving.py. The helpers are
-the same numpy code; the writers import OpenCV (mp4 and PNG) only when
-called, so the engine runs, and keeps its frames in memory, on a machine
-without it. PNGs are lossless, so OpenCV's files decode to the same pixels
-as the JAX package's imageio ones.
+the same numpy code; the writers (mp4 through utils/video.py, and PNG)
+import OpenCV only when called, so the engine runs, and keeps its frames in
+memory, on a machine without it. PNGs are lossless, so OpenCV's files
+decode to the same pixels as the JAX package's imageio ones.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import os.path as osp
 
 import numpy as np
 
+from stable_virtual_camera_tpu_torch.utils.video import write_video
+
 
 def to_uint8(value: np.ndarray) -> np.ndarray:
     """(N, H, W, 3) [-1, 1] float -> uint8; uint8 frames pass through."""
@@ -24,21 +26,6 @@ def to_uint8(value: np.ndarray) -> np.ndarray:
         return value
     v = (value.astype(np.float32) + 1.0) / 2.0
     return np.clip(v * 255.0, 0, 255).astype(np.uint8)
-
-
-def write_video(path: str, frames: np.ndarray, fps: float) -> None:
-    """(N, H, W, 3) uint8 RGB frames -> mp4 through OpenCV, as
-    stable_virtual_camera_tpu/utils/video.py writes them."""
-    import cv2
-
-    assert frames.ndim == 4 and frames.shape[-1] == 3, frames.shape
-    h, w = frames.shape[1:3]
-    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), max(float(fps), 1.0), (w, h))
-    if not writer.isOpened():
-        raise IOError(f"Could not open video writer for {path}")
-    for frame in frames:
-        writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
-    writer.release()
 
 
 def write_png(path: str, frame: np.ndarray) -> None:

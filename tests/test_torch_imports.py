@@ -1,11 +1,13 @@
 """The port's main path, its CLI, its fine-tuning path, its Advanced-mode
-path, its weight loading, its W8A8 serving and its HTTP service import no
-JAX, nothing of the JAX package, no `safetensors` and no image library.
+path, its weight loading, its W8A8 serving, its HTTP service, its GUI demo,
+its utilities and LPIPS import no JAX, nothing of the JAX package, no
+`safetensors`, no image library and neither gradio nor viser.
 
 The machine with the card has PyTorch but no JAX, no `safetensors` (so the
 port reads and writes the format itself) and no `imageio` (so the port
 keeps its own image transforms, and imports its readers' and writers'
-libraries only when they read or write). A fresh interpreter blocks those
+libraries only when they read or write), and neither gradio nor viser (the
+GUI imports them when it is built). A fresh interpreter blocks those
 packages, then imports the port's entry points, its training and data
 modules and `chip_smoke`; any import of a blocked package fails the import.
 """
@@ -64,6 +66,15 @@ import stable_virtual_camera_tpu_torch.apps.convert_weights
 import stable_virtual_camera_tpu_torch.ops.quant
 import stable_virtual_camera_tpu_torch.models.common
 import stable_virtual_camera_tpu_torch.apps.server
+import stable_virtual_camera_tpu_torch.apps.ui_manifest
+import stable_virtual_camera_tpu_torch.apps.scene_viz
+import stable_virtual_camera_tpu_torch.apps.viser_gui
+import stable_virtual_camera_tpu_torch.apps.gradio_app
+import stable_virtual_camera_tpu_torch.utils
+import stable_virtual_camera_tpu_torch.utils.video
+import stable_virtual_camera_tpu_torch.utils.profiling
+import stable_virtual_camera_tpu_torch.utils.trace_analysis
+import stable_virtual_camera_tpu_torch.models.lpips
 from stable_virtual_camera_tpu_torch.models.io import load_bundle, read_safetensors, save_converted
 print("imported")
 """
@@ -72,7 +83,8 @@ print("imported")
 @pytest.mark.parametrize("blocked", [
     ("jax", "flax", "optax", "stable_virtual_camera_tpu", "safetensors"),
     ("cv2", "PIL", "imageio"),
-    ("jax", "flax", "optax", "stable_virtual_camera_tpu", "safetensors", "cv2", "PIL", "imageio"),
+    ("jax", "flax", "optax", "stable_virtual_camera_tpu", "safetensors", "cv2", "PIL", "imageio",
+     "gradio", "viser"),
 ])
 def test_main_path_imports_without(blocked):
     proc = subprocess.run(
