@@ -124,6 +124,15 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      totals within 2% of torch.profiler's key_averages over the same window;
  23. `lpips`: models/lpips with synthetic weights on two of (a)'s frames,
      fp32 on the card against the CPU score (1e-4 relative), ms per pair;
+24. `export_path`, after `server_path`: apps.export_artifacts on the
+     --random_model full bundle exports the bucket T=21 at 576x576 and
+     NUM_STEPS steps (torch.export, the kernels as custom ops), the server's
+     loader attaches it (export and load seconds, the file's bytes against
+     the weights'); one seeded chunk sampled through the live step and
+     through the artifact, latents bit-equal, K1 and K2 launched as often
+     on both with the same K2 copy modes, the bucket called once a step;
+     then (c)'s img2img job served over HTTP through the artifact, its
+     frames equal to (c)'s;
 then a `kernels` summary line and the final `ok` line.
 Every phase prints one JSON line. Cuts against a real render, the CLI, a
 real fine-tune, the Advanced mode, the released checkpoints and the GUI
@@ -136,6 +145,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -877,8 +887,11 @@ def run_main_path(bundle, shapes: dict, out: dict) -> dict:
         and counts["flash_attention"] > 0 and counts["time_attention"] > 0
         and counts["flash_attention_blhd"] == 0 and counts["flash_attention_packed"] == 0
     )
+    # the digest scripts/eager_path_ab.py prints for any checkout, so one
+    # run can be held against another's bits
+    digest = hashlib.sha256(anchors.tobytes() + frames.tobytes()).hexdigest()
     emit({"phase": "main_path", "ok": ok, "frames": list(frames.shape), "dtype": str(frames.dtype),
-          "anchor_frames": list(anchors.shape), "frame_std": float(frames.std()),
+          "anchor_frames": list(anchors.shape), "frame_std": float(frames.std()), "frames_sha256": digest,
           "first_pass_s": t1 - t0, "second_pass_s": t2 - t1, "launches": counts})
     if not ok:
         raise AssertionError("main path output or kernel launch counts are wrong")
@@ -1942,12 +1955,43 @@ def check_quant_path(bundle, upstream: dict) -> dict:
     return {"w8a8": counts["w8a8"], "static": counts["w8a8-static"]}
 
 
+def request(conn, method, path, body=None):
+    """One /v1 call over `conn`: (status, JSON body)."""
+    conn.request(method, path, body=json.dumps(body) if body else None)
+    r = conn.getresponse()
+    return r.status, json.loads(r.read() or b"{}")
+
+
+def wait(conn, jid, pred, timeout):
+    """Poll a job's record until `pred` holds or `timeout` seconds pass."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        rec = request(conn, "GET", f"/v1/jobs/{jid}")[1]
+        if pred(rec):
+            return rec
+        time.sleep(0.02)
+    return request(conn, "GET", f"/v1/jobs/{jid}")[1]
+
+
+def frames_of(out_dir):
+    """A scene's samples-rgb PNGs as one uint8 RGB array."""
+    import cv2
+    import numpy as np
+
+    pngs = sorted(f for f in os.listdir(os.path.join(out_dir, "samples-rgb")) if f.endswith(".png"))
+    return np.stack([cv2.imread(os.path.join(out_dir, "samples-rgb", f))[..., ::-1] for f in pngs])
+
+
+IMG2IMG_JOB = {"data_path": GOLDEN, "task": "img2img", "use_traj_prior": False,
+               "num_steps": NUM_STEPS, "sampler_verbose": False}
+FINAL = ("done", "error", "aborted")
+
+
 def check_server_path(cli_frames: dict) -> dict:
     """apps/server.py over HTTP on the full-width bundle of cli_path."""
     import http.client
     import threading
 
-    import cv2
     import numpy as np
     import torch
 
@@ -1956,27 +2000,7 @@ def check_server_path(cli_frames: dict) -> dict:
     from stable_virtual_camera_tpu_torch.config import VersionConfig
     from stable_virtual_camera_tpu_torch.engine import runner as runner_mod
 
-    def request(conn, method, path, body=None):
-        conn.request(method, path, body=json.dumps(body) if body else None)
-        r = conn.getresponse()
-        return r.status, json.loads(r.read() or b"{}")
-
-    def wait(conn, jid, pred, timeout):
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < timeout:
-            rec = request(conn, "GET", f"/v1/jobs/{jid}")[1]
-            if pred(rec):
-                return rec
-            time.sleep(0.02)
-        return request(conn, "GET", f"/v1/jobs/{jid}")[1]
-
-    def frames_of(out_dir):
-        pngs = sorted(f for f in os.listdir(os.path.join(out_dir, "samples-rgb")) if f.endswith(".png"))
-        return np.stack([cv2.imread(os.path.join(out_dir, "samples-rgb", f))[..., ::-1] for f in pngs])
-
-    img2img = {"data_path": GOLDEN, "task": "img2img", "use_traj_prior": False,
-               "num_steps": NUM_STEPS, "sampler_verbose": False}
-    final = ("done", "error", "aborted")
+    img2img, final = IMG2IMG_JOB, FINAL
     result: dict = {}
     calls = []
     ensure = runner_mod.ensure_quant_calibrated
@@ -2054,6 +2078,170 @@ def check_server_path(cli_frames: dict) -> dict:
     if not ok:
         raise AssertionError("the HTTP service's jobs, frames, abort or calibration are wrong")
     return counts
+
+
+def run_export_path(cli_frames: dict) -> dict:
+    """`export_path`: models/export.py on the full-width bf16 bundle of
+    --random_model full (seed 0). apps.export_artifacts exports the bucket
+    T=21 at 576x576 (latent 72x72) and NUM_STEPS steps into a temporary
+    directory, the server's loader attaches it; then one chunk (seeded
+    conditioning, the port's noise draws) is sampled through the live step
+    and through the artifact: latents bit-equal, K1 and K2 launched as often
+    on both and K2 given the same copy modes, the bucket called once a
+    step. Last, cli_path's img2img job (c) is served over HTTP by a service
+    with the artifact attached, its frames equal to (c)'s. Returns the
+    launch counts of the artifact's chunk and of the served job."""
+    import http.client
+    import threading
+
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps import cli, export_artifacts, server
+    from stable_virtual_camera_tpu_torch.config import VersionConfig
+    from stable_virtual_camera_tpu_torch.engine.runner import sample_latents
+    from stable_virtual_camera_tpu_torch.models import export
+    from stable_virtual_camera_tpu_torch.ops import time_attention as ta
+    from stable_virtual_camera_tpu_torch.sampling.sampler import ChunkConditioning, euler_edm_sample, torch_noise
+
+    h = RES // 8
+    bundle, _ = cli._build_bundle(None, "full", DEVICE)
+    spec = bundle.spec
+    weight_bytes = sum(t.nbytes for t in export.unet_state(bundle.unet).values())
+    seconds: dict = {}
+    exporter = export.export_denoise_buckets
+
+    def timed_export(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return exporter(*a, **k)
+        finally:
+            seconds["export_s"] = time.perf_counter() - t0
+
+    plans: list = []
+    k2_plan = ta._k2_plan
+
+    def noted_plan(q, k, v, num_frames, out=None):
+        plan = k2_plan(q, k, v, num_frames, out)
+        plans.append((tuple(q.shape), q.stride(), plan.copy))
+        return plan
+
+    gen = np.random.default_rng(SEED)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)
+
+    mask = np.zeros((T, 1, 1, 1), np.float32)
+    mask[0] = 1.0
+    lat = gen.standard_normal((T, h, h, 4)).astype(np.float32)
+    plucker = gen.standard_normal((T, h, h, 6)).astype(np.float32)
+    emb = gen.standard_normal((T, 1, spec.context_dim)).astype(np.float32)
+    replace_c = np.concatenate([lat, np.ones((T, h, h, 1), np.float32)], -1) * mask
+    mask_map = np.broadcast_to(mask, (T, h, h, 1))
+    cond = ChunkConditioning(
+        crossattn=dev(np.concatenate([np.zeros_like(emb), emb])),
+        concat=dev(np.concatenate([np.concatenate([0 * mask_map, plucker], -1),
+                                   np.concatenate([mask_map, plucker], -1)])),
+        dense=dev(np.concatenate([plucker, plucker])), replace=dev(np.concatenate([0 * replace_c, replace_c])),
+        scale=dev(np.linspace(1.2, 2.5, T)))
+    shape = (T, h, h, 4)
+    plan = bundle.plan(NUM_STEPS)
+
+    def draw(step):
+        return torch_noise(SEED, 0, 0, step, shape, DEVICE)
+
+    runs: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "artifacts")
+        export.export_denoise_buckets = timed_export
+        try:
+            export_artifacts.main(out_dir, random_model="full", T=T, num_steps=NUM_STEPS, device=DEVICE)
+        finally:
+            export.export_denoise_buckets = exporter
+        manifest = json.load(open(os.path.join(out_dir, export.MANIFEST)))
+        file_bytes = sum(os.path.getsize(os.path.join(out_dir, e["file"])) for e in manifest["buckets"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.attach_artifacts(bundle, out_dir)
+        seconds["load_s"] = time.perf_counter() - t0
+        artifact = bundle.artifacts[(T, h, h, NUM_STEPS)]
+        program = artifact.program
+        ta._k2_plan = noted_plan
+        try:
+            for name, fn in (
+                ("live", lambda: euler_edm_sample(bundle.network, draw(None), plan, cond, T, step_noise=draw)),
+                ("artifact", lambda: sample_latents(bundle, draw(None), plan, cond, draw)),
+            ):
+                plans.clear()
+                calls = artifact.calls
+                torch.cuda.synchronize()
+                _kernels.reset_counts()
+                t0 = time.perf_counter()
+                x = fn()
+                torch.cuda.synchronize()
+                runs[name] = {"x": x, "s": time.perf_counter() - t0, "launches": _kernels.counts(),
+                              "k2_plans": list(plans), "bucket_calls": artifact.calls - calls}
+        finally:
+            ta._k2_plan = k2_plan
+        live, aot = runs["live"], runs["artifact"]
+        bit_equal = bool(torch.equal(live["x"], aot["x"]))
+        max_abs = float((live["x"] - aot["x"]).abs().max())
+
+        svc = server.RenderService(server.engine_runner(
+            bundle, VersionConfig, cli._default_options, os.path.join(tmp, "work")))
+        httpd = server.build_http_server(svc, "127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        conn = http.client.HTTPConnection(*httpd.server_address)
+        try:
+            calls = artifact.calls
+            _kernels.reset_counts()
+            t0 = time.perf_counter()
+            code, out = request(conn, "POST", "/v1/jobs", IMG2IMG_JOB)
+            rec = wait(conn, out["id"], lambda r: r["status"] in FINAL, 600)
+            job = {"status": rec["status"], "error": rec["error"], "s": time.perf_counter() - t0,
+                   "bucket_calls": artifact.calls - calls, "launches": _kernels.counts()}
+            frames = frames_of(rec["outputs"][0]) if rec["status"] == "done" else None
+            job["identical_to_cli_c"] = frames is not None and np.array_equal(frames, cli_frames["img2img_single_pass"])
+        finally:
+            conn.close()
+            httpd.shutdown()
+            httpd.server_close()
+            svc.shutdown()
+    nodes = [n for n in program.graph.nodes if n.op == "call_function"]
+    kernel_ops = {}
+    for n in nodes:
+        if str(n.target).startswith("svc."):
+            kernel_ops[str(n.target)] = kernel_ops.get(str(n.target), 0) + 1
+    k1_k2 = ("flash_attention", "time_attention")
+    ok = (bit_equal and aot["bucket_calls"] == NUM_STEPS and live["bucket_calls"] == 0
+          and all(aot["launches"][k] == live["launches"][k] > 0 for k in k1_k2)
+          and aot["launches"] == live["launches"] and aot["k2_plans"] == live["k2_plans"]
+          and not program.graph_signature.parameters and not program.graph_signature.buffers
+          and file_bytes < 0.01 * weight_bytes
+          and job["status"] == "done" and job["identical_to_cli_c"] and job["bucket_calls"] == NUM_STEPS
+          and all(job["launches"][k] > 0 for k in k1_k2))
+    emit({"phase": "export_path", "ok": ok, "bucket": [T, h, h, NUM_STEPS], **seconds,
+          "file_bytes": file_bytes, "weight_bytes": weight_bytes, "file_over_weights": file_bytes / weight_bytes,
+          "graph_nodes": len(nodes), "kernel_ops": kernel_ops,
+          "lifted_constants_bytes": sum(c.nbytes for c in program.constants.values()),
+          "latents_bit_equal": bit_equal, "latents_max_abs_diff": max_abs,
+          "chunk_s": {"live": live["s"], "artifact": aot["s"]},
+          "bucket_calls": {"live": live["bucket_calls"], "artifact": aot["bucket_calls"]},
+          "launches": {"live": live["launches"], "artifact": aot["launches"]},
+          "k2_copy_modes": sorted({p[2] for p in live["k2_plans"]}),
+          "k2_plans_equal": aot["k2_plans"] == live["k2_plans"], "served_job": job,
+          "manifest": {k: v for k, v in manifest.items() if k != "param_fingerprint"}, "cuts": {
+              "num_steps": f"{NUM_STEPS} (released default 50): the bucket is (T, h, w, steps)",
+              "weights": "--random_model full: random bf16 (flax-default init, seed 0), full width",
+              "chunk": "seeded conditioning (frame 0 the input), the port's noise draws"}})
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError("the exported step differs from the live step, or its bucket was not used")
+    return {"export": aot["launches"], "export_server": job["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2740,7 +2928,7 @@ def main() -> int:
 
     counts: dict[str, dict] = {"render": {}, "advanced": {}, "gui": {}, "cli": {}, "checkpoint": {},
                                "train": {}, "k5": {}, "quant_w8a8": {}, "quant_static": {}, "server": {},
-                               "server_static": {}}
+                               "server_static": {}, "export": {}, "export_server": {}}
     try:
         k5 = check_k5_layer_norm(gen)
         results["layer_norm"] = k5["result"]
@@ -2786,6 +2974,7 @@ def main() -> int:
                         ("quant_ops", lambda: check_quant_ops(gen)),
                         ("quant_path", lambda: check_quant_path(bundle, upstream)),
                         ("server_path", lambda: check_server_path(cli_frames)),
+                        ("export_path", lambda: run_export_path(cli_frames)),
                         ("train_grad", lambda: check_train_grad(bundle, gen)),
                         ("train_profile", lambda: profile_train_step(bundle, gen)),
                         ("train_path", lambda: run_train_path(bundle))):
@@ -2810,7 +2999,7 @@ def main() -> int:
                     counts["checkpoint"] = out
                 elif key == "quant_path":
                     counts["quant_w8a8"], counts["quant_static"] = out["w8a8"], out["static"]
-                elif key == "server_path":
+                elif key in ("server_path", "export_path"):
                     counts.update(out)
                 elif key == "train_path":
                     counts["train"] = out
@@ -2844,12 +3033,19 @@ def main() -> int:
     home = {"flash_attention": "render", "time_attention": "render",
             "flash_attention_bwd_dkv": "train", "flash_attention_bwd_dq": "train",
             "flash_attention_blhd": "cli", "flash_attention_packed": "cli", "layer_norm": "k5"}
+    # the torch.library custom op each kernel launches from (K5 is called
+    # directly: no model path runs it)
+    custom_op = {"flash_attention": "svc::flash_attention", "flash_attention_bwd_dkv": "svc::flash_attention_bwd",
+                 "flash_attention_bwd_dq": "svc::flash_attention_bwd", "time_attention": "svc::time_attention",
+                 "flash_attention_blhd": "svc::flash_attention_blhd",
+                 "flash_attention_packed": "svc::flash_attention_packed", "layer_norm": None}
     rows = []
     for k in _kernels.KERNELS.values():
         r = results.get(k.name, {})
         rows.append({
             "name": k.name,
             "route": "cuda",
+            "custom_op": custom_op[k.name],
             "source": f"stable_virtual_camera_tpu_torch/csrc/{k.source.name}",
             "replaces": replaces[k.name],
             "launches": counts[home[k.name]].get(k.name, 0),
@@ -2873,6 +3069,8 @@ def main() -> int:
                    ("quant_static", ("flash_attention", "time_attention")),
                    ("server", ("flash_attention", "time_attention")),
                    ("server_static", ("flash_attention", "time_attention")),
+                   ("export", ("flash_attention", "time_attention")),
+                   ("export_server", ("flash_attention", "time_attention")),
                    ("train", TRAIN_KERNELS))
                for k in ks if counts[path].get(k, 0) == 0]
     if missing and not failures:

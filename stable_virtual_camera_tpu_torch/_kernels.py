@@ -12,6 +12,12 @@ libraries load with `ctypes`.
 Every C entry point returns `cudaGetLastError()` after its launch; `launch`
 raises if that is not 0. Each `Kernel` keeps a plain integer count of its
 launches, which a run can read to show that a path went through the kernel.
+
+The wrappers in ops/ register their kernels as `torch.library` custom ops
+in the `svc` namespace (`OPS`), each with a fake implementation, so that
+`torch.export` can trace a model through them (models/export.py); the
+op's implementation picks the kernel or the plain version by
+`device_route`.
 """
 
 from __future__ import annotations
@@ -167,6 +173,18 @@ def build_all() -> None:
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+
+
+OPS = "svc"  # the torch.library namespace of the kernels' custom ops
+
+
+def device_route(what: str, t) -> str:
+    """"cpu" (the plain version) or "cuda" (the kernel) for a tensor on that
+    device; any other device raises, so nothing falls back to the plain
+    version off the CPU."""
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise RuntimeError(f"{what} has no kernel for device {t.device}")
 
 
 def reset_counts() -> None:

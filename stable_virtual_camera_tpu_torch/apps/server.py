@@ -26,8 +26,15 @@ overrides (num_steps, cfg, guider_types, chunk_strategy, ...).
 
 Run:  python -m stable_virtual_camera_tpu_torch.apps.server \\
           --checkpoint_dir ... [--port 8000] [--work_dir ...] [--quant w8a8-static]
+          [--artifact_dir artifacts/]
       (--random_model True serves the tiny bundle, --random_model full the
       full-width random one; --device cpu runs off the card.)
+
+With `--artifact_dir` (written by apps/export_artifacts.py) the chunks of
+a loaded (T, h, w, steps) bucket run the exported step program
+(models/export.py) instead of the live network; the loader refuses a model
+whose topology or W8A8 mode is not the exported one, so `--quant` and
+`--artifact_dir` do not go together.
 
 Under `--quant w8a8-static` the bundle calibrates on the first chunk of the
 first job, never in `warmup_buckets`: the warmup's chunks are zeros, and
@@ -228,7 +235,8 @@ def warmup_buckets(bundle, version, num_steps=50):
     """Run, before serving, what the first request would otherwise pay for:
     one zero-conditioned sample per chunk size T of `version` (the UNet's
     kernels built, cuDNN's and cuBLAS's plans chosen, the allocator grown),
-    then the VAE decode of T frames (fp32 and uint8, as the first and second
+    through the exported step program where the bundle has the bucket, then
+    the VAE decode of T frames (fp32 and uint8, as the first and second
     passes decode) and the VAE encode and CLIP embed of T frames.
 
     Under w8a8-static the sample runs the exact network when the bundle is
@@ -237,12 +245,9 @@ def warmup_buckets(bundle, version, num_steps=50):
     import numpy as np
     import torch
 
+    from stable_virtual_camera_tpu_torch.engine.runner import sample_latents
     from stable_virtual_camera_tpu_torch.sampling.discretization import DDPMDiscretization
-    from stable_virtual_camera_tpu_torch.sampling.sampler import (
-        ChunkConditioning,
-        euler_edm_sample,
-        make_sampling_plan,
-    )
+    from stable_virtual_camera_tpu_torch.sampling.sampler import ChunkConditioning, make_sampling_plan
 
     spec = bundle.spec
     h, w = version.H // version.f, version.W // version.f
@@ -265,11 +270,13 @@ def warmup_buckets(bundle, version, num_steps=50):
         )
         t0 = time.time()
         with unet.quant_mode("0") if exact else contextlib.nullcontext():
-            out = euler_edm_sample(bundle.network, z(T, h, w, 4), plan, cond, T,
-                                   step_noise=lambda i, _T=T: z(_T, h, w, 4))
+            out = sample_latents(bundle, z(T, h, w, 4), plan, cond,
+                                 step_noise=lambda i, _T=T: z(_T, h, w, 4))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        pinned = (T, h, w, num_steps) in getattr(bundle, "artifacts", {})
         print(f"[server] warmed T={T} {h}x{w} steps={num_steps} ({time.time() - t0:.1f}s)"
+              + (" (exported program)" if pinned else "")
               + (" (exact: w8a8-static calibrates on the first job)" if exact else ""))
         del out
     if getattr(bundle, "vae", None) is not None:
@@ -284,6 +291,17 @@ def warmup_buckets(bundle, version, num_steps=50):
         if getattr(bundle, "clip", None) is not None:
             bundle.clip.embed(imgs)
         print(f"[server] warmed VAE encode / CLIP embed n={n} ({time.time() - t0:.1f}s)")
+
+
+def attach_artifacts(bundle, artifact_dir: str) -> None:
+    """Load the exported denoise buckets of `artifact_dir` that were made for
+    the bundle's device type into `bundle.artifacts`, refusing a UNet whose
+    parameters or W8A8 mode do not match the export (models/export.py)."""
+    from stable_virtual_camera_tpu_torch.models.export import load_denoise_artifacts, unet_state
+
+    bundle.artifacts.update(load_denoise_artifacts(
+        artifact_dir, params=unet_state(bundle.unet), device=bundle.device, quant=bundle.unet.quant))
+    print(f"[server] loaded {len(bundle.artifacts)} AOT denoise bucket(s) from {artifact_dir}")
 
 
 def build_http_server(service: RenderService, host="127.0.0.1", port=0):
@@ -361,17 +379,16 @@ def main(
     from stable_virtual_camera_tpu_torch.config import VersionConfig
     from stable_virtual_camera_tpu_torch.ops.quant import serving_mode
 
-    for flag, value, item, what in (
-        ("mesh_view", mesh_view, 4, "multi-GPU"), ("mesh_data", mesh_data, 4, "multi-GPU"),
-        ("artifact_dir", artifact_dir, 5, "models/export.py"),
-    ):
+    for flag, value in (("mesh_view", mesh_view), ("mesh_data", mesh_data)):
         if value is not None:
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP queue 1, item {item}: {what})")
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP queue 1, item 4: multi-GPU)")
     try:
         quant = serving_mode(quant)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     bundle, is_tiny = _build_bundle(checkpoint_dir, random_model, device, attention, quant)
+    if artifact_dir is not None:
+        attach_artifacts(bundle, artifact_dir)
 
     def version_factory():
         if is_tiny:

@@ -20,6 +20,11 @@ Under static W8A8 (`bundle.unet.set_quant("w8a8-static")`, ops/quant.py) the
 bundle's first `sample_chunk` calibrates the UNet on that chunk's own
 conditioning (`ensure_quant_calibrated`), as JAX's
 `UNetDenoiser.ensure_quant_calibrated` does.
+
+`bundle.artifacts` maps (T, h, w, steps) buckets to exported step programs
+(models/export.py): a chunk whose bucket is there runs the pinned program,
+any other the live step, as JAX's `UNetDenoiser.sample` does. Both routes
+are the same host loop, so progress and abort stay per step on both.
 """
 
 from __future__ import annotations
@@ -159,6 +164,8 @@ class ModelBundle:
     vae: VaeApplier
     clip: ClipApplier
     discretization: DDPMDiscretization = field(default_factory=DDPMDiscretization)
+    # (T, h, w, steps) -> models/export.DenoiseArtifact
+    artifacts: dict = field(default_factory=dict)
 
     _plans: dict[int, SamplingPlan] = field(default_factory=dict)
 
@@ -275,6 +282,20 @@ def ensure_quant_calibrated(bundle: "ModelBundle", shape, plan: SamplingPlan,
     return True
 
 
+def sample_latents(bundle: ModelBundle, noise: torch.Tensor, plan: SamplingPlan,
+                   cond: ChunkConditioning, step_noise, progress_cb=None,
+                   abort_event=None) -> torch.Tensor | None:
+    """One chunk's denoising loop: through the bundle's exported step
+    program when its bucket (T, h, w, steps) is loaded, else through the
+    live network. Returns None when aborted."""
+    T, h, w, _ = noise.shape
+    artifact = getattr(bundle, "artifacts", {}).get((T, h, w, plan.num_steps))
+    if artifact is not None:
+        return artifact.sample(bundle.unet, noise, plan, cond, step_noise, progress_cb, abort_event)
+    return euler_edm_sample(bundle.network, noise, plan, cond, T, step_noise=step_noise,
+                            progress_cb=progress_cb, abort_event=abort_event)
+
+
 def sample_chunk(
     bundle: ModelBundle,
     values: ChunkValues,
@@ -293,10 +314,11 @@ def sample_chunk(
     abort_event=None,
     output_uint8: bool = False,
 ) -> np.ndarray | None:
-    """One chunk: conditioning, denoising loop, decode. `noise_fn(pass_id,
-    chunk_id, step, shape, device)` supplies the noise. Returns the decoded
-    frames (uint8 with `output_uint8`), or None when aborted. Under static
-    W8A8 the bundle's first chunk calibrates first (`ensure_quant_calibrated`)."""
+    """One chunk: conditioning, denoising loop (`sample_latents`), decode.
+    `noise_fn(pass_id, chunk_id, step, shape, device)` supplies the noise.
+    Returns the decoded frames (uint8 with `output_uint8`), or None when
+    aborted. Under static W8A8 the bundle's first chunk calibrates first
+    (`ensure_quant_calibrated`)."""
     cond, shape = build_chunk_conditioning(
         bundle, values, cfg=cfg, guider_type=guider_type, cfg_min=cfg_min,
         encoding_t=encoding_t, latent_downsample=latent_downsample,
@@ -307,10 +329,8 @@ def sample_chunk(
     def draw(step):
         return noise_fn(pass_id, chunk_id, step, shape, dev).to(dev, torch.float32)
 
-    x = euler_edm_sample(
-        bundle.network, draw(None), bundle.plan(num_steps), cond, shape[0],
-        step_noise=draw, progress_cb=progress_cb, abort_event=abort_event,
-    )
+    x = sample_latents(bundle, draw(None), bundle.plan(num_steps), cond, draw,
+                       progress_cb=progress_cb, abort_event=abort_event)
     if x is None:
         return None
     return bundle.vae.decode(x, decoding_t, uint8=output_uint8)

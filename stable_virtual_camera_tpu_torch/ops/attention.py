@@ -12,8 +12,8 @@ The attention backend is an explicit argument where JAX reads the
   * "upstream" (default): the plain routes here; the shapes that go to
     kernel K1 are routed in models/unet.py before they reach this module
     (JAX's SVC_UPSTREAM_FLASH=1);
-  * "flash": supported shapes to kernel K3 (ops/flash_attention.py) through
-    its recompute-backward wrapper (SVC_UPSTREAM_FLASH=0);
+  * "flash": supported shapes to kernel K3 (ops/flash_attention.py), whose
+    op carries the recompute backward (SVC_UPSTREAM_FLASH=0);
   * "packed": supported (B, L, W) shapes with W % 128 == 0 to kernel K4
     (ops/flash_attention_packed.py), the rest as "flash"
     (SVC_UPSTREAM_FLASH=0, SVC_PACKED_ATTENTION=1).
@@ -96,7 +96,7 @@ def scaled_dot_product_attention(
         from stable_virtual_camera_tpu_torch.ops import flash_attention as fa
 
         if fa.supported(q, k, v):
-            return fa.flash_attention_trainable(q, k, v)
+            return fa.flash_attention(q, k, v)
     if k.shape[1] > xla_max_seq:
         return attention_chunked(q, k, v)
     return attention_xla(q, k, v)

@@ -5,10 +5,13 @@ Counterpart of stable_virtual_camera_tpu/ops/flash_attention.py
 (`flash_attention`, the in-repo Pallas kernel) and of `flash_attention_trainable`
 in stable_virtual_camera_tpu/ops/attention.py, whose custom VJP runs the
 kernel forward and differentiates the backward through the O(L)-memory
-chunked attention instead of a backward kernel. On CUDA tensors the forward
-launches the hand-written Hopper kernel in csrc/flash_attention_blhd.cu; on
-CPU tensors it runs `flash_attention_plain`. There is no backward kernel, as
-there is none in JAX.
+chunked attention instead of a backward kernel. The forward is the custom
+op `svc::flash_attention_blhd`: on CUDA tensors it launches the hand-written
+Hopper kernel in csrc/flash_attention_blhd.cu, on CPU tensors it runs
+`flash_attention_plain`, and on both it returns a contiguous (B, L, H, 64)
+(the layout of its fake implementation). Its backward, registered with
+`register_autograd`, recomputes through `attention_chunked`; there is no
+backward kernel, as there is none in JAX.
 """
 
 from __future__ import annotations
@@ -52,38 +55,44 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     return o
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The forward: the plain version for CPU tensors, K3 for CUDA tensors,
-    an error elsewhere."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    if q.device.type == "cuda":
+@torch.library.custom_op(f"{_kernels.OPS}::flash_attention_blhd", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K3 on CUDA tensors, the plain version on CPU tensors; a contiguous
+    (B, L, H, 64)."""
+    if _kernels.device_route("flash attention (K3)", q) == "cuda":
         return flash_attention_cuda(q, k, v)
-    raise RuntimeError(f"flash attention (K3) has no kernel for device {q.device}")
+    return flash_attention_plain(q, k, v).contiguous()
 
 
-class FlashAttentionTrainableFn(torch.autograd.Function):
-    """`flash_attention_trainable`: the forward is K3 (or its plain twin on
-    the CPU); the backward saves q, k, v and differentiates the plain
-    `attention_chunked` recompute, as JAX's `_flash_bwd` does. Under
-    `inference_mode` or `no_grad` nothing is saved."""
-
-    @staticmethod
-    def forward(ctx, q, k, v):
-        if any(ctx.needs_input_grad):
-            ctx.save_for_backward(q, k, v)
-        return flash_attention(q, k, v)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = attention_chunked(*leaves)
-        return torch.autograd.grad(out, leaves, g.to(q.dtype))
+@flash_attention_op.register_fake
+def _(q, k, v):
+    return q.new_empty(q.shape)
 
 
-def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Non-causal attention over (B, L, H, 64), differentiable by recompute."""
-    return FlashAttentionTrainableFn.apply(q, k, v)
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    """JAX's `_flash_bwd`: differentiate the plain `attention_chunked`
+    recompute."""
+    q, k, v = ctx.saved_tensors
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_chunked(*leaves)
+    return torch.autograd.grad(out, leaves, g.to(q.dtype))
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention over (B, L, H, 64): the plain version for CPU
+    tensors, K3 for CUDA tensors, an error elsewhere; differentiable by
+    recompute. Under `inference_mode` or `no_grad` nothing is saved."""
+    _kernels.device_route("flash attention (K3)", q)
+    return flash_attention_op(q, k, v)
+
+
+# JAX's name for the differentiable form: here the op carries the backward
+flash_attention_trainable = flash_attention

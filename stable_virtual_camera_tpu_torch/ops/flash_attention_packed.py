@@ -3,11 +3,12 @@ plain twin.
 
 Counterpart of stable_virtual_camera_tpu/ops/flash_attention_packed.py: q, k
 and v come in as the (B, L, W) views of the fused qkv projection and the
-output leaves as the (B, L, W) layout to_out consumes. On CUDA tensors
-`flash_attention_packed` launches the hand-written Hopper kernel in
-csrc/flash_attention_packed.cu; on CPU tensors it runs
-`flash_attention_packed_plain`. Forward only: the JAX kernel has no VJP, so
-a gradient through it raises.
+output leaves as the (B, L, W) layout to_out consumes. The custom op
+`svc::flash_attention_packed` launches the hand-written Hopper kernel in
+csrc/flash_attention_packed.cu on CUDA tensors and runs
+`flash_attention_packed_plain` on CPU tensors, a contiguous (B, L, W) on
+both (the layout of its fake implementation). Forward only: the JAX kernel
+has no VJP, so a gradient through it raises.
 """
 
 from __future__ import annotations
@@ -81,23 +82,28 @@ def flash_attention_packed_cuda(
     return o
 
 
-class _PackedFn(torch.autograd.Function):
-    """Forward only: K4 on CUDA tensors, the plain twin on CPU tensors."""
+@torch.library.custom_op(f"{_kernels.OPS}::flash_attention_packed", mutates_args=())
+def flash_attention_packed_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """K4 on CUDA tensors, the plain version on CPU tensors; a contiguous
+    (B, L, heads * 64)."""
+    if _kernels.device_route("packed flash attention (K4)", q) == "cuda":
+        return flash_attention_packed_cuda(q, k, v, heads)
+    return flash_attention_packed_plain(q, k, v, heads).contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, heads):
-        if q.device.type == "cpu":
-            return flash_attention_packed_plain(q, k, v, heads)
-        if q.device.type == "cuda":
-            return flash_attention_packed_cuda(q, k, v, heads)
-        raise RuntimeError(f"packed flash attention (K4) has no kernel for device {q.device}")
 
-    @staticmethod
-    def backward(ctx, g):
-        raise RuntimeError(
-            "packed flash attention (K4) has no gradient: the JAX kernel it ports has no VJP; "
-            'train with attention="upstream" or "flash"'
-        )
+@flash_attention_packed_op.register_fake
+def _(q, k, v, heads):
+    return q.new_empty(q.shape)
+
+
+def _backward(ctx, g):
+    raise RuntimeError(
+        "packed flash attention (K4) has no gradient: the JAX kernel it ports has no VJP; "
+        'train with attention="upstream" or "flash"'
+    )
+
+
+flash_attention_packed_op.register_autograd(_backward, setup_context=lambda ctx, inputs, output: None)
 
 
 def flash_attention_packed(
@@ -105,4 +111,5 @@ def flash_attention_packed(
 ) -> torch.Tensor:
     """Non-causal attention over the packed (B, L, heads * 64) layout,
     forward only (a backward through it raises)."""
-    return _PackedFn.apply(q, k, v, heads)
+    _kernels.device_route("packed flash attention (K4)", q)
+    return flash_attention_packed_op(q, k, v, heads)

@@ -3,14 +3,16 @@ kernels K1-dKV and K1-dQ, and their plain twins.
 
 Counterpart of stable_virtual_camera_tpu/ops/flash_upstream.py::
 flash_attention_upstream_bhld, whose upstream Pallas kernel is a custom VJP
-with a forward kernel and two backward kernels (dK/dV and dQ). Here
-`FlashAttentionFn` is the autograd Function: on CUDA tensors its forward
-launches the hand-written Hopper kernel in csrc/flash_attention.cu (which also
-writes the log-sum-exp when a gradient is needed) and its backward launches
-the two kernels of csrc/flash_attention_bwd.cu; on CPU tensors it runs
-`flash_attention_plain` and `flash_attention_bwd_plain`, chunked fp32 forms
-of the same math (a materialised fp32 score tensor at L=27216, B=2, H=10
-would take 59 GB).
+with a forward kernel and two backward kernels (dK/dV and dQ). Here the
+forward is the custom op `svc::flash_attention` (o and, when asked, the
+log-sum-exp) and the backward the custom op `svc::flash_attention_bwd`,
+linked by `register_autograd`: on CUDA tensors they launch the hand-written
+Hopper kernel in csrc/flash_attention.cu and the two kernels of
+csrc/flash_attention_bwd.cu; on CPU tensors they run `flash_attention_plain`
+and `flash_attention_bwd_plain`, chunked fp32 forms of the same math (a
+materialised fp32 score tensor at L=27216, B=2, H=10 would take 59 GB). On
+both devices o and the gradients are (B, H, L, 64) views of (B, L, H, 64)
+buffers, the layout the fake implementations give `torch.export`.
 
 The log-sum-exp `lse` is stored in natural-log units, ln sum_j exp(s_j)
 with s = q.k / sqrt(D), in both paths; the kernels convert it to their base-2
@@ -132,10 +134,15 @@ def _check_rows(name: str, t: torch.Tensor, B: int, H: int, L: int, device) -> N
 
 
 def _empty_like_bhld(q: torch.Tensor) -> torch.Tensor:
-    """A (B, H, L, 64) bf16 view of a fresh (B, L, H, 64) buffer, the layout
-    the packed projections read without a copy."""
+    """A (B, H, L, 64) view of a fresh (B, L, H, 64) buffer of q's dtype, the
+    layout the packed projections read without a copy."""
     B, H, L, D = q.shape
-    return torch.empty((B, L, H, D), dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    return q.new_empty((B, L, H, D)).transpose(1, 2)
+
+
+def _in_bhld(t: torch.Tensor) -> torch.Tensor:
+    """t's values in the layout of `_empty_like_bhld`."""
+    return _empty_like_bhld(t).copy_(t)
 
 
 def _strides(*ts: torch.Tensor) -> list[int]:
@@ -244,35 +251,59 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """Non-causal attention with scale 1/sqrt(D) and its gradient. CUDA
-    tensors go through K1 (forward, with the LSE when a gradient is needed)
-    and K1-dKV + K1-dQ (backward); CPU tensors through the plain versions.
-    q, k, v, o and lse are saved only when a gradient is needed, so a call
-    under `inference_mode` or `no_grad` runs exactly the forward."""
+@torch.library.custom_op(f"{_kernels.OPS}::flash_attention", mutates_args=())
+def flash_attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Non-causal attention with scale 1/sqrt(D): K1 on CUDA tensors, the
+    plain version on CPU tensors. Returns o, a (B, H, L, 64) view of a
+    (B, L, H, 64) buffer, and the fp32 (B, H, L) log-sum-exp, or an empty
+    one without `return_lse`."""
+    if _kernels.device_route("flash attention", q) == "cuda":
+        out = flash_attention_cuda(q, k, v, return_lse=return_lse)
+    else:
+        out = flash_attention_plain(q, k, v, return_lse=return_lse)
+    o, lse = out if return_lse else (out, q.new_empty((0,), dtype=torch.float32))
+    return (o, lse) if q.device.type == "cuda" else (_in_bhld(o), lse)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        needs_grad = any(ctx.needs_input_grad)
-        if q.device.type == "cpu":
-            out = flash_attention_plain(q, k, v, return_lse=needs_grad)
-        elif q.device.type == "cuda":
-            out = flash_attention_cuda(q, k, v, return_lse=needs_grad)
-        else:
-            raise RuntimeError(f"flash attention has no kernel for device {q.device}")
-        if not needs_grad:
-            return out
-        o, lse = out
-        ctx.save_for_backward(q, k, v, o, lse)
-        return o
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            return flash_attention_bwd_plain(q, k, v, o, lse, do)
+@flash_attention_op.register_fake
+def _(q, k, v, return_lse):
+    B, H, L, _ = q.shape
+    return _empty_like_bhld(q), q.new_empty((B, H, L) if return_lse else (0,), dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{_kernels.OPS}::flash_attention_bwd", mutates_args=())
+def flash_attention_bwd_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    do: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention_op` from its o and log-sum-exp: K1-dKV
+    and K1-dQ on CUDA tensors, the plain backward on CPU tensors; each a
+    (B, H, L, 64) view of a (B, L, H, 64) buffer."""
+    if _kernels.device_route("flash attention", q) == "cuda":
         return flash_attention_bwd_cuda(q, k, v, o, lse, _kernel_layout(do))
+    return tuple(_in_bhld(g) for g in flash_attention_bwd_plain(q, k, v, o, lse, do))
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, o, lse, do):
+    return _empty_like_bhld(q), _empty_like_bhld(k), _empty_like_bhld(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, _ = inputs
+    ctx.save_for_backward(q, k, v, *output)
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    if lse.numel() == 0:
+        raise RuntimeError("flash attention: a gradient needs the forward run with return_lse=True")
+    return (*flash_attention_bwd_op(q, k, v, o, lse, do), None)
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention_upstream_bhld(
@@ -280,5 +311,9 @@ def flash_attention_upstream_bhld(
 ) -> torch.Tensor:
     """Non-causal attention over (B, H, L, D) with scale 1/sqrt(D),
     differentiable: the plain versions for CPU tensors, kernels K1 / K1-dKV /
-    K1-dQ for CUDA tensors (or an error)."""
-    return FlashAttentionFn.apply(q, k, v)
+    K1-dQ for CUDA tensors (or an error). The forward writes the LSE only
+    when a gradient is needed, so a call under `inference_mode` or
+    `no_grad` runs exactly the forward."""
+    _kernels.device_route("flash attention", q)
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    return flash_attention_op(q, k, v, needs_grad)[0]

@@ -2,9 +2,11 @@
 
 Counterpart of stable_virtual_camera_tpu/ops/time_attention.py::
 time_attention_bhds. Every spatial position attends over its scene's T
-frames, all in fp32. `TimeAttentionFn` is the autograd Function: its forward
+frames, all in fp32. The forward is the custom op `svc::time_attention`: it
 launches the hand-written kernel in csrc/time_attention.cu on a CUDA tensor
-and runs `time_attention_plain` on a CPU tensor. Its backward is
+and runs `time_attention_plain` on a CPU tensor, and returns a contiguous
+tensor on both (the layout its fake implementation gives `torch.export`).
+Its backward, registered with `register_autograd`, is
 `time_attention_bwd_plain` on both devices, an fp32 recompute of the tiny
 T x T attentions, exactly as the JAX package's custom VJP has it
 (time_attention.py:156-178): the JAX package has no backward kernel here, so
@@ -197,29 +199,33 @@ def time_attention_bwd_plain(
     return tuple(t.reshape(BT, H, D, S).to(q.dtype) for t in (dq, dk, dv))
 
 
-class TimeAttentionFn(torch.autograd.Function):
-    """Temporal attention and its gradient: K2 (CUDA) or the plain version
-    (CPU) forward, the plain fp32 recompute backward on both. q, k and v are
-    saved only when a gradient is needed."""
+@torch.library.custom_op(f"{_kernels.OPS}::time_attention", mutates_args=())
+def time_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """Temporal attention over (b*T, H, D, S): K2 on CUDA tensors (which
+    plans its copy mode from the views' strides and addresses at run time),
+    the plain version on CPU tensors; a contiguous result."""
+    if _kernels.device_route("time attention", q) == "cuda":
+        return time_attention_cuda(q, k, v, num_frames)
+    return time_attention_plain(q, k, v, num_frames).contiguous()
 
-    @staticmethod
-    def forward(ctx, q, k, v, num_frames: int):
-        if q.device.type == "cpu":
-            out = time_attention_plain(q, k, v, num_frames)
-        elif q.device.type == "cuda":
-            out = time_attention_cuda(q, k, v, num_frames)
-        else:
-            raise RuntimeError(f"time attention has no kernel for device {q.device}")
-        if any(ctx.needs_input_grad[:3]):
-            ctx.save_for_backward(q, k, v)
-            ctx.num_frames = num_frames
-        return out
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        return (*time_attention_bwd_plain(q, k, v, do, ctx.num_frames), None)
+@time_attention_op.register_fake
+def _(q, k, v, num_frames):
+    return q.new_empty(q.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, num_frames = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.num_frames = num_frames
+
+
+def _backward(ctx, do):
+    q, k, v = ctx.saved_tensors
+    return (*time_attention_bwd_plain(q, k, v, do, ctx.num_frames), None)
+
+
+time_attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def time_attention_bhds(
@@ -227,4 +233,5 @@ def time_attention_bhds(
 ) -> torch.Tensor:
     """Temporal attention over (b*T, H, D, S), differentiable: the plain
     version for CPU tensors, kernel K2 for CUDA tensors (or an error)."""
-    return TimeAttentionFn.apply(q, k, v, num_frames)
+    _kernels.device_route("time attention", q)
+    return time_attention_op(q, k, v, num_frames)

@@ -7,6 +7,18 @@ is one CFG-doubled UNet forward. Where the JAX sampler runs one jitted scan
 with `io_callback` ticks, this loop calls `progress_cb(step, total)` and polls
 `abort_event` after every step.
 
+`euler_edm_step` is a function of tensors only: the step's scalars come in
+as one fp32 host tensor (`step_scalars`, computed with the float32 numpy
+arithmetic of JAX's step) and the timestep index as a 0-d tensor on the
+device, so the same step serves the live loop and the exported program of
+models/export.py, as JAX's `make_scan_fn` serves both `sample` and export.
+The scalars stay on the host: a CUDA op reads a 0-d CPU tensor as a scalar
+argument, exactly as it reads a Python float (a division by one is a
+multiplication by its reciprocal there), so the step computes what a step
+with Python floats computes, bit for bit, on both devices. `run_steps` is
+the host loop around any such step: the live network's, or an exported
+program's.
+
 Noise is drawn through a `noise_fn(seed, pass_id, chunk_id, step, shape,
 device)`: `step=None` is a chunk's initial noise, `step=i` the churn noise of
 step i. The churn noise is small but not zero: `make_sampling_plan` adds 1e-6
@@ -113,36 +125,79 @@ class ChunkConditioning:
     scale: torch.Tensor
 
 
+STEP_SCALARS = ("c_in", "neg_s_quant", "s_raw", "d_sigma", "noise_coeff")
+
+
+def step_scalars(plan: SamplingPlan) -> torch.Tensor:
+    """(n, 5) fp32 on the host, one row a step, in the order of
+    STEP_SCALARS: c_in = 1/sqrt(s_quant^2 + 1), -s_quant (c_out),
+    s_raw, sigma_next - s_raw and the churn noise's coefficient, each
+    computed in float32 as the JAX step does."""
+    f32 = np.float32
+    rows = []
+    for i in range(plan.num_steps):
+        s_raw, s_quant = f32(plan.sigma_hat_raw[i]), f32(plan.sigma_hat_quant[i])
+        c_in = f32(1.0) / np.sqrt(s_quant * s_quant + f32(1.0))
+        rows.append([c_in, -s_quant, s_raw, f32(plan.sigma_next[i]) - s_raw, f32(plan.noise_coeff[i])])
+    return torch.from_numpy(np.array(rows, np.float32).reshape(plan.num_steps, len(STEP_SCALARS)))
+
+
 def euler_edm_step(
     network_fn: NetworkFn,
     x: torch.Tensor,
-    plan: SamplingPlan,
-    i: int,
-    cond: ChunkConditioning,
     eps: torch.Tensor,
+    scalars: torch.Tensor,
+    cond: ChunkConditioning,
+    t_index: torch.Tensor,
     num_frames: int,
 ) -> torch.Tensor:
-    """Step i of the churned Euler loop, fp32. Scalar arithmetic is done in
-    float32 as the JAX step does."""
-    f32 = np.float32
-    s_raw, s_quant = f32(plan.sigma_hat_raw[i]), f32(plan.sigma_hat_quant[i])
+    """One step of the churned Euler loop, fp32: `scalars` is the step's
+    row of `step_scalars` (on the host), `t_index` its 0-d int64 timestep
+    index on x's device, `eps` its churn noise."""
+    c_in, neg_s_quant, s_raw, d_sigma, noise_coeff = scalars.unbind(0)
     C = x.shape[-1]
     rep_lat, rep_mask = cond.replace[..., :C], cond.replace[..., C:]
-    x = x + eps * float(plan.noise_coeff[i])
+    x = x + eps * noise_coeff
 
     xin = torch.cat([x, x], dim=0)
     # replace conditioning: input-view latents overwrite their slots every call
     xin = xin * (1 - rep_mask) + rep_lat * rep_mask
-    c_in = float(f32(1.0) / np.sqrt(s_quant * s_quant + f32(1.0)))
-    t_vec = torch.full((2 * num_frames,), int(plan.t_indices[i]), dtype=torch.int64, device=x.device)
+    t_vec = t_index.expand(2 * num_frames)
     out = network_fn(xin * c_in, cond.concat, t_vec, cond.crossattn, cond.dense, num_frames)
-    denoised = out * float(-s_quant) + xin  # c_out, c_skip (eps scaling)
+    denoised = out * neg_s_quant + xin  # c_out, c_skip (eps scaling)
 
     uncond, condit = denoised.chunk(2, dim=0)
     denoised = uncond + cond.scale[:, None, None, None] * (condit - uncond)
 
-    d = (x - denoised) / float(s_raw)
-    return x + float(f32(plan.sigma_next[i]) - s_raw) * d
+    d = (x - denoised) / s_raw
+    return x + d_sigma * d
+
+
+StepFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def run_steps(
+    step: StepFn,
+    noise: torch.Tensor,
+    plan: SamplingPlan,
+    step_noise: Callable[[int], torch.Tensor],
+    progress_cb=None,
+    abort_event=None,
+) -> torch.Tensor | None:
+    """The host loop: x = noise * init_scale, then `step(x, eps, scalars,
+    t_index)` for every step of the plan, with `progress_cb(i + 1, n)` and
+    an `abort_event` poll after each. Returns None when aborted."""
+    x = noise * float(np.float32(plan.init_scale))
+    scalars = step_scalars(plan)
+    t_indices = torch.as_tensor(plan.t_indices.astype(np.int64), device=noise.device)
+    n = plan.num_steps
+    for i in range(n):
+        x = step(x, step_noise(i), scalars[i], t_indices[i])
+        if progress_cb is not None:
+            progress_cb(i + 1, n)
+        if abort_event is not None and abort_event.is_set():
+            return None
+    return x
 
 
 @torch.inference_mode()
@@ -156,17 +211,14 @@ def euler_edm_sample(
     progress_cb=None,
     abort_event=None,
 ) -> torch.Tensor | None:
-    """The full denoising loop. `step_noise(i)` gives step i's churn noise.
-    Returns None when `abort_event` is set during the loop."""
-    x = noise * float(np.float32(plan.init_scale))
-    n = plan.num_steps
-    for i in range(n):
-        x = euler_edm_step(network_fn, x, plan, i, cond, step_noise(i), num_frames)
-        if progress_cb is not None:
-            progress_cb(i + 1, n)
-        if abort_event is not None and abort_event.is_set():
-            return None
-    return x
+    """The full denoising loop through `network_fn`. `step_noise(i)` gives
+    step i's churn noise. Returns None when `abort_event` is set during the
+    loop."""
+
+    def step(x, eps, scalars, t_index):
+        return euler_edm_step(network_fn, x, eps, scalars, cond, t_index, num_frames)
+
+    return run_steps(step, noise, plan, step_noise, progress_cb, abort_event)
 
 
 @torch.inference_mode()

@@ -3,7 +3,8 @@ K1-dKV and K1-dQ, K2 temporal attention, K3 flash attention on (B, L, H, 64),
 K4 flash attention on packed (B, L, W), K5 LayerNorm) against their plain
 versions on the card, the wrappers' refusals, a backward through SevaUNet on
 the card that reaches the attention weights, K3's recompute backward against
-K1's kernel backward, and a DUSt3R forward on the card against the CPU.
+K1's kernel backward, a UNet exported through torch.export against its eager
+forward, and a DUSt3R forward on the card against the CPU.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
 neither jax nor the test conftest, so on a machine with the card and no JAX
@@ -402,6 +403,39 @@ def test_unet_backends_launch_their_kernels(cuda, attention, kernel):
         after = _kernels.counts()
     assert after[kernel] > before[kernel] and after["flash_attention"] == before["flash_attention"]
     assert torch.isfinite(out).all() and _rel(out, ref) <= 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention,kernels", [("upstream", ("flash_attention", "time_attention")),
+                                               ("flash", ("flash_attention_blhd", "time_attention")),
+                                               ("packed", ("flash_attention_packed", "time_attention"))])
+def test_exported_unet_launches_the_kernels(cuda, attention, kernels):
+    """The small UNet of tests/test_torch_ops_export.py in bf16 on the card,
+    exported through torch.export (the kernels are custom ops with fake
+    implementations): the program launches each kernel as often as the
+    eager forward does and gives the eager forward's bits."""
+    spec = SevaSpec(model_channels=128, num_frames=2, num_head_channels=64, context_dim=64,
+                    channel_mult=(1,), transformer_depth=(1,), attention_resolutions=(1,),
+                    num_res_blocks=1, unflatten_names=("middle_ds1",))
+    unet = init_flax_defaults(SevaUNet(spec, attention=attention), torch.Generator().manual_seed(0))
+    unet = unet.to(cuda, torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n = 4
+    args = (torch.randn((n, 32, 32, 11), generator=g, device=cuda), torch.full((n,), 500, device=cuda),
+            torch.randn((n, 1, 64), generator=g, device=cuda),
+            torch.randn((n, 32, 32, 6), generator=g, device=cuda), 2)
+    with torch.no_grad():
+        program = torch.export.export(unet, args).module()
+    with torch.inference_mode():
+        c0 = _kernels.counts()
+        eager = unet(*args)
+        c1 = _kernels.counts()
+        out = program(*args)
+        c2 = _kernels.counts()
+    eager_launches = {k: c1[k] - c0[k] for k in c0}
+    assert all(eager_launches[k] > 0 for k in kernels)
+    assert {k: c2[k] - c1[k] for k in c0} == eager_launches
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.cuda

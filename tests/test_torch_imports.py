@@ -1,6 +1,6 @@
 """The port's main path, its CLI, its fine-tuning path, its Advanced-mode
 path, its weight loading, its W8A8 serving, its HTTP service, its GUI demo,
-its utilities and LPIPS import no JAX, nothing of the JAX package, no
+its utilities, LPIPS and its ahead-of-time export import no JAX, nothing of the JAX package, no
 `safetensors`, no image library and neither gradio nor viser.
 
 The machine with the card has PyTorch but no JAX, no `safetensors` (so the
@@ -75,6 +75,8 @@ import stable_virtual_camera_tpu_torch.utils.video
 import stable_virtual_camera_tpu_torch.utils.profiling
 import stable_virtual_camera_tpu_torch.utils.trace_analysis
 import stable_virtual_camera_tpu_torch.models.lpips
+import stable_virtual_camera_tpu_torch.models.export
+import stable_virtual_camera_tpu_torch.apps.export_artifacts
 from stable_virtual_camera_tpu_torch.models.io import load_bundle, read_safetensors, save_converted
 print("imported")
 """

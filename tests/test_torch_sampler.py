@@ -128,3 +128,45 @@ def test_euler_edm_sample_stops_on_abort():
     out = t_sampler.euler_edm_sample(net, torch.zeros((1, 2, 2, 4)), plan, cond, 1,
                                      step_noise=lambda i: torch.zeros((1, 2, 2, 4)), abort_event=stop)
     assert out is None and len(calls) == 1
+
+
+def _euler_edm_step_before(network_fn, x, plan, i, cond, eps, num_frames):
+    """The step as it was before it took its scalars as tensors: Python
+    floats from float32 numpy arithmetic, and the timestep as `torch.full`."""
+    f32 = np.float32
+    s_raw, s_quant = f32(plan.sigma_hat_raw[i]), f32(plan.sigma_hat_quant[i])
+    C = x.shape[-1]
+    rep_lat, rep_mask = cond.replace[..., :C], cond.replace[..., C:]
+    x = x + eps * float(plan.noise_coeff[i])
+    xin = torch.cat([x, x], dim=0)
+    xin = xin * (1 - rep_mask) + rep_lat * rep_mask
+    c_in = float(f32(1.0) / np.sqrt(s_quant * s_quant + f32(1.0)))
+    t_vec = torch.full((2 * num_frames,), int(plan.t_indices[i]), dtype=torch.int64, device=x.device)
+    out = network_fn(xin * c_in, cond.concat, t_vec, cond.crossattn, cond.dense, num_frames)
+    denoised = out * float(-s_quant) + xin
+    uncond, condit = denoised.chunk(2, dim=0)
+    denoised = uncond + cond.scale[:, None, None, None] * (condit - uncond)
+    d = (x - denoised) / float(s_raw)
+    return x + float(f32(plan.sigma_next[i]) - s_raw) * d
+
+
+def test_tensor_scalar_step_is_bit_equal_to_the_float_step():
+    """The loop over `euler_edm_step` (scalars as fp32 host tensors, the
+    timestep as a 0-d tensor) gives the bits of the loop over the step with
+    Python floats, on the tiny UNet at 4 steps."""
+    from stable_virtual_camera_tpu_torch.models.io import random_bundle
+
+    T, hw, steps = 3, 8, 4
+    bundle = random_bundle(device="cpu", generator=torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(12)
+    c = t_sampler.ChunkConditioning(**{k: torch.from_numpy(v) for k, v in _conditioning(
+        rng, T, hw, SevaSpec.tiny().context_dim).items()})
+    noise = torch.from_numpy(rng.normal(size=(T, hw, hw, 4)).astype(np.float32))
+    eps = [torch.from_numpy(rng.normal(size=(T, hw, hw, 4)).astype(np.float32)) for _ in range(steps)]
+    plan = t_sampler.make_sampling_plan(DDPMDiscretization(), steps)
+    with torch.inference_mode():
+        x = noise * float(np.float32(plan.init_scale))
+        for i in range(steps):
+            x = _euler_edm_step_before(bundle.network, x, plan, i, c, eps[i], T)
+    out = t_sampler.euler_edm_sample(bundle.network, noise, plan, c, T, step_noise=lambda i: eps[i])
+    assert torch.equal(out, x)

@@ -262,8 +262,7 @@ def test_static_warmup_leaves_calibration_to_the_first_job(tmp_path):
     assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
 
 
-@pytest.mark.parametrize("flag,item", [("mesh_view", "item 4"), ("mesh_data", "item 4"),
-                                       ("artifact_dir", "item 5")])
+@pytest.mark.parametrize("flag,item", [("mesh_view", "item 4"), ("mesh_data", "item 4")])
 def test_server_main_refuses_what_is_not_ported(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         server.main(random_model=True, device="cpu", **{flag: 2})
