@@ -133,6 +133,16 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      on both with the same K2 copy modes, the bucket called once a step;
      then (c)'s img2img job served over HTTP through the artifact, its
      frames equal to (c)'s;
+ 25. `parallel_path`, after `export_path`: the mesh (parallel/) on the one
+     card, every rank a thread on cuda:0 with its own stream: (a) a seeded
+     T=21 chunk on a 1-rank view mesh, latents bit-equal to the unsharded
+     chunk's with the same K1/K2 launches; (b) on a 3-rank view mesh,
+     latents within the bounds stated before the first run, frames' PSNR,
+     K1 and K2 launches against n per joint layer and one per time-mix per
+     rank, both walls and device profiles, the ring merges' and
+     all-to-alls' device time; (c) the CLI's render_one_scene on one
+     device, on a (2, 1) mesh (bit-equal), on a (2, 3) mesh and with
+     chunk_batch=2 (PSNR bar), the second pass in 2 groups;
 then a `kernels` summary line and the final `ok` line.
 Every phase prints one JSON line. Cuts against a real render, the CLI, a
 real fine-tune, the Advanced mode, the released checkpoints and the GUI
@@ -224,6 +234,21 @@ TRACE_CLASS_REL = 0.02
 LPIPS_REL, LPIPS_REPS = 1e-4, 10
 # the synthetic alignment scene: 8 images of 384x512, every ordered pair
 SCENE_N, SCENE_H, SCENE_W = 8, 384, 512
+# parallel_path: ranks of the view mesh in (b) (7 frames each at T=21); the
+# 3-rank chunk's latents against the unsharded chunk's, stated before the
+# first run: the ring merges three bf16-rounded K1 partials in fp32 where K1
+# rounds once, and the per-rank products and convs run at other batch
+# sizes, so bf16-level differences pass through 4 steps: relative L2 at
+# most 2e-2 and max abs at most 0.1 of the unsharded latents' max abs;
+# (c)'s orbit targets (3 second-pass chunks at T=21, so data=2 pads one)
+# and its mesh. (c)'s frames: bit-equal where no computation changes (a
+# (2, 1) mesh); where the batch around a chunk changes (the (2, 3) mesh,
+# chunk_batch=2) cuDNN's convs and the GroupNorm reductions round
+# otherwise, and the random bf16 network carries that to ~1e-2 of a
+# forward (scripts/batch_variance.py, PERF.md), so those are held to a PSNR
+PARALLEL_VIEW = 3
+PARALLEL_REL_L2, PARALLEL_MAX_ABS_REL = 2e-2, 1e-1
+PARALLEL_TARGETS, PARALLEL_MESH, PARALLEL_FRAME_PSNR_DB = 30, (2, 3), 40.0
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "assets", "golden_scene")
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
@@ -2080,6 +2105,35 @@ def check_server_path(cli_frames: dict) -> dict:
     return counts
 
 
+def seeded_chunk(context_dim: int, h: int):
+    """One T-frame chunk's conditioning at latent h x h from a numpy
+    generator seeded with SEED: frame 0 the input view, normal Plucker maps
+    and CLIP embeddings, CFG scales from 1.2 to 2.5."""
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch.sampling.sampler import ChunkConditioning
+
+    gen = np.random.default_rng(SEED)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)
+
+    mask = np.zeros((T, 1, 1, 1), np.float32)
+    mask[0] = 1.0
+    lat = gen.standard_normal((T, h, h, 4)).astype(np.float32)
+    plucker = gen.standard_normal((T, h, h, 6)).astype(np.float32)
+    emb = gen.standard_normal((T, 1, context_dim)).astype(np.float32)
+    replace_c = np.concatenate([lat, np.ones((T, h, h, 1), np.float32)], -1) * mask
+    mask_map = np.broadcast_to(mask, (T, h, h, 1))
+    return ChunkConditioning(
+        crossattn=dev(np.concatenate([np.zeros_like(emb), emb])),
+        concat=dev(np.concatenate([np.concatenate([0 * mask_map, plucker], -1),
+                                   np.concatenate([mask_map, plucker], -1)])),
+        dense=dev(np.concatenate([plucker, plucker])), replace=dev(np.concatenate([0 * replace_c, replace_c])),
+        scale=dev(np.linspace(1.2, 2.5, T)))
+
+
 def run_export_path(cli_frames: dict) -> dict:
     """`export_path`: models/export.py on the full-width bf16 bundle of
     --random_model full (seed 0). apps.export_artifacts exports the bucket
@@ -2103,7 +2157,7 @@ def run_export_path(cli_frames: dict) -> dict:
     from stable_virtual_camera_tpu_torch.engine.runner import sample_latents
     from stable_virtual_camera_tpu_torch.models import export
     from stable_virtual_camera_tpu_torch.ops import time_attention as ta
-    from stable_virtual_camera_tpu_torch.sampling.sampler import ChunkConditioning, euler_edm_sample, torch_noise
+    from stable_virtual_camera_tpu_torch.sampling.sampler import euler_edm_sample, torch_noise
 
     h = RES // 8
     bundle, _ = cli._build_bundle(None, "full", DEVICE)
@@ -2127,24 +2181,7 @@ def run_export_path(cli_frames: dict) -> dict:
         plans.append((tuple(q.shape), q.stride(), plan.copy))
         return plan
 
-    gen = np.random.default_rng(SEED)
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)
-
-    mask = np.zeros((T, 1, 1, 1), np.float32)
-    mask[0] = 1.0
-    lat = gen.standard_normal((T, h, h, 4)).astype(np.float32)
-    plucker = gen.standard_normal((T, h, h, 6)).astype(np.float32)
-    emb = gen.standard_normal((T, 1, spec.context_dim)).astype(np.float32)
-    replace_c = np.concatenate([lat, np.ones((T, h, h, 1), np.float32)], -1) * mask
-    mask_map = np.broadcast_to(mask, (T, h, h, 1))
-    cond = ChunkConditioning(
-        crossattn=dev(np.concatenate([np.zeros_like(emb), emb])),
-        concat=dev(np.concatenate([np.concatenate([0 * mask_map, plucker], -1),
-                                   np.concatenate([mask_map, plucker], -1)])),
-        dense=dev(np.concatenate([plucker, plucker])), replace=dev(np.concatenate([0 * replace_c, replace_c])),
-        scale=dev(np.linspace(1.2, 2.5, T)))
+    cond = seeded_chunk(spec.context_dim, h)
     shape = (T, h, h, 4)
     plan = bundle.plan(NUM_STEPS)
 
@@ -2242,6 +2279,260 @@ def run_export_path(cli_frames: dict) -> dict:
     if not ok:
         raise AssertionError("the exported step differs from the live step, or its bucket was not used")
     return {"export": aot["launches"], "export_server": job["launches"]}
+
+
+class _OneRankExchange:
+    """One rank's device work of an all-to-all, on one stream: the n - 1
+    pieces it takes copied into buffers of its own, as
+    parallel/comm.Comm._take copies them (the waits between ranks left out)."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def all_to_all(self, pieces):
+        import torch
+
+        return [pieces[0]] + [torch.empty(p.shape, dtype=p.dtype, device=p.device).copy_(p) for p in pieces[1:]]
+
+
+def run_parallel_path(bundle) -> dict:
+    """`parallel_path`: the mesh (parallel/) on the one card, its ranks threads
+    on repeated cuda:0, each on its own stream, over the full-width bf16
+    bundle. (a) one seeded T=21 chunk (export_path's conditioning, the
+    port's noise) on a 1-rank view mesh: latents bit-equal to the
+    unsharded chunk's, the same K1 and K2 launches. (b) the chunk on a
+    PARALLEL_VIEW-rank view mesh: latents against the unsharded ones
+    (PARALLEL_REL_L2, PARALLEL_MAX_ABS_REL), the decoded frames' PSNR, K1's
+    launches against n per joint layer per rank and K2's against one per
+    time-mix per rank, both walls (warm) and both chunks' device time by
+    class (torch.profiler, all streams); the ring merges' device time (each
+    merge shape of the run timed alone, times its count) and the
+    frames<->positions all-to-alls' (one rank's packing, copies and
+    unpacking of each exchange shape of the run, timed alone by CUDA
+    events, times its count). (c) the CLI's
+    render_one_scene (img2trajvid_s-prob, the orbit, PARALLEL_TARGETS
+    targets: 3 second-pass chunks) on one device, on a (2, 1) mesh (frames
+    bit-equal: the fan-out, padding and order change no computation), on a
+    PARALLEL_MESH (data, view) mesh and with chunk_batch=2 (PSNR against
+    one device at least PARALLEL_FRAME_PSNR_DB: bf16 conv and GroupNorm
+    results depend on the batch, scripts/batch_variance.py), the second
+    pass in 2 groups. All ranks share one card, so the walls show the
+    machinery's cost, not a speed-up. Returns the launch counts by path."""
+    import threading
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps import cli
+    from stable_virtual_camera_tpu_torch.config import VersionConfig
+    from stable_virtual_camera_tpu_torch.engine import runner
+    from stable_virtual_camera_tpu_torch.models import unet as unet_mod
+    from stable_virtual_camera_tpu_torch.parallel import ring_attention as pring
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+    from stable_virtual_camera_tpu_torch.parallel.sharding import make_sharded_sampler
+    from stable_virtual_camera_tpu_torch.sampling.sampler import euler_edm_sample, torch_noise
+
+    h = RES // 8
+    n = PARALLEL_VIEW
+    cond = seeded_chunk(bundle.spec.context_dim, h)
+    plan = bundle.plan(NUM_STEPS)
+    shape = (T, h, h, 4)
+
+    def draw(step):
+        return torch_noise(SEED, 0, 0, step, shape, DEVICE)
+
+    meshes = {v: make_mesh(1, v, devices=[DEVICE] * v) for v in (1, n)}
+
+    # the card's memory after each run: the ranks' streams each keep their
+    # own cached blocks, and a new rank thread's library handles need free
+    # memory outside that cache (parallel/comm.HANDLE_HEADROOM)
+    def memory():
+        free = torch.cuda.mem_get_info()[0]
+        return {"allocated_gb": torch.cuda.memory_allocated() / 1e9, "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+                "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9, "free_gb": free / 1e9}
+
+    torch.cuda.reset_peak_memory_stats()
+    memory_at = {"start": memory()}
+
+    def synced(fn):
+        def run():
+            x = fn()
+            torch.cuda.synchronize()
+            return x
+        return run
+
+    paths = {
+        "unsharded": synced(lambda: euler_edm_sample(bundle.network, draw(None), plan, cond, T, step_noise=draw)),
+        **{f"view{v}": synced(lambda m=m: make_sharded_sampler(bundle.network, m, T)(draw(None), plan, cond, draw))
+           for v, m in meshes.items()},
+    }
+
+    # the warm-up of the n-rank chunk notes every joint-layer call, ring
+    # merge shape and frames<->positions exchange shape it runs
+    noted: dict = {"joint": 0, "merge": {}, "exchange": {}}
+    lock = threading.Lock()
+    originals = {"ring": unet_mod.ring_sdpa_packed, "merge": pring.merge_partials,
+                 "f2p": unet_mod.frames_to_positions, "p2f": unet_mod.positions_to_frames}
+
+    def note(kind, key):
+        with lock:
+            noted[kind][key] = noted[kind].get(key, 0) + 1
+
+    def noting_ring(*a, **k):
+        with lock:
+            noted["joint"] += 1
+        return originals["ring"](*a, **k)
+
+    def noting_merge(acc, lse, o_i, lse_i):
+        note("merge", tuple(acc.shape))
+        return originals["merge"](acc, lse, o_i, lse_i)
+
+    def noting_exchange(name):
+        def wrapper(t, frames, group, axis):
+            note("exchange", (name, tuple(t.shape), frames, axis))
+            return originals[name](t, frames, group, axis)
+        return wrapper
+
+    runs = {}
+    for name, fn in paths.items():
+        if name == f"view{n}":
+            unet_mod.ring_sdpa_packed, pring.merge_partials = noting_ring, noting_merge
+            unet_mod.frames_to_positions = noting_exchange("f2p")
+            unet_mod.positions_to_frames = noting_exchange("p2f")
+        try:
+            fn()  # warm: the rank streams' allocator pools, cuDNN's plans at T / n frames
+        finally:
+            unet_mod.ring_sdpa_packed, pring.merge_partials = originals["ring"], originals["merge"]
+            unet_mod.frames_to_positions, unet_mod.positions_to_frames = originals["f2p"], originals["p2f"]
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        x = fn()
+        runs[name] = {"x": x, "s": time.perf_counter() - t0, "launches": _kernels.counts()}
+        memory_at[name] = memory()
+    profiles = {name: device_time_by_class(paths[name]) for name in ("unsharded", f"view{n}")}
+
+    # the machinery's device time: each ring merge shape alone on one stream,
+    # each exchange shape on the mesh (all ranks' copies), times its count
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    merge_ms = 0.0
+    for acc_shape, count in noted["merge"].items():
+        acc = torch.randn(acc_shape, generator=gen, device=DEVICE)
+        lse = torch.randn(acc_shape[:-1], generator=gen, device=DEVICE)
+        o_i = torch.randn(acc_shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+        merge_ms += cuda_ms(lambda: originals["merge"](acc, lse, o_i, lse), 10) * count
+    exchange_ms = 0.0
+    for (name, t_shape, frames, axis), count in noted["exchange"].items():
+        t = torch.randn(t_shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+        one_rank = _OneRankExchange(n)
+        exchange_ms += cuda_ms(lambda fn=originals[name], t=t, frames=frames, axis=axis:
+                               fn(t, frames, one_rank, axis), 10) * count
+
+    u, one, many = runs["unsharded"], runs["view1"], runs[f"view{n}"]
+    k1_k2 = ("flash_attention", "time_attention")
+    a_ok = bool(torch.equal(one["x"], u["x"])) and all(one["launches"][k] == u["launches"][k] > 0 for k in k1_k2)
+    diff = (many["x"] - u["x"]).float()
+    rel = (diff.norm() / u["x"].float().norm()).item()
+    max_abs = diff.abs().max().item()
+    scale = u["x"].float().abs().max().item()
+    frames_u = bundle.vae.decode(u["x"], None, uint8=True)
+    frames_n = bundle.vae.decode(many["x"], None, uint8=True)
+    # K1: one launch a per-frame layer per rank, n a joint layer per rank;
+    # the unsharded chunk runs each layer once. K2: one a time-mix per rank
+    joint_layers = noted["joint"] // n
+    k1_expected = n * (u["launches"]["flash_attention"] - joint_layers) + n * n * joint_layers
+    k2_expected = n * u["launches"]["time_attention"]
+    b_ok = (rel <= PARALLEL_REL_L2 and max_abs <= PARALLEL_MAX_ABS_REL * scale
+            and bool(torch.isfinite(many["x"]).all())
+            and many["launches"]["flash_attention"] == k1_expected
+            and many["launches"]["time_attention"] == k2_expected)
+
+    # (c) the CLI's render function: one device, two meshes, chunk_batch=2
+    groups = {"n": 0}
+    sample_many = runner.sample_many
+
+    def counted_many(*a, **k):
+        groups["n"] += 1
+        return sample_many(*a, **k)
+
+    renders = {}
+    runner.sample_many = counted_many
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            scene_dir = os.path.join(tmp, "scene")
+            os.makedirs(scene_dir)
+            img = np.random.default_rng(SEED).integers(0, 256, (RES, RES, 3), dtype=np.uint8)
+            scene = os.path.join(scene_dir, "seeded.png")
+            cv2.imwrite(scene, img)
+            for name, mesh_shape, extra in (("single", None, {}), ("data2_view1", (2, 1), {}),
+                                            ("mesh", PARALLEL_MESH, {}), ("chunk_batch", None, {"chunk_batch": 2})):
+                version = VersionConfig()
+                options = cli._default_options()
+                options.update(dict(num_steps=NUM_STEPS, traj_prior="orbit", num_targets=PARALLEL_TARGETS,
+                                    sampler_verbose=False, **extra))
+                bundle.mesh = None if mesh_shape is None else make_mesh(
+                    *mesh_shape, devices=[DEVICE] * (mesh_shape[0] * mesh_shape[1]))
+                groups["n"] = 0
+                torch.cuda.synchronize()
+                _kernels.reset_counts()
+                t0 = time.perf_counter()
+                out_dir = cli.render_one_scene(bundle, version, options, "img2trajvid_s-prob", scene,
+                                               os.path.join(tmp, name), use_traj_prior=True, seed=SEED)
+                torch.cuda.synchronize()
+                renders[name] = {"s": time.perf_counter() - t0, "launches": _kernels.counts(),
+                                 "groups": groups["n"], "T": version.T,
+                                 "frames": read_pngs(os.path.join(out_dir, "samples-rgb"))}
+                memory_at[f"cli_{name}"] = memory()
+    finally:
+        bundle.mesh = None
+        runner.sample_many = sample_many
+
+    def frame_diff(a, b):
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        return {"equal": bool(np.array_equal(a, b)), "max_step": int(d.max()), "differing": int((d > 0).sum()),
+                "above_one": int((d > 1).sum()), "values": int(d.size), "psnr_db": psnr(a, b)}
+
+    single = renders["single"]["frames"]
+    c_diffs = {k: frame_diff(renders[k]["frames"], single) for k in ("data2_view1", "mesh", "chunk_batch")}
+    c_ok = (single.shape == (PARALLEL_TARGETS, RES, RES, 3) and float(single.std()) > 0
+            and c_diffs["data2_view1"]["equal"]
+            and all(c_diffs[k]["psnr_db"] >= PARALLEL_FRAME_PSNR_DB for k in ("mesh", "chunk_batch"))
+            and renders["single"]["groups"] == 0
+            and all(renders[k]["groups"] == 2 for k in c_diffs)
+            and all(renders[k]["launches"][kk] > 0 for k in renders for kk in k1_k2))
+    ok = a_ok and b_ok and c_ok
+    emit({"phase": "parallel_path", "ok": ok,
+          "a_one_rank": {"ok": a_ok, "latents_bit_equal": bool(torch.equal(one["x"], u["x"])),
+                         "launches": {k: [one["launches"][k], u["launches"][k]] for k in k1_k2},
+                         "chunk_s": {"view1": one["s"], "unsharded": u["s"]}},
+          "b_view": {"ok": b_ok, "ranks": n, "frames_a_rank": T // n, "rel_l2": rel, "rel_l2_bar": PARALLEL_REL_L2,
+                     "max_abs": max_abs, "max_abs_bar": PARALLEL_MAX_ABS_REL * scale, "latent_max_abs": scale,
+                     "frames_psnr_db": psnr(frames_n, frames_u),
+                     "frames_max_step": int(np.abs(frames_n.astype(np.int16) - frames_u.astype(np.int16)).max()),
+                     "launches": {k: many["launches"][k] for k in k1_k2},
+                     "unsharded_launches": {k: u["launches"][k] for k in k1_k2},
+                     "joint_layers_per_chunk": joint_layers, "k1_expected": k1_expected, "k2_expected": k2_expected,
+                     "chunk_s": {f"view{n}": many["s"], "unsharded": u["s"]},
+                     "profile": profiles,
+                     "ring_merge_device_ms": merge_ms, "merges": sum(noted["merge"].values()),
+                     "all_to_all_device_ms": exchange_ms, "all_to_all_calls": sum(noted["exchange"].values())},
+          "c_cli": {"ok": c_ok, "mesh": list(PARALLEL_MESH), "T": renders["single"]["T"],
+                    "frames": list(single.shape), "diff_to_single": c_diffs, "psnr_bar_db": PARALLEL_FRAME_PSNR_DB,
+                    "groups": {k: r["groups"] for k, r in renders.items()},
+                    "render_s": {k: r["s"] for k, r in renders.items()},
+                    "launches": {k: {kk: r["launches"][kk] for kk in k1_k2} for k, r in renders.items()}},
+          "cuts": {"num_steps": f"{NUM_STEPS} (released default 50)",
+                   "weights": "random bf16 (flax-default init, seed 0), full width",
+                   "devices": "every rank on cuda:0 (one card), each on its own stream"},
+          "memory": memory_at})
+    del runs, meshes, profiles
+    gc.collect()
+    torch.cuda.empty_cache()  # the rank streams' cached blocks, before the training phases
+    if not ok:
+        raise AssertionError("the mesh's sampling disagrees with one device's, or its launches are wrong")
+    return {"parallel_view1": one["launches"], f"parallel_view{n}": many["launches"],
+            "parallel_cli": renders["mesh"]["launches"], "parallel_chunk_batch": renders["chunk_batch"]["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2928,7 +3219,9 @@ def main() -> int:
 
     counts: dict[str, dict] = {"render": {}, "advanced": {}, "gui": {}, "cli": {}, "checkpoint": {},
                                "train": {}, "k5": {}, "quant_w8a8": {}, "quant_static": {}, "server": {},
-                               "server_static": {}, "export": {}, "export_server": {}}
+                               "server_static": {}, "export": {}, "export_server": {},
+                               "parallel_view1": {}, f"parallel_view{PARALLEL_VIEW}": {}, "parallel_cli": {},
+                               "parallel_chunk_batch": {}}
     try:
         k5 = check_k5_layer_norm(gen)
         results["layer_norm"] = k5["result"]
@@ -2975,6 +3268,7 @@ def main() -> int:
                         ("quant_path", lambda: check_quant_path(bundle, upstream)),
                         ("server_path", lambda: check_server_path(cli_frames)),
                         ("export_path", lambda: run_export_path(cli_frames)),
+                        ("parallel_path", lambda: run_parallel_path(bundle)),
                         ("train_grad", lambda: check_train_grad(bundle, gen)),
                         ("train_profile", lambda: profile_train_step(bundle, gen)),
                         ("train_path", lambda: run_train_path(bundle))):
@@ -2999,7 +3293,7 @@ def main() -> int:
                     counts["checkpoint"] = out
                 elif key == "quant_path":
                     counts["quant_w8a8"], counts["quant_static"] = out["w8a8"], out["static"]
-                elif key in ("server_path", "export_path"):
+                elif key in ("server_path", "export_path", "parallel_path"):
                     counts.update(out)
                 elif key == "train_path":
                     counts["train"] = out
@@ -3071,6 +3365,10 @@ def main() -> int:
                    ("server_static", ("flash_attention", "time_attention")),
                    ("export", ("flash_attention", "time_attention")),
                    ("export_server", ("flash_attention", "time_attention")),
+                   ("parallel_view1", ("flash_attention", "time_attention")),
+                   (f"parallel_view{PARALLEL_VIEW}", ("flash_attention", "time_attention")),
+                   ("parallel_cli", ("flash_attention", "time_attention")),
+                   ("parallel_chunk_batch", ("flash_attention", "time_attention")),
                    ("train", TRAIN_KERNELS))
                for k in ks if counts[path].get(k, 0) == 0]
     if missing and not failures:

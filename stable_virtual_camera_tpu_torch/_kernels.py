@@ -11,7 +11,8 @@ libraries load with `ctypes`.
 
 Every C entry point returns `cudaGetLastError()` after its launch; `launch`
 raises if that is not 0. Each `Kernel` keeps a plain integer count of its
-launches, which a run can read to show that a path went through the kernel.
+launches, which a run can read to show that a path went through the kernel;
+a lock keeps the count whole when a mesh's rank threads launch at once.
 
 The wrappers in ops/ register their kernels as `torch.library` custom ops
 in the `svc` namespace (`OPS`), each with a fake implementation, so that
@@ -96,10 +97,12 @@ class Kernel:
                 f"{self.name}: kernel launch failed with CUDA error {code} "
                 f"({self._err(code).decode()})"
             )
-        self.launches += 1
+        with _COUNT_LOCK:  # a mesh's ranks launch from several threads
+            self.launches += 1
 
 
 _LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 # K1, K3 and K4 share one tile (csrc/flash_fwd_sm90.cuh) and one argument
 # list: q, k, v, o, lse (fp32 (B, H, L) or null), B, H, L, the tensor-map
@@ -188,8 +191,9 @@ def device_route(what: str, t) -> str:
 
 
 def reset_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
+    with _COUNT_LOCK:
+        for k in KERNELS.values():
+            k.launches = 0
 
 
 def counts() -> dict[str, int]:

@@ -12,8 +12,15 @@ cache (apps/convert_weights.py) or the released `model.safetensors`,
 --random_model True runs the tiny fp32 bundle at 64x64, --random_model
 full the full-width bf16 one at 576x576. --quant w8a8 | w8a8-static | 0
 sets the UNet's W8A8 serving mode (ops/quant.py; the static form calibrates
-on the first chunk it renders). The TPU package's mesh and platform flags
-have no counterpart yet: each raises.
+on the first chunk it renders).
+
+Multi-device sampling (parallel/): --mesh_view N shards every chunk whose
+T divides N over N ranks (a chunk of any other T runs unsharded, with a
+warning), --mesh_data M fans the second pass's chunks out over M rows of
+ranks; the mesh takes one CUDA device a rank (more ranks than devices
+raise), or with --device cpu repeats the CPU. --platform cpu | gpu picks
+the device as --device does (tpu raises: the TPU build is the JAX
+package). --mesh_model (tensor parallelism) is not ported yet and raises.
 
 The port's own flags: --device (default cuda) and --attention, the
 self-attention backend ("upstream", kernel K1; "flash", kernel K3;
@@ -236,10 +243,45 @@ def _default_options() -> EngineOptions:
     )
 
 
-def _build_bundle(checkpoint_dir, random_model, device="cuda", attention=None, quant=None):
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda"}
+
+
+def platform_device(platform, device):
+    """The device `--platform` names (JAX's cpu | gpu | tpu), else `device`."""
+    if platform is None:
+        return device
+    if str(platform) not in PLATFORMS:
+        raise ValueError(f"--platform {platform!r}: the port runs on 'gpu' (CUDA) or 'cpu'; "
+                         "the TPU build is the JAX package")
+    return PLATFORMS[str(platform)]
+
+
+def build_mesh(mesh_view=None, mesh_data=None, mesh_model=None, device="cuda"):
+    """The ("data", "view") mesh of --mesh_data and --mesh_view, or None
+    when both are 1 or unset: one CUDA device a rank on the card (more ranks
+    than devices raise), the CPU repeated off it."""
+    if mesh_model is not None:
+        raise NotImplementedError(
+            "--mesh_model (tensor parallelism) is not ported yet: it comes with the next slice of "
+            "ROADMAP queue 1, item 4 (parallel/param_sharding.py, make_mesh_tp)"
+        )
+    n_view = int(mesh_view) if mesh_view else 1
+    n_data = int(mesh_data) if mesh_data else 1
+    if n_view == 1 and n_data == 1:
+        return None
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(device)
+    mesh = make_mesh(n_data, n_view, devices=None if dev.type == "cuda" else [dev] * (n_data * n_view))
+    print(f"[cli] mesh sampling: data={n_data} x view={n_view} ranks on {mesh.devices}")
+    return mesh
+
+
+def _build_bundle(checkpoint_dir, random_model, device="cuda", attention=None, quant=None, mesh=None):
     """(bundle, is_tiny): the tiny fp32 random bundle for
     `--random_model True`, the full-width bf16 one for `--random_model full`,
-    else the weights in `checkpoint_dir`; `quant` is the UNet's W8A8 mode."""
+    else the weights in `checkpoint_dir`; `quant` is the UNet's W8A8 mode,
+    `mesh` (build_mesh) shards its sampling."""
     from stable_virtual_camera_tpu_torch.models import io as mio
 
     if random_model:
@@ -253,16 +295,17 @@ def _build_bundle(checkpoint_dir, random_model, device="cuda", attention=None, q
 
             bundle = mio.random_bundle(SevaSpec(), ClipVisionSpec(), dtype=torch.bfloat16,
                                        device=device, generator=generator, attention=attention,
-                                       quant=quant)
+                                       quant=quant, mesh=mesh)
             return bundle, False
         print("[cli] --random_model: tiny randomly initialized bundle (smoke mode)")
         return mio.random_bundle(device=device, generator=generator, attention=attention,
-                                 quant=quant), True
+                                 quant=quant, mesh=mesh), True
     if checkpoint_dir is None:
         raise SystemExit(
             "Provide --checkpoint_dir with converted weights or --random_model for a smoke run."
         )
-    return mio.load_bundle(checkpoint_dir, device=device, attention=attention, quant=quant), False
+    return mio.load_bundle(checkpoint_dir, device=device, attention=attention, quant=quant,
+                           mesh=mesh), False
 
 
 def main(
@@ -293,13 +336,9 @@ def main(
         quant = serving_mode(quant)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    for flag, value in (("mesh_view", mesh_view), ("mesh_data", mesh_data),
-                        ("mesh_model", mesh_model), ("platform", platform)):
-        if value is not None:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (ROADMAP queue 1, item 4: multi-GPU)"
-            )
-    bundle, is_tiny = _build_bundle(checkpoint_dir, random_model, device, attention, quant)
+    device = platform_device(platform, device)
+    mesh = build_mesh(mesh_view, mesh_data, mesh_model, device)
+    bundle, is_tiny = _build_bundle(checkpoint_dir, random_model, device, attention, quant, mesh)
     version = VersionConfig()
     if is_tiny:
         version = VersionConfig(H=64, W=64, T=bundle.spec.num_frames)

@@ -28,13 +28,19 @@ Run:  python -m stable_virtual_camera_tpu_torch.apps.server \\
           --checkpoint_dir ... [--port 8000] [--work_dir ...] [--quant w8a8-static]
           [--artifact_dir artifacts/]
       (--random_model True serves the tiny bundle, --random_model full the
-      full-width random one; --device cpu runs off the card.)
+      full-width random one; --device cpu or --platform cpu runs off the
+      card; --mesh_view / --mesh_data shard the jobs' sampling as in the
+      CLI, apps/cli.build_mesh.)
 
 With `--artifact_dir` (written by apps/export_artifacts.py) the chunks of
 a loaded (T, h, w, steps) bucket run the exported step program
 (models/export.py) instead of the live network; the loader refuses a model
 whose topology or W8A8 mode is not the exported one, so `--quant` and
 `--artifact_dir` do not go together.
+
+On a mesh, a chunk whose bucket has an exported program runs that program
+unsharded on the bundle's device, as JAX's `UNetDenoiser` runs an artifact
+whatever its mesh; every other chunk is sharded (engine/runner.py).
 
 Under `--quant w8a8-static` the bundle calibrates on the first chunk of the
 first job, never in `warmup_buckets`: the warmup's chunks are zeros, and
@@ -372,21 +378,27 @@ def main(
     artifact_dir=None,
     device="cuda",
     attention=None,
+    platform=None,
 ):
-    """Load the bundle once (on the card unless `device` says otherwise),
-    optionally warm it, then serve /v1 until interrupted."""
-    from stable_virtual_camera_tpu_torch.apps.cli import _build_bundle, _default_options
+    """Load the bundle once (on the card unless `device` or `platform` says
+    otherwise, on a mesh with `mesh_view` / `mesh_data`), optionally warm
+    it, then serve /v1 until interrupted."""
+    from stable_virtual_camera_tpu_torch.apps.cli import (
+        _build_bundle,
+        _default_options,
+        build_mesh,
+        platform_device,
+    )
     from stable_virtual_camera_tpu_torch.config import VersionConfig
     from stable_virtual_camera_tpu_torch.ops.quant import serving_mode
 
-    for flag, value in (("mesh_view", mesh_view), ("mesh_data", mesh_data)):
-        if value is not None:
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP queue 1, item 4: multi-GPU)")
     try:
         quant = serving_mode(quant)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    bundle, is_tiny = _build_bundle(checkpoint_dir, random_model, device, attention, quant)
+    device = platform_device(platform, device)
+    mesh = build_mesh(mesh_view, mesh_data, device=device)
+    bundle, is_tiny = _build_bundle(checkpoint_dir, random_model, device, attention, quant, mesh)
     if artifact_dir is not None:
         attach_artifacts(bundle, artifact_dir)
 

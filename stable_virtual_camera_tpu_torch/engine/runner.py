@@ -11,7 +11,8 @@ with OpenCV), `None` (a blank frame of the previous image's size) or
 arrays, as in JAX.
 
 Differences by design: VAE/CLIP en/decode chunk with a Python loop over
-`encoding_t`/`decoding_t` (0 = one batch); chunks run one after another; PNG
+`encoding_t`/`decoding_t` (0 = one batch); chunks run one after another
+unless a mesh or `chunk_batch` groups the second pass's; PNG
 and mp4 writes are synchronous and happen only when a `save_path` is given.
 Without one, `run_one_scene` yields each pass's uint8 frames instead of file
 paths. Initial and churn noise come from `noise_fn` (sampling/sampler.py).
@@ -25,6 +26,17 @@ conditioning (`ensure_quant_calibrated`), as JAX's
 (models/export.py): a chunk whose bucket is there runs the pinned program,
 any other the live step, as JAX's `UNetDenoiser.sample` does. Both routes
 are the same host loop, so progress and abort stay per step on both.
+
+`bundle.mesh` (parallel/mesh.py, a ("data", "view") grid) shards sampling
+as JAX's `UNetDenoiser(mesh=...)` does: a chunk whose T divides the view
+axis runs view-sharded (parallel/sharding.make_sharded_sampler, on the
+mesh's first data row), any other unsharded after a warning once per T; an
+exported bucket runs its program unsharded, as JAX runs the artifact. The
+second pass builds every chunk's work first and, without a per-step
+progress callback, fans the chunks out in groups of the data axis
+(`sample_many`), the last group padded by repeating its last chunk and the
+padding dropped; without a data axis, the `chunk_batch` option groups them
+on one device. Static W8A8 calibrates before a group runs.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import contextlib
 import copy
 import hashlib
 import os.path as osp
+import threading
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable, Iterator
@@ -60,6 +73,12 @@ from stable_virtual_camera_tpu_torch.engine.value_dict import ChunkValues, build
 from stable_virtual_camera_tpu_torch.models.clip import ClipVisionTower, preprocess
 from stable_virtual_camera_tpu_torch.models.unet import SevaUNet, assemble_network_input
 from stable_virtual_camera_tpu_torch.models.vae import DOWNSAMPLE, AutoEncoderKL
+from stable_virtual_camera_tpu_torch.parallel.mesh import Mesh
+from stable_virtual_camera_tpu_torch.parallel.sharding import (
+    make_batched_sampler,
+    make_data_parallel_sampler,
+    make_sharded_sampler,
+)
 from stable_virtual_camera_tpu_torch.sampling import guidance
 from stable_virtual_camera_tpu_torch.sampling.discretization import DDPMDiscretization
 from stable_virtual_camera_tpu_torch.sampling.sampler import (
@@ -166,20 +185,51 @@ class ModelBundle:
     discretization: DDPMDiscretization = field(default_factory=DDPMDiscretization)
     # (T, h, w, steps) -> models/export.DenoiseArtifact
     artifacts: dict = field(default_factory=dict)
+    # view-sharded chunks, data-parallel second passes
+    mesh: Mesh | None = None
 
     _plans: dict[int, SamplingPlan] = field(default_factory=dict)
+    # device -> ((W8A8 mode, calibrated), the UNet's copy there); rank
+    # threads may ask for one at once
+    _replicas: dict = field(default_factory=dict)
+    _replica_lock: threading.Lock = field(default_factory=threading.Lock)
+    _warned_unsharded: set = field(default_factory=set)
 
     @property
     def device(self) -> torch.device:
         return _device(self.unet)
+
+    def unet_on(self, device) -> SevaUNet:
+        """The UNet on `device`: the bundle's own there, else its replica
+        (a copy made when first asked for, and again after the bundle's
+        W8A8 mode or calibration changed). Ranks that share a device share
+        one module."""
+        device = torch.device(device)
+        if device == self.device:
+            return self.unet
+        key = (self.unet.quant, self.unet.quant_calibrated)
+        with self._replica_lock:
+            held = self._replicas.get(device)
+            if held is None or held[0] != key:
+                self._replicas.pop(device, None)
+                self._replicas[device] = (key, copy.deepcopy(self.unet).to(device))
+            return self._replicas[device][1]
+
+    def replicate(self) -> None:
+        """A UNet replica on every device of the mesh that does not hold the bundle's."""
+        for dev in dict.fromkeys(self.mesh.devices if self.mesh is not None else []):
+            self.unet_on(dev)
 
     def plan(self, num_steps: int) -> SamplingPlan:
         if num_steps not in self._plans:
             self._plans[num_steps] = make_sampling_plan(self.discretization, num_steps)
         return self._plans[num_steps]
 
-    def network(self, x, concat, t_vec, crossattn, dense, num_frames):
-        return self.unet(assemble_network_input(x, concat), t_vec, crossattn, dense, num_frames)
+    def network(self, x, concat, t_vec, crossattn, dense, num_frames, group=None):
+        """The UNet on x's device; with a view `group`, one rank's share
+        (`num_frames` frames a scene, models/unet.py)."""
+        return self.unet_on(x.device)(assemble_network_input(x, concat), t_vec, crossattn, dense,
+                                      num_frames, group=group)
 
 
 def build_chunk_conditioning(
@@ -287,13 +337,36 @@ def sample_latents(bundle: ModelBundle, noise: torch.Tensor, plan: SamplingPlan,
                    abort_event=None) -> torch.Tensor | None:
     """One chunk's denoising loop: through the bundle's exported step
     program when its bucket (T, h, w, steps) is loaded, else through the
-    live network. Returns None when aborted."""
+    live network, view-sharded over the bundle's mesh when T divides its
+    view axis. Returns None when aborted."""
     T, h, w, _ = noise.shape
     artifact = getattr(bundle, "artifacts", {}).get((T, h, w, plan.num_steps))
     if artifact is not None:
         return artifact.sample(bundle.unet, noise, plan, cond, step_noise, progress_cb, abort_event)
+    mesh = getattr(bundle, "mesh", None)
+    if mesh is not None:
+        n_view = mesh.shape["view"]
+        if T % n_view == 0:
+            return make_sharded_sampler(bundle.network, mesh, T)(noise, plan, cond, step_noise,
+                                                                  progress_cb, abort_event)
+        if T not in bundle._warned_unsharded:
+            bundle._warned_unsharded.add(T)
+            print(f"[sampler] WARNING: T={T} does not divide the mesh view axis ({n_view}); "
+                  "this shape bucket runs UNSHARDED on one device")
     return euler_edm_sample(bundle.network, noise, plan, cond, T, step_noise=step_noise,
                             progress_cb=progress_cb, abort_event=abort_event)
+
+
+def sample_many(bundle: ModelBundle, noises, plan: SamplingPlan, conds, step_noises) -> torch.Tensor:
+    """N independent chunks (JAX's `UNetDenoiser.sample_many`): over the
+    bundle's mesh, its data rows taking N / n_data chunks each
+    (parallel/sharding.make_data_parallel_sampler; N a multiple of the data
+    axis), else as one batch on the bundle's device. `noises[c]`, `conds[c]`
+    and `step_noises[c]` are chunk c's; returns (N, T, h, w, C)."""
+    T = noises[0].shape[0]
+    if getattr(bundle, "mesh", None) is not None:
+        return make_data_parallel_sampler(bundle.network, bundle.mesh, T)(noises, plan, conds, step_noises)
+    return make_batched_sampler(bundle.network, T)(noises, plan, conds, step_noises)
 
 
 def sample_chunk(
@@ -722,15 +795,18 @@ class SceneEngine:
             cfg2 = _cfg_at(cfg_opt, 1)
             all_samples = {}
             all_test_inds: list[int] = []
-            for i, (c_pri_inds, c_pri_sels, c_test_inds, c_test_sels) in enumerate(
-                zip(plan2.input_inds_per_chunk, plan2.input_sels_per_chunk,
-                    plan2.test_inds_per_chunk, plan2.test_sels_per_chunk)
-            ):
-                with stage("second_pass_build"):
+            # every chunk's work first: second-pass chunks depend only on the
+            # fixed anchors, so they can run one by one or in groups
+            work = []
+            with stage("second_pass_build"):
+                for i, (c_pri_inds, c_pri_sels, c_test_inds, c_test_sels) in enumerate(
+                    zip(plan2.input_inds_per_chunk, plan2.input_sels_per_chunk,
+                        plan2.test_inds_per_chunk, plan2.test_sels_per_chunk)
+                ):
                     curr_prior_sels, _, curr_prior_maps, curr_test_maps = planner.pad_indices(
                         c_pri_sels, c_test_sels, T=T_second, padding_mode="last"
                     )
-                    curr_imgs, curr_imgs_clip, curr_c2ws, curr_Ks = [
+                    curr = [
                         planner.assemble(input=x[c_pri_inds], test=y[c_test_inds],
                                          input_maps=curr_prior_maps, test_maps=curr_test_maps)
                         for x, y in zip(
@@ -739,18 +815,13 @@ class SceneEngine:
                         )
                     ]
                     values = chunk_values_for(
-                        curr_imgs, curr_imgs_clip, curr_prior_sels, curr_c2ws, curr_Ks, list(range(T_second))
+                        curr[0], curr[1], curr_prior_sels, curr[2], curr[3], list(range(T_second))
                     )
-                with stage("second_pass_sample"):
-                    samples = sample_chunk(
-                        bundle, values, num_steps=num_steps, cfg=cfg2, guider_type=guider2,
-                        cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
-                        encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
-                        abort_event=abort_event, progress_cb=second_pass_pbar, output_uint8=True,
-                    )
-                if samples is None:
-                    return
+                    work.append((i, c_test_sels, c_test_inds, curr, values))
+
+            def flush(samples, i, c_test_sels, c_test_inds, curr):
                 with stage("second_pass_flush"):
+                    curr_imgs, _, curr_c2ws, curr_Ks = curr
                     samples = decode_output(samples, T_second, c_test_sels)
                     if save_path is not None and options.get("save_second_pass", False):
                         save_output(
@@ -760,6 +831,53 @@ class SceneEngine:
                         )
                     extend_dict(all_samples, samples)
                 all_test_inds.extend(keep[k] for k in c_test_inds)
+
+            # without per-step progress, independent chunks run in groups:
+            # the mesh's data rows take one each (sample_many), or without a
+            # data axis `chunk_batch` of them batch on one device; a last
+            # partial group is padded with its last chunk, whose repeats are
+            # dropped. Each chunk keeps its own noise, as in the serial loop
+            mesh = getattr(bundle, "mesh", None)
+            n_data = mesh.shape["data"] if mesh is not None else 1
+            chunk_batch = int(options.get("chunk_batch", 0) or 0)
+            width = 0
+            if len(work) > 1 and second_pass_pbar is None:
+                width = n_data if n_data > 1 else chunk_batch if chunk_batch > 1 else 0
+            n_grouped = len(work) if width else 0
+            dev = bundle.device
+            for g in range(0, n_grouped, max(width, 1)):
+                if abort_event is not None and abort_event.is_set():
+                    return
+                group = work[g : g + width]
+                padded = group + [group[-1]] * (width - len(group))
+                with stage("second_pass_conditioning"):
+                    conds, shape = [], None
+                    for item in padded:
+                        cond, shape = build_chunk_conditioning(
+                            bundle, item[4], cfg=cfg2, guider_type=guider2, cfg_min=cfg_min,
+                            encoding_t=enc_t, latent_downsample=F,
+                        )
+                        conds.append(cond)
+                    ensure_quant_calibrated(bundle, shape, bundle.plan(num_steps), conds[0])
+                    draws = [
+                        lambda step, _i=item[0]: noise(2, _i, step, shape, dev).to(dev, torch.float32)
+                        for item in padded
+                    ]
+                with stage("second_pass_sample_many"):
+                    xs = sample_many(bundle, [d(None) for d in draws], bundle.plan(num_steps), conds, draws)
+                for item, x in zip(group, xs):
+                    flush(bundle.vae.decode(x, dec_t, uint8=True), *item[:4])
+            for i, c_test_sels, c_test_inds, curr, values in work[n_grouped:]:
+                with stage("second_pass_sample"):
+                    samples = sample_chunk(
+                        bundle, values, num_steps=num_steps, cfg=cfg2, guider_type=guider2,
+                        cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
+                        encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
+                        abort_event=abort_event, progress_cb=second_pass_pbar, output_uint8=True,
+                    )
+                if samples is None:
+                    return
+                flush(samples, i, c_test_sels, c_test_inds, curr)
             if delivered:
                 rows = [r for _, r in delivered]
                 extend_dict(all_samples, {"samples-rgb/image": to_uint8(traj_prior_imgs[rows])})

@@ -107,14 +107,16 @@ def build_models(spec: SevaSpec, clip_spec: ClipVisionSpec, device, dtype,
     return tuple(_finish(m, dtype, device) for m in models)
 
 
-def _bundle(spec, unet, vae, clip):
+def _bundle(spec, unet, vae, clip, mesh=None):
     from stable_virtual_camera_tpu_torch.engine.runner import (
         ClipApplier,
         ModelBundle,
         VaeApplier,
     )
 
-    return ModelBundle(spec=spec, unet=unet, vae=VaeApplier(vae), clip=ClipApplier(clip))
+    bundle = ModelBundle(spec=spec, unet=unet, vae=VaeApplier(vae), clip=ClipApplier(clip), mesh=mesh)
+    bundle.replicate()
+    return bundle
 
 
 def random_bundle(
@@ -125,13 +127,16 @@ def random_bundle(
     generator: torch.Generator | None = None,
     attention: str | None = None,
     quant=None,
+    mesh=None,
 ):
     """A ModelBundle with flax-default random weights (tests, smoke runs),
     on the card unless `device` says otherwise. Weights are drawn in fp32 on
     `device` from `generator` (seed 0 on that device when omitted), then
     cast to `dtype`. `attention` is the UNet's self-attention backend
     (`attention_backend`) and `quant` its W8A8 mode (`load_bundle`); the
-    weights depend on neither."""
+    weights depend on neither. `mesh` (parallel/mesh.py) shards the
+    bundle's sampling (engine/runner.py); ranks on `device` share its UNet,
+    a rank on another device gets a replica."""
     spec = spec or SevaSpec.tiny()
     clip_spec = clip_spec or ClipVisionSpec.tiny()
     mode = serving_mode(quant)
@@ -140,7 +145,7 @@ def random_bundle(
     models = _modules(spec, clip_spec, device, attention_backend(attention, dtype, device))
     models = [_finish(init_flax_defaults(m, generator), dtype, device) for m in models]
     models[0].set_quant(mode)
-    return _bundle(spec, *models)
+    return _bundle(spec, *models, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -399,6 +404,7 @@ def load_bundle(
     device="cuda",
     attention: str | None = None,
     quant=None,
+    mesh=None,
 ):
     """A ModelBundle from `checkpoint_dir`, which holds either the converted
     cache (`converted_{unet,vae,clip}.safetensors`) or the released files
@@ -409,7 +415,7 @@ def load_bundle(
     (`attention_backend`). `quant` is the UNet's W8A8 serving mode
     (ops/quant.py): None or "0" exact, "w8a8" dynamic, "w8a8-static"
     calibrated on the bundle's first chunk (engine/runner.py); anything else
-    raises ValueError."""
+    raises ValueError. `mesh` as for `random_bundle`."""
     mode = serving_mode(quant)
     stored = load_checkpoint_specs(checkpoint_dir)
     if spec is None and "seva" in stored:
@@ -433,4 +439,4 @@ def load_bundle(
     unet = _loaded(lambda: SevaUNet(spec, backend), unet_sd, "UNet", dtype, device).set_quant(mode)
     vae = _loaded(AutoEncoderKL, vae_sd, "VAE", dtype, device)
     clip = _loaded(lambda: ClipVisionTower(clip_spec), clip_sd, "CLIP", dtype, device)
-    return _bundle(spec, unet, vae, clip)
+    return _bundle(spec, unet, vae, clip, mesh=mesh)

@@ -39,6 +39,20 @@ every mode, as on JAX's time-kernel branch. The time-embedding MLPs,
 emb_proj, dense_proj, the stem and out convs, the VAE and CLIP are never
 quantized. Mode "0" runs the same operations as a model without this
 support.
+
+View sharding (parallel/): `forward(..., group=comm)` runs one rank's share
+of a chunk, `num_frames` frames of each scene (the chunk's T / group.size;
+rank r holds frames r*num_frames..(r+1)*num_frames-1 of every scene), as
+JAX's `ring_mesh`/`ring_axis` UNet runs under shard_map. The convs,
+GroupNorm, FiLM, cross-attention and per-frame self-attention are per
+frame and stay local. The time context is each scene's first frame of the
+chunk, broadcast from rank 0. The joint (T*h*w)-token self-attention runs
+as a ring (parallel/ring_attention.py: K1 a block where the backend routes
+to it, else the plain twin), and the temporal attention moves the
+projections from frames to positions with an all-to-all, runs K2 (or the
+einsum branch above 32 frames) over all T frames at this rank's share of
+the positions, and moves the output back. Without a group the UNet runs
+exactly as before.
 """
 
 from __future__ import annotations
@@ -79,8 +93,38 @@ from stable_virtual_camera_tpu_torch.ops.time_attention import (
     time_attention_bhds,
     time_attention_plain,
 )
+from stable_virtual_camera_tpu_torch.parallel.ring_attention import ring_sdpa_packed
 
 FLASH_MIN_LEN = 1024
+
+
+def _split_sizes(n: int, parts: int) -> list[int]:
+    return [n // parts + (1 if j < n % parts else 0) for j in range(parts)]
+
+
+def frames_to_positions(t: torch.Tensor, frames: int, group, axis: int) -> torch.Tensor:
+    """All-to-all from a rank's frames to its share of the positions: t is
+    (b * frames, ...) with the spatial positions S on `axis`; returns
+    (b * frames * n, ...) holding every frame of each scene, in rank order,
+    at this rank's S / n positions (split as evenly as S allows)."""
+    n = group.size
+    if n == 1:
+        return t
+    b = t.shape[0] // frames
+    pieces = torch.split(t.unflatten(0, (b, frames)), _split_sizes(t.shape[axis], n), dim=axis + 1)
+    return torch.cat(group.all_to_all(list(pieces)), dim=1).flatten(0, 1)
+
+
+def positions_to_frames(t: torch.Tensor, frames: int, group, axis: int) -> torch.Tensor:
+    """The inverse of `frames_to_positions`: t is (b * frames * n, ...) at
+    this rank's share of the positions on `axis`; returns (b * frames, ...)
+    at all positions."""
+    n = group.size
+    if n == 1:
+        return t
+    tv = t.unflatten(0, (t.shape[0] // (frames * n), frames * n))
+    pieces = [tv[:, j * frames : (j + 1) * frames] for j in range(n)]
+    return torch.cat(group.all_to_all(pieces), dim=axis + 1).flatten(0, 1)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -206,14 +250,21 @@ class SelfAttention(nn.Module):
         self.qkv = QuantLinear(query_dim, 3 * inner, bias=False)
         self.to_out = QuantLinear(inner, query_dim)
 
-    def forward(self, x, time_frames: int | None = None):
+    def forward(self, x, time_frames: int | None = None, group=None):
+        """Self-attention over x (B, L, C); with `time_frames`, temporal
+        attention over that many frames a scene. With a view `group` the
+        joint attention runs as a ring over the group's sequence shards, and
+        the temporal attention over every rank's frames."""
         if time_frames is not None:
-            return self._temporal(x, time_frames)
+            return self._temporal(x, time_frames, group)
         B, L, _ = x.shape
         H, D = self.heads, self.dim_head
         # (B, L, 3 * inner); under W8A8 the int8 product writes the same
         # layout, so the flash route takes the same strided views
         qkv = self.qkv(x)
+        if group is not None:
+            kernel = self.attention != "plain" and D == FLASH_HEAD_DIM  # K1's one head dim
+            return self.to_out(ring_sdpa_packed(*qkv.chunk(3, dim=-1), H, group, kernel))
         if self.attention in ("upstream", "plain") and D == FLASH_HEAD_DIM and L >= FLASH_MIN_LEN:
             # (B, H, L, D) strided views of the packed projection; the kernel
             # writes (B, L, H, D), so to_out reads it with no copy
@@ -224,27 +275,43 @@ class SelfAttention(nn.Module):
         q, k, v = qkv.chunk(3, dim=-1)
         return self.to_out(sdpa_packed(q, k, v, H, backend=self.attention))
 
-    def _temporal(self, x, T: int):
-        B, S, C = x.shape
+    def _temporal(self, x, frames: int, group=None):
+        """`frames` frames a scene on this rank; with a view group the
+        attention runs over all frames * group.size of them, at this rank's
+        share of the positions between two all-to-alls."""
         H, D = self.heads, self.dim_head
         inner = H * D
+        n = 1 if group is None else group.size
+        T = frames * n
         if T <= TIME_MAX_FRAMES:
             # W x^T writes the kernel's (b*T, H, D, S) layout (S contiguous)
             # straight from the GEMM; to_out reads it back transposed. Both
             # projections stay exact in every W8A8 mode (JAX's time-kernel
-            # branch keeps them as einsums)
+            # branch keeps them as einsums). Under a group the all-to-all
+            # hands K2 a contiguous (b*T, 3*inner, S/n) tensor
             qkv = torch.matmul(self.qkv.weight, x.transpose(1, 2))  # (B, 3*inner, S)
-            q, k, v = qkv.view(B, 3, H, D, S).unbind(1)
+            if n > 1:
+                qkv = frames_to_positions(qkv, frames, group, axis=2)
+            BT, _, S = qkv.shape
+            q, k, v = qkv.view(BT, 3, H, D, S).unbind(1)
             kernel = self.attention != "plain" and D == TIME_HEAD_DIM  # K2's one head dim
-            o = (time_attention_bhds if kernel else time_attention_plain)(q, k, v, T)
-            return F.linear(o.reshape(B, inner, S).transpose(1, 2), self.to_out.weight, self.to_out.bias)
+            o = (time_attention_bhds if kernel else time_attention_plain)(q, k, v, T).reshape(BT, inner, S)
+            if n > 1:
+                o = positions_to_frames(o, frames, group, axis=2)
+            return F.linear(o.transpose(1, 2), self.to_out.weight, self.to_out.bias)
+        qkv = self.qkv(x)  # (B, S, 3*inner)
+        if n > 1:
+            qkv = frames_to_positions(qkv, frames, group, axis=1)
+        B, S, _ = qkv.shape
         b = B // T
         q, k, v = (
-            t.reshape(b, T, S, H, D) for t in self.qkv(x).chunk(3, dim=-1)
+            t.reshape(b, T, S, H, D) for t in qkv.chunk(3, dim=-1)
         )
         s = torch.einsum("bqshd,bkshd->bshqk", q.float(), k.float()) * D**-0.5
         p = torch.softmax(s, dim=-1).to(v.dtype)
         o = torch.einsum("bshqk,bkshd->bqshd", p, v).reshape(B, S, inner)
+        if n > 1:
+            o = positions_to_frames(o, frames, group, axis=1)
         return self.to_out(o)
 
 
@@ -290,8 +357,8 @@ class TransformerBlock(nn.Module):
         self.norm3 = LayerNorm32(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context):
-        x = self.attn1(self.norm1(x)) + x
+    def forward(self, x, context, group=None):
+        x = self.attn1(self.norm1(x), group=group) + x
         # norm2 feeds only the (dead) query projection of single-token
         # cross-attention; it is kept for the checkpoint and not evaluated
         x = self.attn2(context) + x
@@ -313,11 +380,11 @@ class TransformerBlockTimeMix(nn.Module):
         self.norm3 = LayerNorm32(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, time_context, num_frames: int):
+    def forward(self, x, time_context, num_frames: int, group=None):
         B, S, C = x.shape
         b = B // num_frames
         x = self.ff_in(self.norm_in(x)) + x
-        x = self.attn1(self.norm1(x), time_frames=num_frames) + x
+        x = self.attn1(self.norm1(x), time_frames=num_frames, group=group) + x
         cross = self.attn2(time_context)  # (b, 1, C), one row per scene
         x = x + cross[:, None].expand(b, num_frames, 1, C).reshape(B, 1, C)
         return self.ff(self.norm3(x))
@@ -345,20 +412,25 @@ class MultiviewTransformer(nn.Module):
             )
         self.proj_out = QuantLinear(inner, channels)
 
-    def forward(self, x, context, num_frames: int):
+    def forward(self, x, context, num_frames: int, group=None, time_context=None):
+        """`num_frames` frames a scene (this rank's, under a view `group`);
+        `time_context` is each scene's first-frame context, taken from
+        `context` when not given."""
         B, h, w, C = x.shape
         b = B // num_frames
-        time_context = context[::num_frames]
+        if time_context is None:
+            time_context = context[::num_frames]
         ctx = time_context if self.unflatten else context
+        joint_group = group if self.unflatten else None
         y = self.proj_in(self.norm(x).reshape(B, h * w, C))
         inner = y.shape[-1]
         for d in range(self.depth):
             if self.unflatten:
                 y = y.reshape(b, num_frames * h * w, inner)
-            y = getattr(self, f"spatial_{d}")(y, ctx)
+            y = getattr(self, f"spatial_{d}")(y, ctx, joint_group)
             if self.unflatten:
                 y = y.reshape(B, h * w, inner)
-            y = y + getattr(self, f"temporal_{d}")(y, time_context, num_frames)
+            y = y + getattr(self, f"temporal_{d}")(y, time_context, num_frames, group)
         return x + self.proj_out(y).reshape(B, h, w, C)
 
 
@@ -554,9 +626,18 @@ class SevaUNet(nn.Module):
         finally:
             self.set_quant(prev)
 
-    def forward(self, x, t_idx, context, dense_emb, num_frames: int):
+    def forward(self, x, t_idx, context, dense_emb, num_frames: int, group=None):
+        """`num_frames` frames a scene. With a view `group` (parallel/comm.Comm)
+        this is one rank's share: num_frames = T / group.size frames of each
+        scene, the ranks together the whole chunk."""
         dt = self.dtype
         x, context, dense_emb = x.to(dt), context.to(dt), dense_emb.to(dt)
+        # a view group reaches the MultiviewTransformers as keywords only when
+        # set, so an unsharded forward calls each block as before (training's
+        # remat wraps their forwards with positional arguments)
+        mvt = {}
+        if group is not None:
+            mvt = {"group": group, "time_context": group.broadcast(context[::num_frames], src=0)}
         temb = self.time_embed_0(timestep_embedding(t_idx, self.spec.model_channels).to(dt))
         temb = self.time_embed_2(F.silu(temb.float()).to(dt))
 
@@ -568,17 +649,17 @@ class SevaUNet(nn.Module):
             else:
                 h = getattr(self, name)(h, temb, dense_emb)
                 if attn is not None:
-                    h = getattr(self, attn)(h, context, num_frames)
+                    h = getattr(self, attn)(h, context, num_frames, **mvt)
             hs.append(h)
 
         h = self.middle_block_0(h, temb, dense_emb)
-        h = self.middle_block_1(h, context, num_frames)
+        h = self.middle_block_1(h, context, num_frames, **mvt)
         h = self.middle_block_2(h, temb, dense_emb)
 
         for name, attn, up in self._decoder:
             h = getattr(self, name)(torch.cat([h, hs.pop()], dim=-1), temb, dense_emb)
             if attn is not None:
-                h = getattr(self, attn)(h, context, num_frames)
+                h = getattr(self, attn)(h, context, num_frames, **mvt)
             if up is not None:
                 h = getattr(self, up)(h)
 

@@ -4,7 +4,10 @@ K4 flash attention on packed (B, L, W), K5 LayerNorm) against their plain
 versions on the card, the wrappers' refusals, a backward through SevaUNet on
 the card that reaches the attention weights, K3's recompute backward against
 K1's kernel backward, a UNet exported through torch.export against its eager
-forward, and a DUSt3R forward on the card against the CPU.
+forward, a DUSt3R forward on the card against the CPU, and the view-sharded
+ring attention (parallel/ring_attention.py) over ranks on repeated cuda:0,
+its blocks through K1 against the ring through the plain twin, and rank
+threads started on a card whose allocator cache fills it.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
 neither jax nor the test conftest, so on a machine with the card and no JAX
@@ -550,3 +553,92 @@ def test_fp32_unet_forward_takes_the_plain_routes(cuda, monkeypatch):
         torch.cuda.synchronize()
     assert _kernels.counts() == before
     assert torch.isfinite(out).all() and _rel(out.cpu(), ref) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L", [(2, 20, 567), (2, 10, 2268)])
+def test_ring_attention_with_k1_matches_the_ring_with_its_plain_twin(cuda, B, H, L):
+    """The view-sharded joint attention on one card: 3 ranks on repeated
+    cuda:0, each on its own stream, each block through K1 (n launches a
+    rank) against the same ring through the plain twin, and against K1 over
+    the whole sequence; L is a rank's share of the 576x576 render's ds8 and
+    ds4 joint tokens (1701 / 3, 6804 / 3). K1's bars (max 2e-2, mean 2e-3)."""
+    from stable_virtual_camera_tpu_torch.parallel.comm import run_ranks
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+    from stable_virtual_camera_tpu_torch.parallel.ring_attention import ring_attention
+
+    n = 3
+    rng = np.random.default_rng(L)
+    q, k, v = _bf16(rng, (B, n * L, 3, H, 64), cuda).permute(2, 0, 3, 1, 4).unbind(0)
+    mesh = make_mesh(1, n, devices=[cuda] * n)
+
+    def ring(kernel):
+        def shard(ctx):
+            rows = slice(ctx.view * L, (ctx.view + 1) * L)
+            return ring_attention(q[:, :, rows], k[:, :, rows], v[:, :, rows], ctx.comm, kernel)
+        return torch.cat(run_ranks(mesh, shard), dim=2)
+
+    before = _kernels.FLASH_ATTENTION.launches
+    out = ring(True)
+    assert _kernels.FLASH_ATTENTION.launches == before + n * n
+    twin = ring(False)
+    whole = flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    for ref in (twin, whole):
+        diff = (out.float() - ref.float()).abs()
+        assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_one_rank_ring_is_k1_bit_for_bit(cuda):
+    """A 1-rank ring on its own stream returns K1's output (written with the
+    LSE) bit for bit, and K1 writes the same o with and without its LSE."""
+    from stable_virtual_camera_tpu_torch.parallel.comm import run_ranks
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+    from stable_virtual_camera_tpu_torch.parallel.ring_attention import ring_attention
+
+    rng = np.random.default_rng(3)
+    q, k, v = _bf16(rng, (2, 1701, 3, 20, 64), cuda).permute(2, 0, 3, 1, 4).unbind(0)
+    (out,) = run_ranks(make_mesh(1, 1, devices=[cuda]), lambda ctx: ring_attention(q, k, v, ctx.comm))
+    o_lse, _ = flash_attention_cuda(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, o_lse) and torch.equal(o_lse, flash_attention_cuda(q, k, v))
+
+
+@pytest.mark.cuda
+def test_rank_threads_start_on_a_card_the_cache_fills(cuda):
+    """A rank's stream and a new rank thread's cuBLAS and cuDNN handles are
+    created outside the caching allocator. With its cache holding the card,
+    a mesh of more ranks than any earlier call still starts, each rank's
+    bf16 matmul and conv within 1e-2 of the caller's (the libraries may pick
+    other algorithms on other streams); meshes built one after another share
+    their ranks' streams, and a mesh's ranks on one card each have their own."""
+    import torch.nn.functional as F
+
+    from stable_virtual_camera_tpu_torch.parallel.comm import HANDLE_HEADROOM, run_ranks
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+
+    n = 16
+    rng = np.random.default_rng(5)
+    a, x, w = (_bf16(rng, s, cuda) for s in ((256, 256), (1, 8, 32, 32), (8, 8, 3, 3)))
+
+    def work():
+        return a @ a, F.conv2d(x, w, padding=1)
+
+    ref = work()
+    held, size = [], 1 << 30
+    while size >= 2 << 20:
+        try:
+            held.append(torch.empty(size, dtype=torch.uint8, device=cuda))
+        except torch.cuda.OutOfMemoryError:
+            size //= 2
+    del held  # every block stays in the allocator's cache
+    assert torch.cuda.mem_get_info(cuda)[0] < HANDLE_HEADROOM
+    mesh = make_mesh(1, n, devices=[cuda] * n)
+    outs = run_ranks(mesh, lambda ctx: work())
+    torch.cuda.synchronize()
+    for out in outs:
+        for o, r in zip(out, ref):
+            assert (o.float() - r.float()).abs().max().item() <= 1e-2 * r.float().abs().max().item()
+    assert make_mesh(2, 8, devices=[cuda] * n).stream(5) is mesh.stream(5)
+    assert len({id(mesh.stream(r)) for r in range(n)}) == n

@@ -1,6 +1,7 @@
 """The port's main path, its CLI, its fine-tuning path, its Advanced-mode
 path, its weight loading, its W8A8 serving, its HTTP service, its GUI demo,
-its utilities, LPIPS and its ahead-of-time export import no JAX, nothing of the JAX package, no
+its utilities, LPIPS, its ahead-of-time export and its multi-device sampling (parallel/)
+import no JAX, nothing of the JAX package, no
 `safetensors`, no image library and neither gradio nor viser.
 
 The machine with the card has PyTorch but no JAX, no `safetensors` (so the
@@ -77,6 +78,10 @@ import stable_virtual_camera_tpu_torch.utils.trace_analysis
 import stable_virtual_camera_tpu_torch.models.lpips
 import stable_virtual_camera_tpu_torch.models.export
 import stable_virtual_camera_tpu_torch.apps.export_artifacts
+import stable_virtual_camera_tpu_torch.parallel.mesh
+import stable_virtual_camera_tpu_torch.parallel.comm
+import stable_virtual_camera_tpu_torch.parallel.ring_attention
+import stable_virtual_camera_tpu_torch.parallel.sharding
 from stable_virtual_camera_tpu_torch.models.io import load_bundle, read_safetensors, save_converted
 print("imported")
 """

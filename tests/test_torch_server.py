@@ -263,9 +263,27 @@ def test_static_warmup_leaves_calibration_to_the_first_job(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [("mesh_view", "item 4"), ("mesh_data", "item 4")])
-def test_server_main_refuses_what_is_not_ported(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_server_main_refuses_what_is_not_ported(flag, item, monkeypatch):
+    """The mesh flags are ported (ROADMAP queue 1, item 4's serving part):
+    `main` serves a bundle on a 2-rank CPU mesh along that axis (stopped
+    where it would start listening). A W8A8 mode it does not know still
+    exits."""
+    served = {}
+
+    class Stop(Exception):
+        pass
+
+    def build_http_server(service, host, port):
+        served["service"] = service
+        raise Stop
+
+    monkeypatch.setattr(server, "build_http_server", build_http_server)
+    monkeypatch.setattr(server, "engine_runner", lambda bundle, *a: served.setdefault("bundle", bundle))
+    with pytest.raises(Stop):
         server.main(random_model=True, device="cpu", **{flag: 2})
+    served["service"].shutdown()
+    assert served["bundle"].mesh.shape == {"data": 2 if flag == "mesh_data" else 1,
+                                           "view": 2 if flag == "mesh_view" else 1}
     with pytest.raises(SystemExit, match="--quant must be"):
         server.main(random_model=True, device="cpu", quant="w4a4")
 

@@ -181,10 +181,12 @@ def _jax_stage_names() -> set[str]:
 
 def test_run_one_scene_timer_reports_jax_stage_names():
     """A two-pass tiny render with a StageTimer: every stage the port times
-    carries the JAX engine's name for it. The JAX engine's cache priming,
-    batched sampling and background flushes have no counterpart in the
-    port, so `second_pass_prime`, `second_pass_conditioning`,
-    `second_pass_sample_many` and `second_pass_flush_join` do not occur."""
+    carries the JAX engine's name for it. The JAX engine's cache priming
+    and background flushes have no counterpart in the port, so
+    `second_pass_prime` and `second_pass_flush_join` do not occur; its
+    grouped second pass (`second_pass_conditioning`,
+    `second_pass_sample_many`) runs only on a mesh's data axis or with
+    `chunk_batch`, so not here."""
     from stable_virtual_camera_tpu_torch.apps.renderer import HeadlessRenderer, preprocess_basic
     from stable_virtual_camera_tpu_torch.config import VersionConfig
     from stable_virtual_camera_tpu_torch.models.io import random_bundle
