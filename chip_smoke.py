@@ -143,6 +143,20 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      all-to-alls' device time; (c) the CLI's render_one_scene on one
      device, on a (2, 1) mesh (bit-equal), on a (2, 3) mesh and with
      chunk_batch=2 (PSNR bar), the second pass in 2 groups;
+ 26. `stream_path`: parallel_path's 30-target s-prob render (3 second-pass
+     chunks) through the CLI with the engine's streamed frame writes on and
+     off (PNGs byte-equal), each with --engine_timing (per-pass seconds,
+     final_save and the second pass's flush stages);
+ 27. `tp_path`: parallel_path's seeded chunk on (data, view, model) =
+     (1, 1, 2) and, where memory allows, (1, 3, 2) meshes of thread ranks
+     on cuda:0 (tensor parallelism): latents against the unsharded chunk,
+     the model ranks bit-equal, each rank's share of the UNet's bytes, K1
+     and K2 launches, seconds against the unsharded chunk, the device's
+     idle share;
+ 28. `film_cache`: the same chunk through the engine's sample_latents (on
+     its FiLM cache) and through the Euler loop on the bundle's network
+     (no cache): latents (relative L2, or one bf16 step), seconds, peak
+     memory and the cache's bytes;
 then a `kernels` summary line and the final `ok` line.
 Every phase prints one JSON line. Cuts against a real render, the CLI, a
 real fine-tune, the Advanced mode, the released checkpoints and the GUI
@@ -249,6 +263,15 @@ SCENE_N, SCENE_H, SCENE_W = 8, 384, 512
 PARALLEL_VIEW = 3
 PARALLEL_REL_L2, PARALLEL_MAX_ABS_REL = 2e-2, 1e-1
 PARALLEL_TARGETS, PARALLEL_MESH, PARALLEL_FRAME_PSNR_DB = 30, (2, 3), 40.0
+# tp_path: the (data, view, model) meshes of the tensor-parallel chunk (the
+# second where memory allows), and a rank's share of the UNet's bytes at
+# model=2 (its half of every sharded kernel, the one-dimensional leaves
+# whole); its latents are held to parallel_path's PARALLEL_REL_L2
+TP_MESHES = [(1, 1, 2), (1, 3, 2)]
+TP_BYTES_SHARE = 0.51
+# film_cache: the cached chunk against the uncached one: relative L2, or
+# else one bf16 step at the latents' magnitude (max abs)
+FILM_REL_L2 = 1e-3
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "assets", "golden_scene")
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
@@ -647,10 +670,10 @@ def check_unet(bundle, gen) -> None:
     # device time of one forward through the kernels, by kernel class: K1's
     # measured share of a render's UNet forward
     prof = device_time_by_class(forward)
-    if not prof["device_busy_ms"]:  # the profiler saw no device time: CUDA events around K1
+    if not prof["kernel_ms_sum"]:  # the profiler saw no device time: CUDA events around K1
         prof["device_ms_by_class"]["K1 flash attention"] = k1_event_ms(forward)
     k1_ms = prof["device_ms_by_class"].get("K1 flash attention", 0.0)
-    prof["k1_share_of_device_time"] = k1_ms / prof["device_busy_ms"] if prof["device_busy_ms"] else None
+    prof["k1_share_of_device_time"] = k1_ms / prof["kernel_ms_sum"] if prof["kernel_ms_sum"] else None
     prof["k1_share_of_wall"] = k1_ms / (prof["wall_s"] * 1e3)
     emit({"phase": "unet_forward", "ok": ok, "frames": n, "latent": [h, h], "rel_l2": rel,
           "bar": UNET_REL_L2, "finite": finite, "kernels_s": kernel_s, "plain_s": plain_s,
@@ -2474,6 +2497,7 @@ def run_parallel_path(bundle) -> dict:
                 bundle.mesh = None if mesh_shape is None else make_mesh(
                     *mesh_shape, devices=[DEVICE] * (mesh_shape[0] * mesh_shape[1]))
                 groups["n"] = 0
+                torch.cuda.empty_cache()  # the last render's rank streams' cached blocks
                 torch.cuda.synchronize()
                 _kernels.reset_counts()
                 t0 = time.perf_counter()
@@ -2533,6 +2557,269 @@ def run_parallel_path(bundle) -> dict:
         raise AssertionError("the mesh's sampling disagrees with one device's, or its launches are wrong")
     return {"parallel_view1": one["launches"], f"parallel_view{n}": many["launches"],
             "parallel_cli": renders["mesh"]["launches"], "parallel_chunk_batch": renders["chunk_batch"]["launches"]}
+
+
+def run_stream_path() -> dict:
+    """`stream_path`: parallel_path's CLI render (img2trajvid_s-prob from
+    one seeded 576x576 PNG, the orbit prior, PARALLEL_TARGETS targets: 3
+    second-pass chunks) through apps.cli.main with attention="flash" and
+    --random_model full, twice, with the engine's `stream_save` on (PNGs
+    written by writer threads while the render goes on, each second-pass
+    chunk flushed by one ordered worker while the next one samples) and off
+    (every PNG written by the final save), each with --engine_timing: every
+    PNG byte-equal between the two runs; both runs' per-pass seconds and
+    the engine's `final_save`, `first_pass_save`, `second_pass_flush` and
+    `second_pass_flush_join` stage seconds and calls. Returns the streamed
+    run's launch counts."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps import cli
+    from stable_virtual_camera_tpu_torch.engine.runner import SceneEngine
+    from stable_virtual_camera_tpu_torch.utils.profiling import StageTimer
+
+    marks: list[float] = []
+    timers: list = []
+
+    class TimedEngine(SceneEngine):
+        """SceneEngine that notes the wall time at each pass's end."""
+
+        def run_one_scene(self, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for out in super().run_one_scene(*args, **kwargs):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter() - t0)
+                yield out
+
+    class KeptTimer(StageTimer):
+        def __init__(self):
+            super().__init__()
+            timers.append(self)
+
+    def files(root):
+        out = {}
+        for d, _, names in os.walk(root):
+            for n in names:
+                if n.endswith(".png"):
+                    with open(os.path.join(d, n), "rb") as f:
+                        out[os.path.relpath(os.path.join(d, n), root)] = f.read()
+        return out
+
+    runs = {}
+    saved = cli.SceneEngine, cli.StageTimer
+    cli.SceneEngine, cli.StageTimer = TimedEngine, KeptTimer
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            png_dir = os.path.join(tmp, "scene")
+            os.makedirs(png_dir)
+            img = np.random.default_rng(SEED).integers(0, 256, (RES, RES, 3), dtype=np.uint8)
+            cv2.imwrite(os.path.join(png_dir, "seeded.png"), img)
+            for name, stream in (("streamed", True), ("synchronous", False)):
+                marks.clear()
+                timers.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                _kernels.reset_counts()
+                (out_dir,) = cli.main(png_dir, task="img2trajvid_s-prob", random_model="full",
+                                      use_traj_prior=True, traj_prior="orbit", num_targets=PARALLEL_TARGETS,
+                                      attention="flash", work_dir=os.path.join(tmp, name), num_steps=NUM_STEPS,
+                                      device=DEVICE, sampler_verbose=False, engine_timing=True,
+                                      stream_save=stream)
+                timer = timers[0]
+                runs[name] = {"files": files(out_dir), "launches": _kernels.counts(),
+                              "first_pass_s": marks[0], "second_pass_s": marks[1] - marks[0],
+                              "stages_s": {k: [timer.totals.get(k, 0.0), timer.counts.get(k, 0)] for k in (
+                                  "final_save", "first_pass_save", "second_pass_flush",
+                                  "second_pass_flush_join", "second_pass_sample")}}
+    finally:
+        cli.SceneEngine, cli.StageTimer = saved
+    on, off = runs["streamed"], runs["synchronous"]
+    same = on["files"] == off["files"]
+    n_final = len([k for k in on["files"] if k.startswith("samples-rgb" + os.sep)])
+    chunks = on["stages_s"]["second_pass_flush"][1]
+    ok = (same and n_final == PARALLEL_TARGETS and chunks > 1
+          and all(on["launches"][k] > 0 for k in ("flash_attention_blhd", "time_attention")))
+    emit({"phase": "stream_path", "ok": ok, "pngs_byte_equal": same, "pngs": len(on["files"]),
+          "final_pngs": n_final, "second_pass_flushes": chunks,
+          "runs": {k: {kk: v for kk, v in r.items() if kk != "files"} for k, r in runs.items()},
+          "cuts": {"num_steps": f"{NUM_STEPS} (CLI default 50)",
+                   "scene": f"one seeded 576x576 PNG, the orbit prior, {PARALLEL_TARGETS} targets",
+                   "timing": "--engine_timing synchronizes the device at each stage's end on the main thread; "
+                             "stages_s holds [seconds, calls]"}})
+    if not ok:
+        raise AssertionError("the streamed render's PNGs differ from the synchronous render's")
+    return on["launches"]
+
+
+def run_tp_path(bundle) -> dict:
+    """`tp_path`: tensor parallelism over a "model" mesh axis
+    (parallel/tensor_parallel.py) on the one card, every rank a thread on
+    cuda:0 with its own stream, over the full-width bf16 bundle: the seeded
+    T=21 chunk of parallel_path (576x576, NUM_STEPS steps) on a
+    (data, view, model) = (1, 1, 2) mesh and on (1, 3, 2), against the
+    unsharded chunk. Checks: latents' relative L2 to the unsharded chunk's
+    at most PARALLEL_REL_L2; the two model ranks' latents bit-equal; each
+    rank's shard module at most TP_BYTES_SHARE of the UNet's bytes. Prints
+    K1 and K2 launches (every rank runs attention at full heads), the
+    chunk's seconds (warm) against the unsharded chunk's and the (1, 1, 2)
+    chunk's device time by class and idle share (torch.profiler). Returns
+    the launch counts by mesh."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.engine.runner import sample_latents
+    from stable_virtual_camera_tpu_torch.parallel.comm import run_ranks
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh_tp
+    from stable_virtual_camera_tpu_torch.parallel.sharding import sample_shard
+    from stable_virtual_camera_tpu_torch.sampling.sampler import euler_edm_sample, torch_noise
+
+    h = RES // 8
+    cond = seeded_chunk(bundle.spec.context_dim, h)
+    plan = bundle.plan(NUM_STEPS)
+    shape = (T, h, h, 4)
+
+    def draw(step):
+        return torch_noise(SEED, 0, 0, step, shape, DEVICE)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        x = fn()
+        torch.cuda.synchronize()
+        return x, time.perf_counter() - t0, _kernels.counts()
+
+    def unsharded():
+        return euler_edm_sample(bundle.network, draw(None), plan, cond, T, step_noise=draw)
+
+    timed(unsharded)  # warm
+    x_u, s_u, launches_u = timed(unsharded)
+    unet_bytes = sum(p.numel() * p.element_size() for p in bundle.unet.parameters())
+    k1_k2 = ("flash_attention", "time_attention")
+    results, counts, ok = {}, {}, True
+    for mesh_shape in TP_MESHES:
+        n_view, n_model = mesh_shape[1], mesh_shape[2]
+        name = "tp_" + "x".join(map(str, mesh_shape))
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            mesh = make_mesh_tp(*mesh_shape, devices=[DEVICE] * (n_view * n_model))
+            bundle.mesh = mesh
+            bundle.replicate()  # every model rank's shard module, once
+            share = max(sum(p.numel() * p.element_size() for p in bundle.unet_shard(DEVICE, m, n_model).parameters())
+                        / unet_bytes for m in range(n_model))
+
+            def every_rank():  # each rank's own latents, to compare the model ranks
+                return run_ranks(mesh, lambda ctx: sample_shard(
+                    bundle.network, [draw(None)], plan, [cond], T, [draw], ctx.comm if n_view > 1 else None,
+                    device=ctx.device, model_comm=ctx.model_comm), rows=[0])
+
+            outs, s_first, _ = timed(every_rank)
+            same = all(torch.equal(outs[v * n_model + m], outs[v * n_model]) for v in range(n_view)
+                       for m in range(1, n_model))
+            x, s, launches = timed(lambda: sample_latents(bundle, draw(None), plan, cond, draw))
+            rel = ((x - x_u).float().norm() / x_u.float().norm()).item()
+            profile = device_time_by_class(lambda: (sample_latents(bundle, draw(None), plan, cond, draw),
+                                                    torch.cuda.synchronize())) if mesh_shape == TP_MESHES[0] else None
+            mesh_ok = (rel <= PARALLEL_REL_L2 and same and share <= TP_BYTES_SHARE
+                       and bool(torch.isfinite(x).all()) and all(launches[k] > 0 for k in k1_k2))
+            ok = ok and mesh_ok
+            counts[name] = launches
+            results[name] = {"ok": mesh_ok, "mesh": list(mesh_shape), "rel_l2": rel, "rel_l2_bar": PARALLEL_REL_L2,
+                             "model_ranks_bit_equal": same, "rank_unet_bytes_share": share,
+                             "bytes_share_bar": TP_BYTES_SHARE,
+                             "launches": {k: launches[k] for k in k1_k2},
+                             "launches_per_rank": {k: launches[k] / (n_view * n_model) for k in k1_k2},
+                             "chunk_s": s, "first_chunk_s": s_first, "vs_unsharded": s / s_u, "profile": profile,
+                             "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del outs, x
+        except torch.OutOfMemoryError as e:
+            # the larger mesh only where memory allows: say what the card gave
+            if mesh_shape == TP_MESHES[0]:
+                raise
+            results[name] = {"ok": None, "mesh": list(mesh_shape), "skipped": f"out of memory: {e}"[:300]}
+        finally:
+            bundle.mesh = None
+            bundle._shards.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit({"phase": "tp_path", "ok": ok, "meshes": results,
+          "unsharded": {"chunk_s": s_u, "launches": {k: launches_u[k] for k in k1_k2}},
+          "unet_bytes": unet_bytes,
+          "cuts": {"num_steps": f"{NUM_STEPS} (released default 50)",
+                   "weights": "random bf16 (flax-default init, seed 0), full width",
+                   "devices": "every rank on cuda:0 (one card), each on its own stream"}})
+    if not ok:
+        raise AssertionError("the tensor-parallel chunk disagrees with the unsharded chunk, or its ranks differ")
+    return counts
+
+
+def run_film_cache(bundle) -> dict:
+    """`film_cache`: the seeded T=21 chunk of parallel_path through the
+    engine's sample_latents, which samples it on its FiLM cache (each
+    ResBlock's resize and dense_proj of the Plucker map once a chunk at
+    half the CFG batch), and through the same Euler loop on the bundle's
+    network with no cache (the maps once a step): latents' relative L2 at
+    most FILM_REL_L2 and max abs difference against one bf16 step at the
+    latents' magnitude (the card's 3x3 convs round by batch size, and the
+    cache runs the 1x1 dense_proj at T, not 2T: which of the two bars held
+    is printed); seconds each way (warm) and the peak memory of each, with
+    the cache's bytes computed from its shapes. Returns the cached run's
+    launch counts."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.engine.runner import sample_latents
+    from stable_virtual_camera_tpu_torch.sampling.sampler import euler_edm_sample, torch_noise
+
+    h = RES // 8
+    cond = seeded_chunk(bundle.spec.context_dim, h)
+    plan = bundle.plan(NUM_STEPS)
+    shape = (T, h, h, 4)
+
+    def draw(step):
+        return torch_noise(SEED, 0, 0, step, shape, DEVICE)
+
+    paths = {"off": lambda: euler_edm_sample(bundle.network, draw(None), plan, cond, T, step_noise=draw),
+             "on": lambda: sample_latents(bundle, draw(None), plan, cond, draw)}
+    runs = {}
+    for name in ("off", "on", "off", "on"):  # the first two warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        x = paths[name]()
+        torch.cuda.synchronize()
+        runs[name] = {"x": x, "s": time.perf_counter() - t0, "launches": _kernels.counts(),
+                      "peak_above_start_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+    with torch.inference_mode():
+        films = bundle.unet.film(cond.dense[:T])
+    cache_bytes = sum(f.numel() * f.element_size() for f in films.values())
+    del films
+    off, on = runs["off"], runs["on"]
+    diff = (on["x"] - off["x"]).float()
+    rel = (diff.norm() / off["x"].float().norm()).item()
+    max_abs = diff.abs().max().item()
+    scale = off["x"].float().abs().max().item()
+    bf16_step = 2.0 ** (math.floor(math.log2(scale)) - 7) if scale > 0 else 0.0
+    held = [bar for bar, good in (("rel_l2", rel <= FILM_REL_L2), ("one_bf16_step", max_abs <= bf16_step)) if good]
+    k1_k2 = ("flash_attention", "time_attention")
+    ok = bool(held) and bool(torch.isfinite(on["x"]).all()) and all(on["launches"][k] > 0 for k in k1_k2)
+    emit({"phase": "film_cache", "ok": ok, "bars_held": held, "rel_l2": rel, "rel_l2_bar": FILM_REL_L2,
+          "max_abs": max_abs, "one_bf16_step": bf16_step, "latent_max_abs": scale,
+          "bit_equal": bool(torch.equal(on["x"], off["x"])),
+          "chunk_s": {"off": off["s"], "on": on["s"]}, "on_vs_off": on["s"] / off["s"],
+          "peak_above_start_gb": {"off": off["peak_above_start_gb"], "on": on["peak_above_start_gb"]},
+          "cache_bytes_from_shapes": cache_bytes,
+          "launches": {k: {kk: r["launches"][kk] for kk in k1_k2} for k, r in runs.items()},
+          "cuts": {"num_steps": f"{NUM_STEPS} (released default 50)",
+                   "weights": "random bf16 (flax-default init, seed 0), full width"}})
+    if not ok:
+        raise AssertionError("the FiLM-cached chunk disagrees with the uncached one beyond both bars")
+    return on["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -3028,10 +3315,36 @@ def profiler_classes(prof) -> tuple[dict[str, float], dict[str, float]]:
     return classes, kernels
 
 
+def busy_intervals(prof) -> tuple[float, dict[int, float]]:
+    """(ms during which at least one kernel, copy or set ran on the device,
+    {stream: the same on that stream}) from a torch.profiler window's
+    device events: the union of their intervals, so kernels that overlap on
+    several streams count once."""
+    from torch.autograd import DeviceType
+
+    by_stream: dict[int, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
+            by_stream.setdefault(e.device_resource_id, []).append((e.time_range.start, e.time_range.end))
+
+    def union_us(spans) -> float:
+        total, end = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+    every = [span for spans in by_stream.values() for span in spans]
+    return union_us(every) / 1e3, {k: union_us(v) / 1e3 for k, v in sorted(by_stream.items())}
+
+
 def device_time_by_class(fn, top: int = 0) -> dict:
     """torch.profiler over one call of `fn` (which ends in a synchronize):
-    wall time, device time by kernel class (ms) and the idle share; with
-    `top`, the names (cut to 90 characters) and ms of the longest kernels."""
+    wall time, device time by kernel class (ms), their sum, the device's
+    busy time (the union of its kernels' intervals over every stream, and
+    each stream's own) and the idle share (1 - busy / wall); with `top`,
+    the names (cut to 90 characters) and ms of the longest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3042,8 +3355,9 @@ def device_time_by_class(fn, top: int = 0) -> dict:
     kernels: dict[str, float] = {}
     for name, ms in by_name.items():
         kernels[name[:90]] = kernels.get(name[:90], 0.0) + ms
-    busy = sum(classes.values())
-    out = {"wall_s": wall, "device_busy_ms": busy,
+    busy, streams = busy_intervals(prof)
+    out = {"wall_s": wall, "kernel_ms_sum": sum(classes.values()), "device_busy_ms": busy,
+           "busy_ms_by_stream": {str(k): v for k, v in streams.items()},
            "idle_share": (1 - busy / (wall * 1e3)) if busy else "not measured",
            "device_ms_by_class": dict(sorted(classes.items(), key=lambda kv: -kv[1]))}
     if top:
@@ -3221,7 +3535,8 @@ def main() -> int:
                                "train": {}, "k5": {}, "quant_w8a8": {}, "quant_static": {}, "server": {},
                                "server_static": {}, "export": {}, "export_server": {},
                                "parallel_view1": {}, f"parallel_view{PARALLEL_VIEW}": {}, "parallel_cli": {},
-                               "parallel_chunk_batch": {}}
+                               "parallel_chunk_batch": {}, "stream": {}, "film_cache": {},
+                               **{"tp_" + "x".join(map(str, m)): {} for m in TP_MESHES}}
     try:
         k5 = check_k5_layer_norm(gen)
         results["layer_norm"] = k5["result"]
@@ -3269,6 +3584,9 @@ def main() -> int:
                         ("server_path", lambda: check_server_path(cli_frames)),
                         ("export_path", lambda: run_export_path(cli_frames)),
                         ("parallel_path", lambda: run_parallel_path(bundle)),
+                        ("stream_path", run_stream_path),
+                        ("tp_path", lambda: run_tp_path(bundle)),
+                        ("film_cache", lambda: run_film_cache(bundle)),
                         ("train_grad", lambda: check_train_grad(bundle, gen)),
                         ("train_profile", lambda: profile_train_step(bundle, gen)),
                         ("train_path", lambda: run_train_path(bundle))):
@@ -3293,8 +3611,12 @@ def main() -> int:
                     counts["checkpoint"] = out
                 elif key == "quant_path":
                     counts["quant_w8a8"], counts["quant_static"] = out["w8a8"], out["static"]
-                elif key in ("server_path", "export_path", "parallel_path"):
+                elif key in ("server_path", "export_path", "parallel_path", "tp_path"):
                     counts.update(out)
+                elif key == "stream_path":
+                    counts["stream"] = out
+                elif key == "film_cache":
+                    counts["film_cache"] = out
                 elif key == "train_path":
                     counts["train"] = out
             except Exception:  # noqa: BLE001
@@ -3369,6 +3691,9 @@ def main() -> int:
                    (f"parallel_view{PARALLEL_VIEW}", ("flash_attention", "time_attention")),
                    ("parallel_cli", ("flash_attention", "time_attention")),
                    ("parallel_chunk_batch", ("flash_attention", "time_attention")),
+                   ("stream", ("flash_attention_blhd", "time_attention")),
+                   ("tp_1x1x2", ("flash_attention", "time_attention")),
+                   ("film_cache", ("flash_attention", "time_attention")),
                    ("train", TRAIN_KERNELS))
                for k in ks if counts[path].get(k, 0) == 0]
     if missing and not failures:

@@ -18,9 +18,12 @@ Multi-device sampling (parallel/): --mesh_view N shards every chunk whose
 T divides N over N ranks (a chunk of any other T runs unsharded, with a
 warning), --mesh_data M fans the second pass's chunks out over M rows of
 ranks; the mesh takes one CUDA device a rank (more ranks than devices
-raise), or with --device cpu repeats the CPU. --platform cpu | gpu picks
-the device as --device does (tpu raises: the TPU build is the JAX
-package). --mesh_model (tensor parallelism) is not ported yet and raises.
+raise), or with --device cpu repeats the CPU. --mesh_model K > 1 adds a
+"model" axis (a data x view x model mesh): every chunk's UNet weights
+shard over K ranks (parallel/tensor_parallel.py), with the frames still
+over the view axis; the second pass's data-parallel groups run whole
+weights, as in JAX. --platform cpu | gpu picks the device as --device does
+(tpu raises: the TPU build is the JAX package).
 
 The port's own flags: --device (default cuda) and --attention, the
 self-attention backend ("upstream", kernel K1; "flash", kernel K3;
@@ -39,6 +42,7 @@ Invocation (fire-style `--key value` or `--key=value` flags):
 
 from __future__ import annotations
 
+import copy
 import glob as globlib
 import os.path as osp
 import sys
@@ -257,22 +261,24 @@ def platform_device(platform, device):
 
 
 def build_mesh(mesh_view=None, mesh_data=None, mesh_model=None, device="cuda"):
-    """The ("data", "view") mesh of --mesh_data and --mesh_view, or None
-    when both are 1 or unset: one CUDA device a rank on the card (more ranks
-    than devices raise), the CPU repeated off it."""
-    if mesh_model is not None:
-        raise NotImplementedError(
-            "--mesh_model (tensor parallelism) is not ported yet: it comes with the next slice of "
-            "ROADMAP queue 1, item 4 (parallel/param_sharding.py, make_mesh_tp)"
-        )
+    """The ("data", "view") mesh of --mesh_data and --mesh_view, with
+    --mesh_model > 1 the ("data", "view", "model") one, or None when all
+    are 1 or unset: one CUDA device a rank on the card (more ranks than
+    devices raise), the CPU repeated off it."""
     n_view = int(mesh_view) if mesh_view else 1
     n_data = int(mesh_data) if mesh_data else 1
-    if n_view == 1 and n_data == 1:
+    n_model = int(mesh_model) if mesh_model else 1
+    if n_view == 1 and n_data == 1 and n_model == 1:
         return None
-    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh, make_mesh_tp
 
     dev = torch.device(device)
-    mesh = make_mesh(n_data, n_view, devices=None if dev.type == "cuda" else [dev] * (n_data * n_view))
+    devices = None if dev.type == "cuda" else [dev] * (n_data * n_view * n_model)
+    if n_model > 1:
+        mesh = make_mesh_tp(n_data, n_view, n_model, devices=devices)
+        print(f"[cli] mesh sampling: data={n_data} x view={n_view} x model={n_model} ranks on {mesh.devices}")
+        return mesh
+    mesh = make_mesh(n_data, n_view, devices=devices)
     print(f"[cli] mesh sampling: data={n_data} x view={n_view} ranks on {mesh.devices}")
     return mesh
 
@@ -400,7 +406,14 @@ def render_one_scene(
     OpenCV -> OpenGL transforms.json export (reference demo.py:274-404 loop
     body). `noise_fn` is the engine's (sampling/sampler.py); `timer`
     (utils/profiling.StageTimer) times the engine's stages. Returns
-    save_path_scene, or None when aborted."""
+    save_path_scene, or None when aborted.
+
+    The scene runs on its own deep copies of `version` and `options`:
+    anchor planning rewrites `version.T` and `options.deliver_anchors` in
+    place (engine/prior.py), so a shared object would hand one scene's
+    first-pass window and delivery to the next (the JAX CLI keeps that
+    leak)."""
+    version, options = copy.deepcopy(version), copy.deepcopy(options)
     (
         all_imgs_path,
         n_inputs,

@@ -516,10 +516,10 @@ def global_align(
 ) -> AlignedScene:
     """Initialize on the host, refine with `niter` Adam steps on `device`
     (the card unless the caller passes the CPU). `mesh` (the JAX package's
-    edge-sharded refinement) waits for multi-GPU support (ROADMAP item 4)."""
+    edge-sharded refinement) waits for ROADMAP queue 1, item 5."""
     if mesh is not None:
         raise NotImplementedError(
-            "edge-sharded global alignment across devices is not ported yet (ROADMAP item 4)"
+            "edge-sharded global alignment across devices is not ported yet (ROADMAP queue 1, item 5)"
         )
     params, data = alignment_problem(edges, same_focals, device)
     final_loss = refine(params, data, niter, lr, schedule)

@@ -12,10 +12,25 @@ arrays, as in JAX.
 
 Differences by design: VAE/CLIP en/decode chunk with a Python loop over
 `encoding_t`/`decoding_t` (0 = one batch); chunks run one after another
-unless a mesh or `chunk_batch` groups the second pass's; PNG
-and mp4 writes are synchronous and happen only when a `save_path` is given.
-Without one, `run_one_scene` yields each pass's uint8 frames instead of file
-paths. Initial and churn noise come from `noise_fn` (sampling/sampler.py).
+unless a mesh or `chunk_batch` groups the second pass's; files are written
+only when a `save_path` is given. Without one, `run_one_scene` yields each
+pass's uint8 frames instead of file paths. Initial and churn noise come from
+`noise_fn` (sampling/sampler.py).
+
+Streamed writes (the `stream_save` option, on by default and off under
+`replace_or_include_input`, as in JAX): a two-pass render with a
+`save_path` writes the first pass's PNGs and the second pass's final PNGs
+on `StreamingFrameWriter` threads (engine/saving.py) while it goes on, and
+the final save writes only the mp4 and the rest. Each second-pass chunk's
+flush (the decoded frames' host copy on a side stream, `decode_output`, the
+optional per-chunk save, `extend_dict`, the index bookkeeping and the
+writer's submit) runs on ONE worker thread, so it overlaps the next
+chunk's dispatch; a FIFO of one worker keeps the serial order. The flush
+worker runs with or without streamed writes. Every exit (the end, an
+abort, an exception, a generator closed early) stops the flush worker
+first, cancelling the flushes not yet started, then drains the writers,
+and re-raises the first error a worker met unless another is already on
+its way.
 
 Under static W8A8 (`bundle.unet.set_quant("w8a8-static")`, ops/quant.py) the
 bundle's first `sample_chunk` calibrates the UNet on that chunk's own
@@ -41,8 +56,10 @@ on one device. Static W8A8 calibrates before a group runs.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import copy
+import functools
 import hashlib
 import os.path as osp
 import threading
@@ -61,6 +78,7 @@ from stable_virtual_camera_tpu_torch.core.transforms import (
 )
 from stable_virtual_camera_tpu_torch.engine import planner
 from stable_virtual_camera_tpu_torch.engine.saving import (
+    StreamingFrameWriter,
     decode_output,
     extend_dict,
     get_k_from_dict,
@@ -79,6 +97,7 @@ from stable_virtual_camera_tpu_torch.parallel.sharding import (
     make_data_parallel_sampler,
     make_sharded_sampler,
 )
+from stable_virtual_camera_tpu_torch.parallel.tensor_parallel import shard_unet
 from stable_virtual_camera_tpu_torch.sampling import guidance
 from stable_virtual_camera_tpu_torch.sampling.discretization import DDPMDiscretization
 from stable_virtual_camera_tpu_torch.sampling.sampler import (
@@ -91,6 +110,16 @@ from stable_virtual_camera_tpu_torch.sampling.sampler import (
     torch_noise,
 )
 from stable_virtual_camera_tpu_torch.utils.profiling import StageTimer
+
+
+# every chunk of at most this many frames samples on its FiLM cache
+# (`ModelBundle.chunk_film`), a longer one recomputes its FiLM maps every
+# step: the cache grows with T (JAX's SVC_FILM_CACHE_MAX_T default). JAX
+# keeps the cache off unless SVC_FILM_CACHE asks; the port keeps it on:
+# on an H100 80GB HBM3 (700 W) the seeded 576x576 T=21 bf16 chunk gave
+# bit-equal latents in 0.934x the time, its peak memory 2.14 GB higher
+# (chip_smoke.py, film_cache)
+FILM_CACHE_MAX_T = 48
 
 
 def _device(module: torch.nn.Module) -> torch.device:
@@ -140,11 +169,14 @@ class VaeApplier:
         self._enc_cache.clear()
 
     @torch.inference_mode()
-    def decode(self, z: torch.Tensor, chunk_size: int | None = None, uint8: bool = False) -> np.ndarray:
+    def decode(self, z: torch.Tensor, chunk_size: int | None = None, uint8: bool = False,
+               host: bool = True):
         """Latents -> (N, H, W, 3) images: fp32 in [-1, 1], or uint8 with the
-        host writer's quantisation."""
+        host writer's quantisation; a numpy array, or with `host=False` the
+        device tensor (no synchronisation)."""
         fn = self.module.decode_uint8 if uint8 else self.module.decode
-        return _chunked(fn, torch.as_tensor(z).to(_device(self.module)), chunk_size).cpu().numpy()
+        out = _chunked(fn, torch.as_tensor(z).to(_device(self.module)), chunk_size)
+        return out.cpu().numpy() if host else out
 
 
 class ClipApplier:
@@ -185,13 +217,17 @@ class ModelBundle:
     discretization: DDPMDiscretization = field(default_factory=DDPMDiscretization)
     # (T, h, w, steps) -> models/export.DenoiseArtifact
     artifacts: dict = field(default_factory=dict)
-    # view-sharded chunks, data-parallel second passes
+    # view-sharded chunks, data-parallel second passes, and with a "model"
+    # axis tensor-parallel chunks
     mesh: Mesh | None = None
 
     _plans: dict[int, SamplingPlan] = field(default_factory=dict)
     # device -> ((W8A8 mode, calibrated), the UNet's copy there); rank
     # threads may ask for one at once
     _replicas: dict = field(default_factory=dict)
+    # (device, model rank, model size) -> ((W8A8 mode, calibrated), the
+    # rank's shard module)
+    _shards: dict = field(default_factory=dict)
     _replica_lock: threading.Lock = field(default_factory=threading.Lock)
     _warned_unsharded: set = field(default_factory=set)
 
@@ -215,21 +251,66 @@ class ModelBundle:
                 self._replicas[device] = (key, copy.deepcopy(self.unet).to(device))
             return self._replicas[device][1]
 
+    def unet_shard(self, device, rank: int, n: int) -> SevaUNet:
+        """Model rank `rank` of `n`'s shard module of the UNet on `device`
+        (parallel/tensor_parallel.shard_unet), built when first asked for and
+        again after the bundle's W8A8 mode or calibration changed. Ranks
+        that share a device and a model coordinate share one module."""
+        device = torch.device(device)
+        key = (self.unet.quant, self.unet.quant_calibrated)
+        with self._replica_lock:
+            held = self._shards.get((device, rank, n))
+            if held is None or held[0] != key:
+                self._shards.pop((device, rank, n), None)
+                self._shards[device, rank, n] = (key, shard_unet(self.unet, rank, n, device))
+            return self._shards[device, rank, n][1]
+
     def replicate(self) -> None:
-        """A UNet replica on every device of the mesh that does not hold the bundle's."""
-        for dev in dict.fromkeys(self.mesh.devices if self.mesh is not None else []):
+        """A UNet replica on every device of the mesh that does not hold the
+        bundle's, and on a mesh with a "model" axis every rank's shard."""
+        mesh = self.mesh
+        for dev in dict.fromkeys(mesh.devices if mesh is not None else []):
             self.unet_on(dev)
+        if mesh is not None and mesh.n_model > 1:
+            for r in range(mesh.size):
+                self.unet_shard(mesh.device(r), mesh.coords(r)[2], mesh.n_model)
+
+    def module_for(self, device, model_group=None) -> SevaUNet:
+        """The UNet a rank on `device` runs: its model rank's shard under a
+        model group of more than one rank, else `unet_on(device)`."""
+        if model_group is not None and model_group.size > 1:
+            return self.unet_shard(device, model_group.rank, model_group.size)
+        return self.unet_on(device)
+
+    def chunk_film(self, dense, num_frames, group=None, model_group=None):
+        """The chunk's FiLM cache for the rank that holds `dense` (this
+        rank's CFG-doubled Plücker maps, `num_frames` frames a scene), or
+        None when the chunk has more than FILM_CACHE_MAX_T frames. Computed
+        at half the batch, whose halves share one Plücker map (the
+        ChunkConditioning contract), and broadcast over the CFG halves; at
+        the whole batch under a view group of more than one rank, as JAX
+        computes it under view sharding."""
+        n = 1 if group is None else group.size
+        if num_frames * n > FILM_CACHE_MAX_T:
+            return None
+        batch = dense if n > 1 else dense[: dense.shape[0] // 2]
+        with torch.inference_mode():
+            return self.module_for(dense.device, model_group).film(batch, model_group=model_group)
 
     def plan(self, num_steps: int) -> SamplingPlan:
         if num_steps not in self._plans:
             self._plans[num_steps] = make_sampling_plan(self.discretization, num_steps)
         return self._plans[num_steps]
 
-    def network(self, x, concat, t_vec, crossattn, dense, num_frames, group=None):
+    def network(self, x, concat, t_vec, crossattn, dense, num_frames, group=None, model_group=None,
+                film=None):
         """The UNet on x's device; with a view `group`, one rank's share
-        (`num_frames` frames a scene, models/unet.py)."""
-        return self.unet_on(x.device)(assemble_network_input(x, concat), t_vec, crossattn, dense,
-                                      num_frames, group=group)
+        (`num_frames` frames a scene, models/unet.py); with a `model_group`
+        of more than one rank, on this rank's weight shards; with `film`,
+        on the chunk's FiLM cache (`chunk_film`)."""
+        return self.module_for(x.device, model_group)(
+            assemble_network_input(x, concat), t_vec, crossattn, dense, num_frames, group=group,
+            film=film, model_group=model_group)
 
 
 def build_chunk_conditioning(
@@ -344,16 +425,20 @@ def sample_latents(bundle: ModelBundle, noise: torch.Tensor, plan: SamplingPlan,
     if artifact is not None:
         return artifact.sample(bundle.unet, noise, plan, cond, step_noise, progress_cb, abort_event)
     mesh = getattr(bundle, "mesh", None)
+    film_fn = getattr(bundle, "chunk_film", None)
     if mesh is not None:
         n_view = mesh.shape["view"]
         if T % n_view == 0:
-            return make_sharded_sampler(bundle.network, mesh, T)(noise, plan, cond, step_noise,
-                                                                  progress_cb, abort_event)
+            return make_sharded_sampler(bundle.network, mesh, T, film_fn=film_fn)(
+                noise, plan, cond, step_noise, progress_cb, abort_event)
+        # as in JAX, such a bucket runs on one device: no view and no model shards
         if T not in bundle._warned_unsharded:
             bundle._warned_unsharded.add(T)
             print(f"[sampler] WARNING: T={T} does not divide the mesh view axis ({n_view}); "
                   "this shape bucket runs UNSHARDED on one device")
-    return euler_edm_sample(bundle.network, noise, plan, cond, T, step_noise=step_noise,
+    film = None if film_fn is None else film_fn(cond.dense, T)
+    network = bundle.network if film is None else partial(bundle.network, film=film)
+    return euler_edm_sample(network, noise, plan, cond, T, step_noise=step_noise,
                             progress_cb=progress_cb, abort_event=abort_event)
 
 
@@ -364,9 +449,11 @@ def sample_many(bundle: ModelBundle, noises, plan: SamplingPlan, conds, step_noi
     axis), else as one batch on the bundle's device. `noises[c]`, `conds[c]`
     and `step_noises[c]` are chunk c's; returns (N, T, h, w, C)."""
     T = noises[0].shape[0]
+    film_fn = getattr(bundle, "chunk_film", None)
     if getattr(bundle, "mesh", None) is not None:
-        return make_data_parallel_sampler(bundle.network, bundle.mesh, T)(noises, plan, conds, step_noises)
-    return make_batched_sampler(bundle.network, T)(noises, plan, conds, step_noises)
+        return make_data_parallel_sampler(bundle.network, bundle.mesh, T, film_fn=film_fn)(
+            noises, plan, conds, step_noises)
+    return make_batched_sampler(bundle.network, T, film_fn=film_fn)(noises, plan, conds, step_noises)
 
 
 def sample_chunk(
@@ -386,11 +473,13 @@ def sample_chunk(
     progress_cb=None,
     abort_event=None,
     output_uint8: bool = False,
-) -> np.ndarray | None:
+    defer: bool = False,
+):
     """One chunk: conditioning, denoising loop (`sample_latents`), decode.
     `noise_fn(pass_id, chunk_id, step, shape, device)` supplies the noise.
-    Returns the decoded frames (uint8 with `output_uint8`), or None when
-    aborted. Under static W8A8 the bundle's first chunk calibrates first
+    Returns the decoded frames (uint8 with `output_uint8`; with `defer` the
+    device tensor, not yet copied to the host), or None when aborted. Under
+    static W8A8 the bundle's first chunk calibrates first
     (`ensure_quant_calibrated`)."""
     cond, shape = build_chunk_conditioning(
         bundle, values, cfg=cfg, guider_type=guider_type, cfg_min=cfg_min,
@@ -406,7 +495,74 @@ def sample_chunk(
                        progress_cb=progress_cb, abort_event=abort_event)
     if x is None:
         return None
-    return bundle.vae.decode(x, decoding_t, uint8=output_uint8)
+    return bundle.vae.decode(x, decoding_t, uint8=output_uint8, host=not defer)
+
+
+# a device's side stream for the flush worker's host copies, one a device
+# for the process: the caching allocator keeps a stream's freed blocks for
+# that stream alone, so a new stream each render would cache blocks apart
+# each render
+_FLUSH_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+_FLUSH_STREAMS_LOCK = threading.Lock()
+
+
+def _host_copy_later(t: torch.Tensor) -> Callable[[], np.ndarray]:
+    """A function, to be called on another thread, that returns `t` as a
+    numpy array. On a card the copy runs on the device's flush stream after
+    an event recorded here, on the producer's stream, so that it waits for
+    the work that wrote `t` and for nothing queued later; `t` is recorded
+    on the flush stream for the caching allocator. The caller must not
+    write `t` again."""
+    if t.device.type != "cuda":
+        return lambda: t.numpy()
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(t.device))
+
+    def fetch() -> np.ndarray:
+        with _FLUSH_STREAMS_LOCK:
+            side = _FLUSH_STREAMS.get(t.device)
+            if side is None:
+                side = _FLUSH_STREAMS[t.device] = torch.cuda.Stream(device=t.device)
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            out = t.cpu()
+        t.record_stream(side)
+        return out.numpy()
+
+    return fetch
+
+
+def _close(cleanup: list, quiet: bool = False) -> None:
+    """Run the render's teardown steps, last registered first, every one of
+    them; then raise the first error one raised, unless `quiet`."""
+    first = None
+    while cleanup:
+        try:
+            cleanup.pop()()
+        except BaseException as e:  # noqa: BLE001 - raised below, after every step ran
+            first = first or e
+    if first is not None and not quiet:
+        raise first
+
+
+def _torn_down(render):
+    """`render`'s generator, with the teardown steps it registers in its
+    `cleanup` list (its flush worker, its frame writers) run on every exit:
+    at the end, on an abort, on an exception and when the caller closes the
+    generator early. No worker thread outlives the render, and a worker's
+    error is raised unless another error is already on its way."""
+
+    @functools.wraps(render)
+    def run(*args, **kwargs):
+        cleanup: list[Callable[[], None]] = []
+        try:
+            yield from render(*args, cleanup=cleanup, **kwargs)
+        except BaseException:
+            _close(cleanup, quiet=True)
+            raise
+        _close(cleanup)
+
+    return run
 
 
 def _resolve_guiders(guider_types) -> list[int]:
@@ -539,6 +695,7 @@ class SceneEngine:
             out.append(K)
         return np.stack(out)
 
+    @_torn_down
     def run_one_scene(
         self,
         task: str,
@@ -553,6 +710,7 @@ class SceneEngine:
         first_pass_pbar: Callable | None = None,
         second_pass_pbar: Callable | None = None,
         timer: StageTimer | None = None,
+        cleanup: list | None = None,
     ) -> Iterator[str | np.ndarray]:
         """Render a scene. With `use_traj_prior`, two passes: anchors first,
         then every target conditioned on inputs and anchors. Without it (the
@@ -562,9 +720,15 @@ class SceneEngine:
         `save_path`, else the uint8 frames (anchors, then all targets in
         order). With a `timer` (utils/profiling.StageTimer), the render's
         stages are timed under the JAX engine's stage names, each closed by
-        a device synchronize; without one nothing is added to the path."""
+        a device synchronize; without one nothing is added to the path.
+        `cleanup` is `_torn_down`'s list, filled here with the teardown of
+        the worker threads the render starts."""
         options, version, bundle = self.options, self.version, self.bundle
         stage = _stages(timer, bundle.device)
+        # PNGs on writer threads while the render goes on (engine/saving.py)
+        stream_save = (save_path is not None and options.get("stream_save", True)
+                       and not options.get("replace_or_include_input", False))
+        fp_writer = sp_writer = None
         T = version.T
         F = version.f
         noise = partial(self.noise_fn, seed)
@@ -739,7 +903,13 @@ class SceneEngine:
                     if save_path is None:
                         first_pass = to_uint8(get_k_from_dict(all_samples, "samples-rgb"))
                     else:
-                        save_output(all_samples, save_path=osp.join(save_path, "first-pass"), video_save_fps=5)
+                        if stream_save:
+                            fp_writer = StreamingFrameWriter(osp.join(save_path, "first-pass", "samples-rgb"))
+                            cleanup.append(fp_writer.drain)
+                            fp_frames = get_k_from_dict(all_samples, "samples-rgb")
+                            fp_writer.submit(range(len(fp_frames)), fp_frames)
+                        save_output(all_samples, save_path=osp.join(save_path, "first-pass"), video_save_fps=5,
+                                    skip_png_keys=("samples-rgb",) if stream_save else ())
                         first_pass = osp.join(save_path, "first-pass", "samples-rgb.mp4")
                 yield first_pass
 
@@ -819,10 +989,29 @@ class SceneEngine:
                     )
                     work.append((i, c_test_sels, c_test_inds, curr, values))
 
-            def flush(samples, i, c_test_sels, c_test_inds, curr):
-                with stage("second_pass_flush"):
+            if stream_save:
+                sp_writer = StreamingFrameWriter(osp.join(save_path, "samples-rgb"))
+                cleanup.append(sp_writer.drain)
+            # every chunk's flush on one worker thread, in submission order
+            flush_pool = concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="svc-flush")
+            flush_futs: list[concurrent.futures.Future] = []
+
+            def stop_flushes():
+                # registered after the writer's drain, so it runs first: the
+                # flushes submit to the writer
+                flush_pool.shutdown(wait=True, cancel_futures=True)
+                for f in flush_futs:
+                    if f.done() and not f.cancelled() and f.exception() is not None:
+                        raise f.exception()
+
+            cleanup.append(stop_flushes)
+            # the flush's own stage: no device synchronize on its thread
+            flush_stage = _stages(timer, torch.device("cpu"))
+
+            def flush(fetch, i, c_test_sels, c_test_inds, curr):
+                with flush_stage("second_pass_flush"):
                     curr_imgs, _, curr_c2ws, curr_Ks = curr
-                    samples = decode_output(samples, T_second, c_test_sels)
+                    samples = decode_output(fetch(), T_second, c_test_sels)
                     if save_path is not None and options.get("save_second_pass", False):
                         save_output(
                             replace_or_include_input_for_dict(samples, c_test_sels, curr_imgs, curr_c2ws, curr_Ks),
@@ -830,7 +1019,15 @@ class SceneEngine:
                             video_save_fps=2,
                         )
                     extend_dict(all_samples, samples)
-                all_test_inds.extend(keep[k] for k in c_test_inds)
+                    # a chunk's final frame indices are known here, so its
+                    # PNGs encode while the next chunk samples
+                    final_inds = [keep[k] for k in c_test_inds]
+                    all_test_inds.extend(final_inds)
+                    if sp_writer is not None:
+                        sp_writer.submit(final_inds, samples["samples-rgb/image"])
+
+            def submit_flush(frames, *item):
+                flush_futs.append(flush_pool.submit(flush, _host_copy_later(frames), *item))
 
             # without per-step progress, independent chunks run in groups:
             # the mesh's data rows take one each (sample_many), or without a
@@ -866,7 +1063,7 @@ class SceneEngine:
                 with stage("second_pass_sample_many"):
                     xs = sample_many(bundle, [d(None) for d in draws], bundle.plan(num_steps), conds, draws)
                 for item, x in zip(group, xs):
-                    flush(bundle.vae.decode(x, dec_t, uint8=True), *item[:4])
+                    submit_flush(bundle.vae.decode(x, dec_t, uint8=True, host=False), *item[:4])
             for i, c_test_sels, c_test_inds, curr, values in work[n_grouped:]:
                 with stage("second_pass_sample"):
                     samples = sample_chunk(
@@ -874,14 +1071,22 @@ class SceneEngine:
                         cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
                         encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
                         abort_event=abort_event, progress_cb=second_pass_pbar, output_uint8=True,
+                        defer=True,
                     )
                 if samples is None:
                     return
-                flush(samples, i, c_test_sels, c_test_inds, curr)
+                submit_flush(samples, i, c_test_sels, c_test_inds, curr)
+            with stage("second_pass_flush_join"):
+                for f in flush_futs:
+                    f.result()  # in order; re-raises a flush's error
+                flush_pool.shutdown(wait=True)
             if delivered:
                 rows = [r for _, r in delivered]
-                extend_dict(all_samples, {"samples-rgb/image": to_uint8(traj_prior_imgs[rows])})
+                spliced = to_uint8(traj_prior_imgs[rows])
+                extend_dict(all_samples, {"samples-rgb/image": spliced})
                 all_test_inds.extend(j for j, _ in delivered)
+                if sp_writer is not None:
+                    sp_writer.submit([j for j, _ in delivered], spliced)
             order = np.argsort(all_test_inds, kind="stable")
             all_samples = {key: value[order] for key, value in all_samples.items()}
 
@@ -894,6 +1099,13 @@ class SceneEngine:
             if save_path is None:
                 final = to_uint8(all_samples["samples-rgb/image"])
             else:
-                save_output(all_samples, save_path=save_path, video_save_fps=options.get("video_save_fps", 2))
+                skip_pngs = ()
+                if sp_writer is not None:
+                    sp_writer.drain()
+                    if fp_writer is not None:
+                        fp_writer.drain()
+                    skip_pngs = ("samples-rgb",)
+                save_output(all_samples, save_path=save_path, video_save_fps=options.get("video_save_fps", 2),
+                            skip_png_keys=skip_pngs)
                 final = osp.join(save_path, "samples-rgb.mp4")
         yield final

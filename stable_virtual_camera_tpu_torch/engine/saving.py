@@ -6,6 +6,10 @@ the same numpy code; the writers (mp4 through utils/video.py, and PNG)
 import OpenCV only when called, so the engine runs, and keeps its frames in
 memory, on a machine without it. PNGs are lossless, so OpenCV's files
 decode to the same pixels as the JAX package's imageio ones.
+
+`StreamingFrameWriter` writes frame PNGs on a background thread while the
+render goes on (JAX's `StreamingFrameWriter`); `save_output(...,
+skip_png_keys=)` then leaves out the PNGs it already wrote.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 import json
 import os
 import os.path as osp
+import queue
+import threading
 
 import numpy as np
 
@@ -36,8 +42,50 @@ def write_png(path: str, frame: np.ndarray) -> None:
         raise IOError(f"Could not write {path}")
 
 
-def save_output(samples: dict, save_path: str, video_save_fps: float = 2) -> None:
-    """Write each "name/image" entry as name.mp4 plus name/NNN.png, each
+class StreamingFrameWriter:
+    """Frame PNGs written by one daemon thread, in the order submitted, as
+    `<dir>/<index:03d>.png`: the same files `save_output` writes for an
+    "image" entry, written while the render goes on instead of after it.
+    `drain()` ends the thread once the queue is empty and re-raises the
+    first error the thread met; it may be called more than once."""
+
+    def __init__(self, dir_path: str):
+        self.dir = dir_path
+        os.makedirs(dir_path, exist_ok=True)
+        self._q: queue.Queue = queue.Queue()
+        self._err: BaseException | None = None
+        self._t = threading.Thread(target=self._run, name="svc-frame-writer", daemon=True)
+        self._t.start()
+
+    def submit(self, indices, frames) -> None:
+        """Queue `frames` (any layout `to_uint8` takes) under `indices`."""
+        for i, frame in zip(indices, to_uint8(frames)):
+            self._q.put((int(i), frame))
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            try:
+                i, frame = item
+                write_png(osp.join(self.dir, f"{i:03d}.png"), frame)
+            except BaseException as e:  # noqa: BLE001 - re-raised by drain
+                if self._err is None:
+                    self._err = e
+
+    def drain(self) -> None:
+        if self._t.is_alive():
+            self._q.put(None)
+            self._t.join()
+        if self._err is not None:
+            raise self._err
+
+
+def save_output(samples: dict, save_path: str, video_save_fps: float = 2,
+                skip_png_keys: tuple = ()) -> None:
+    """Write each "name/image" entry as name.mp4 plus name/NNN.png (no PNGs
+    for a name in `skip_png_keys`: a StreamingFrameWriter wrote them), each
     "name/video" as name.mp4 and each "name/raw" as name.npy."""
     os.makedirs(save_path, exist_ok=True)
     for sample, value in samples.items():
@@ -50,7 +98,7 @@ def save_output(samples: dict, save_path: str, video_save_fps: float = 2) -> Non
                 frames,
                 fps=video_save_fps,
             )
-            if media == "image":
+            if media == "image" and name not in skip_png_keys:
                 os.makedirs(osp.join(save_path, name), exist_ok=True)
                 for i, frame in enumerate(frames):
                     write_png(osp.join(save_path, name, f"{i:03d}.png"), frame)

@@ -93,6 +93,7 @@ from stable_virtual_camera_tpu_torch.ops.time_attention import (
     time_attention_bhds,
     time_attention_plain,
 )
+from stable_virtual_camera_tpu_torch.parallel import tensor_parallel as tp
 from stable_virtual_camera_tpu_torch.parallel.ring_attention import ring_sdpa_packed
 
 FLASH_MIN_LEN = 1024
@@ -174,14 +175,25 @@ class LayerNorm32(nn.Module):
         return layer_norm_fp32(x, self.ln.weight, self.ln.bias, self.eps)
 
 
+class Linear(nn.Linear):
+    """nn.Linear that runs on its weight shard under tensor parallelism."""
+
+    def forward(self, x):
+        return tp.linear(self, x)
+
+
 class Conv(nn.Conv2d):
-    """k x k SAME conv on NHWC tensors."""
+    """k x k SAME conv on NHWC tensors (on its weight shard under tensor
+    parallelism)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1, bias: bool = True):
         super().__init__(cin, cout, k, stride=stride, padding=k // 2, bias=bias)
 
+    def _conv(self, x, weight, bias):
+        return conv_nhwc(x, weight, bias, self.stride, self.padding)
+
     def forward(self, x):
-        return conv_nhwc(x, self.weight, self.bias, self.stride, self.padding)
+        return tp.conv(self, x, self._conv)
 
 
 class _Quantizable:
@@ -217,7 +229,7 @@ class QuantLinear(_Quantizable, nn.Linear):
             return quantized_dense_static(x, *self.qsite.frozen(), bias=self.bias)
         if mode == "w8a8-calib":
             self.qsite.record(self.weight, x)
-        return F.linear(x, self.weight, self.bias)
+        return tp.linear(self, x)
 
 
 class QuantConv(_Quantizable, Conv):
@@ -232,7 +244,7 @@ class QuantConv(_Quantizable, Conv):
                                          stride=stride, padding=pad)
         if mode == "w8a8-calib":
             self.qsite.record(self.weight, x)
-        return conv_nhwc(x, self.weight, self.bias, self.stride, self.padding)
+        return tp.conv(self, x, self._conv)
 
 
 class SelfAttention(nn.Module):
@@ -289,7 +301,7 @@ class SelfAttention(nn.Module):
             # projections stay exact in every W8A8 mode (JAX's time-kernel
             # branch keeps them as einsums). Under a group the all-to-all
             # hands K2 a contiguous (b*T, 3*inner, S/n) tensor
-            qkv = torch.matmul(self.qkv.weight, x.transpose(1, 2))  # (B, 3*inner, S)
+            qkv = tp.matmul_channels_first(self.qkv, x)  # (B, 3*inner, S)
             if n > 1:
                 qkv = frames_to_positions(qkv, frames, group, axis=2)
             BT, _, S = qkv.shape
@@ -298,7 +310,7 @@ class SelfAttention(nn.Module):
             o = (time_attention_bhds if kernel else time_attention_plain)(q, k, v, T).reshape(BT, inner, S)
             if n > 1:
                 o = positions_to_frames(o, frames, group, axis=2)
-            return F.linear(o.transpose(1, 2), self.to_out.weight, self.to_out.bias)
+            return tp.linear(self.to_out, o.transpose(1, 2))
         qkv = self.qkv(x)  # (B, S, 3*inner)
         if n > 1:
             qkv = frames_to_positions(qkv, frames, group, axis=1)
@@ -442,16 +454,31 @@ class ResBlock(nn.Module):
         self.in_gn = GroupNorm32(channels)
         self.dense_proj = Conv(dense_in, 2 * channels, 1)
         self.in_conv = QuantConv(channels, out_channels, 3)
-        self.emb_proj = nn.Linear(emb_dim, out_channels)
+        self.emb_proj = Linear(emb_dim, out_channels)
         self.out_gn = GroupNorm32(out_channels)
         self.out_conv = QuantConv(out_channels, out_channels, 3)
         self.skip = QuantConv(channels, out_channels, 1) if out_channels != channels else None
 
-    def forward(self, x, emb, dense_emb):
+    def film(self, dense_emb, hw: tuple[int, int]):
+        """The FiLM map of this block at resolution `hw`: the Plücker map
+        resized (align corners) and 1x1-projected to [scale | shift]. It
+        depends only on the chunk's conditioning, never on x or the step."""
+        return self.dense_proj(resize_bilinear_align_corners(dense_emb, hw))
+
+    def forward(self, x, emb, dense_emb, film=None):
+        """`film` is this block's precomputed `film(...)` (the FiLM cache):
+        of x's batch, or of a divisor of it (the CFG halves share one
+        Plücker map), broadcast over the batch's repeats."""
         h = F.silu(self.in_gn(x))
-        dense = resize_bilinear_align_corners(dense_emb, (x.shape[1], x.shape[2]))
-        scale, shift = self.dense_proj(dense).to(h.dtype).chunk(2, dim=-1)
-        h = self.in_conv(h * (1 + scale) + shift)
+        if film is None:
+            film = self.film(dense_emb, (x.shape[1], x.shape[2]))
+        scale, shift = film.to(h.dtype).chunk(2, dim=-1)
+        if film.shape[0] != h.shape[0]:
+            hr = h.unflatten(0, (h.shape[0] // film.shape[0], film.shape[0]))
+            h = (hr * (1 + scale) + shift).flatten(0, 1)
+        else:
+            h = h * (1 + scale) + shift
+        h = self.in_conv(h)
         e = self.emb_proj(F.silu(emb.float()).to(h.dtype))
         h = h + e[:, None, None, :]
         h = self.out_conv(F.silu(self.out_gn(h)))
@@ -498,7 +525,7 @@ class Upsample(_Quantizable, nn.Module):
             return pixel_shuffle_2x(y + b.to(y.dtype).repeat(4))
         if mode == "w8a8-calib":
             self.qsite.record(rearranged_upsample_weight(w), x)
-        return upsample_2x_conv3x3(x, w, b)
+        return tp.conv(self.conv, x, upsample_2x_conv3x3)
 
 
 class SevaUNet(nn.Module):
@@ -519,8 +546,8 @@ class SevaUNet(nn.Module):
         self.attention = attention
         mc = sp.model_channels
         emb_dim = 4 * mc
-        self.time_embed_0 = nn.Linear(mc, emb_dim)
-        self.time_embed_2 = nn.Linear(emb_dim, emb_dim)
+        self.time_embed_0 = Linear(mc, emb_dim)
+        self.time_embed_2 = Linear(emb_dim, emb_dim)
 
         n_levels = len(sp.channel_mult)
 
@@ -626,10 +653,39 @@ class SevaUNet(nn.Module):
         finally:
             self.set_quant(prev)
 
-    def forward(self, x, t_idx, context, dense_emb, num_frames: int, group=None):
+    def film(self, dense_emb, model_group=None) -> dict:
+        """The FiLM cache of a chunk: {ResBlock name: its `film` map} for
+        every ResBlock, at the resolution the forward gives it, keyed as
+        JAX's `film_only` walk keys its dict. Batch and resolution come from
+        `dense_emb` (B, h, w, 6); `model_group` as in `forward`."""
+        dense_emb = dense_emb.to(self.dtype)
+        hw = tuple(dense_emb.shape[1:3])
+        films = {}
+        with tp.model_group(model_group) if model_group is not None else contextlib.nullcontext():
+            for name, _attn, is_down in self._encoder:
+                if is_down:  # a SAME stride-2 conv: ceil(n / 2)
+                    hw = ((hw[0] + 1) // 2, (hw[1] + 1) // 2)
+                else:
+                    films[name] = getattr(self, name).film(dense_emb, hw)
+            for name in ("middle_block_0", "middle_block_2"):
+                films[name] = getattr(self, name).film(dense_emb, hw)
+            for name, _attn, up in self._decoder:
+                films[name] = getattr(self, name).film(dense_emb, hw)
+                if up is not None:
+                    hw = (2 * hw[0], 2 * hw[1])
+        return films
+
+    def forward(self, x, t_idx, context, dense_emb, num_frames: int, group=None, film=None,
+                model_group=None):
         """`num_frames` frames a scene. With a view `group` (parallel/comm.Comm)
         this is one rank's share: num_frames = T / group.size frames of each
-        scene, the ranks together the whole chunk."""
+        scene, the ranks together the whole chunk. `film` is the chunk's FiLM
+        cache (`film(...)`), used in place of each ResBlock's FiLM map. With
+        a `model_group` (the Comm of a "model" mesh axis) this is a shard
+        module's forward (parallel/tensor_parallel.shard_unet)."""
+        if model_group is not None:
+            with tp.model_group(model_group):
+                return self.forward(x, t_idx, context, dense_emb, num_frames, group, film)
         dt = self.dtype
         x, context, dense_emb = x.to(dt), context.to(dt), dense_emb.to(dt)
         # a view group reaches the MultiviewTransformers as keywords only when
@@ -641,23 +697,29 @@ class SevaUNet(nn.Module):
         temb = self.time_embed_0(timestep_embedding(t_idx, self.spec.model_channels).to(dt))
         temb = self.time_embed_2(F.silu(temb.float()).to(dt))
 
+        def res(name, h):
+            # the cache goes positionally, and only when given: training's
+            # remat wraps the blocks' forwards with positional arguments
+            cached = () if film is None else (film[name],)
+            return getattr(self, name)(h, temb, dense_emb, *cached)
+
         h = self.input_blocks_0_0(x)
         hs = [h]
         for name, attn, is_down in self._encoder:
             if is_down:
                 h = getattr(self, name)(h)
             else:
-                h = getattr(self, name)(h, temb, dense_emb)
+                h = res(name, h)
                 if attn is not None:
                     h = getattr(self, attn)(h, context, num_frames, **mvt)
             hs.append(h)
 
-        h = self.middle_block_0(h, temb, dense_emb)
+        h = res("middle_block_0", h)
         h = self.middle_block_1(h, context, num_frames, **mvt)
-        h = self.middle_block_2(h, temb, dense_emb)
+        h = res("middle_block_2", h)
 
         for name, attn, up in self._decoder:
-            h = getattr(self, name)(torch.cat([h, hs.pop()], dim=-1), temb, dense_emb)
+            h = res(name, torch.cat([h, hs.pop()], dim=-1))
             if attn is not None:
                 h = getattr(self, attn)(h, context, num_frames, **mvt)
             if up is not None:

@@ -71,6 +71,12 @@ def flax_to_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+# a kernel's port dimensions in flax order, by rank: the Linear weight
+# (out, in) is the dense kernel (in, out), the Conv2d weight OIHW the conv
+# kernel HWIO
+KERNEL_TO_FLAX = {2: (1, 0), 4: (2, 3, 1, 0)}
+
+
 def to_flax_tree(module: nn.Module, like: Mapping) -> dict:
     """The inverse of `load_flax_params`: `module`'s parameters as a nested
     dict of fp32 numpy arrays with the names, nesting and layouts of the flax
@@ -87,7 +93,7 @@ def to_flax_tree(module: nn.Module, like: Mapping) -> dict:
             name = ".".join(prefix + ({"kernel": "weight", "scale": "weight"}.get(key, key),))
             t = params[name].detach().float().cpu()
             if key == "kernel":
-                t = t.t() if t.dim() == 2 else t.permute(2, 3, 1, 0)
+                t = t.permute(*KERNEL_TO_FLAX[t.dim()])
             if tuple(t.shape) != tuple(val.shape):
                 raise ValueError(f"{name}: module shape {tuple(t.shape)}, tree shape {tuple(val.shape)}")
             out[key] = np.ascontiguousarray(t.numpy())

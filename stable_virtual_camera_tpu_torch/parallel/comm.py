@@ -1,12 +1,16 @@
-"""The collectives of a view group, and the threads that run a mesh's ranks.
+"""The collectives of a view or model group, and the threads that run a
+mesh's ranks.
 
 The JAX package never calls a collective itself: XLA inserts them where a
 sharded program needs them, and the ring's `lax.ppermute`
 (parallel/ring_attention.py:185-186) is its one explicit exchange. The port
 runs the ranks of a mesh (parallel/mesh.py) as threads of one process, so
-it writes those exchanges out here: `all_gather`, `all_to_all`,
-`ring_shift` (JAX's ppermute to the next rank), `broadcast`,
+it writes those exchanges out here: `all_gather`, `all_reduce`,
+`all_to_all`, `ring_shift` (JAX's ppermute to the next rank), `broadcast`,
 `broadcast_object` and `barrier`, each a method of a rank's `Comm`.
+`all_reduce` sums every rank's copy in rank order, in fp32, on every rank,
+so that all ranks hold the same bits (the model group's ranks must stay
+bit-equal over a whole sampling loop).
 
 An exchange posts the rank's value in its group's slot, waits for the
 whole group, takes what it needs from the other slots, and waits once more
@@ -153,6 +157,18 @@ class Comm:
             pieces[self.rank] if j == self.rank else self._copy((s[0][self.rank], s[1]))
             for j, s in enumerate(slots)])
 
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's `t`, the same bits on every rank: the
+        ranks' copies added in rank order in fp32, cast back once."""
+        if self.size == 1:
+            return t
+        parts = self._exchange(t, "all_reduce", lambda slots: [
+            t if j == self.rank else self._copy(s) for j, s in enumerate(slots)])
+        acc = parts[0].to(torch.float32, copy=True)
+        for p in parts[1:]:
+            acc += p
+        return acc.to(t.dtype)
+
     def ring_shift(self, value):
         """Send `value` (a tensor or a tuple of them) to the next rank and
         return the previous rank's: JAX's ppermute i -> i + 1 mod n."""
@@ -182,14 +198,18 @@ class Comm:
 @dataclass
 class RankContext:
     """What `fn` gets in `run_ranks`: the rank's flat index, its (data,
-    view) coordinates, its device and the Comm of its view group (the ranks
-    of its data row)."""
+    view, model) coordinates, its device, the Comm of its view group (the
+    ranks of its data row at its model coordinate) and that of its model
+    group (the ranks at its data and view coordinates; size 1 on a mesh
+    without a "model" axis)."""
 
     rank: int
     data: int
     view: int
     device: torch.device
     comm: Comm
+    model: int = 0
+    model_comm: Comm | None = None
 
 
 def _take_handles(device: torch.device) -> None:
@@ -218,10 +238,11 @@ def run_ranks(mesh: Mesh, fn: Callable[[RankContext], Any], rows=None,
     directly. Grad and inference mode carry over from the caller. Raises
     the first failure of any rank once every thread has ended, or once the
     ranks still running have had `timeout` seconds to end after it."""
-    n_data, n_view = mesh.shape["data"], mesh.shape["view"]
+    n_data, n_view, n_model = mesh.shape["data"], mesh.shape["view"], mesh.n_model
     rows = list(range(n_data)) if rows is None else list(rows)
-    ranks = [mesh.rank(d, v) for d in rows for v in range(n_view)]
-    groups = {d: _Group(n_view, timeout) for d in rows}
+    ranks = [mesh.rank(d, v, m) for d in rows for v in range(n_view) for m in range(n_model)]
+    groups = {(d, m): _Group(n_view, timeout) for d in rows for m in range(n_model)}
+    model_groups = {(d, v): _Group(n_model, timeout) for d in rows for v in range(n_view)}
     inference, grad = torch.is_inference_mode_enabled(), torch.is_grad_enabled()
     cuda_devices = {mesh.device(r) for r in ranks if mesh.device(r).type == "cuda"}
     if any(torch.cuda.mem_get_info(dev)[0] < HANDLE_HEADROOM for dev in cuda_devices):
@@ -239,9 +260,10 @@ def run_ranks(mesh: Mesh, fn: Callable[[RankContext], Any], rows=None,
     lock = threading.Lock()
 
     def body(rank: int) -> None:
-        data, view = mesh.coords(rank)
+        data, view, model = (*mesh.coords(rank), 0)[:3]
         dev = mesh.device(rank)
-        ctx = RankContext(rank, data, view, dev, Comm(groups[data], view, dev))
+        ctx = RankContext(rank, data, view, dev, Comm(groups[data, model], view, dev), model,
+                          Comm(model_groups[data, view], model, dev))
         try:
             with torch.inference_mode() if inference else torch.set_grad_enabled(grad):
                 if dev.type != "cuda":
@@ -258,7 +280,7 @@ def run_ranks(mesh: Mesh, fn: Callable[[RankContext], Any], rows=None,
         except BaseException as e:  # noqa: BLE001 - handed to the caller below
             with lock:
                 errors.append(e)
-            for g in (start, *groups.values()):
+            for g in (start, *groups.values(), *model_groups.values()):
                 g.abort()
 
     threads = [threading.Thread(target=body, args=(r,), name=f"mesh-rank-{r}", daemon=True)

@@ -206,17 +206,13 @@ def test_run_one_scene_defaults_match_jax():
     ("platform", "cpu", "item 4"),
 ])
 def test_cli_refuses_what_is_not_ported(flag, value, item):
-    """Of ROADMAP queue 1 item 4's flags, the mesh's view and data axes and
-    the platform are ported (parallel/): the CLI takes them, builds the
-    bundle on a CPU mesh and finds no scene under "nowhere". Tensor
-    parallelism is not: --mesh_model raises, naming the item."""
+    """Every flag of what was ROADMAP queue 1 item 4 is ported now
+    (parallel/): the mesh's view, data and model axes and the platform. The
+    CLI takes each, builds the bundle on a CPU mesh and finds no scene
+    under "nowhere"; nothing is refused any more."""
     from stable_virtual_camera_tpu_torch.apps import cli
 
-    if flag == "mesh_model":
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main("nowhere", device="cpu", random_model=True, **{flag: value})
-    else:
-        assert cli.main("nowhere", device="cpu", random_model=True, **{flag: value}) == []
+    assert cli.main("nowhere", device="cpu", random_model=True, **{flag: value}) == []
 
 
 @pytest.mark.parametrize("opts", [

@@ -133,7 +133,7 @@ def test_mixed_resolution_edges_pad_as_jax_and_recover_the_scene():
 
 def test_refuses_a_mesh_and_zero_steps():
     edges, _ = _make_scene(N=3, seed=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         ga.global_align(_port_edges(edges), niter=5, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         ga.global_align(_port_edges(edges), niter=0, device="cpu")

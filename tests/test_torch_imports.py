@@ -1,7 +1,8 @@
 """The port's main path, its CLI, its fine-tuning path, its Advanced-mode
 path, its weight loading, its W8A8 serving, its HTTP service, its GUI demo,
-its utilities, LPIPS, its ahead-of-time export and its multi-device sampling (parallel/)
-import no JAX, nothing of the JAX package, no
+its utilities, LPIPS, its ahead-of-time export and its multi-device
+sampling (parallel/, tensor parallelism included), with its streamed frame
+writes and FiLM cache, import no JAX, nothing of the JAX package, no
 `safetensors`, no image library and neither gradio nor viser.
 
 The machine with the card has PyTorch but no JAX, no `safetensors` (so the
@@ -82,6 +83,12 @@ import stable_virtual_camera_tpu_torch.parallel.mesh
 import stable_virtual_camera_tpu_torch.parallel.comm
 import stable_virtual_camera_tpu_torch.parallel.ring_attention
 import stable_virtual_camera_tpu_torch.parallel.sharding
+import stable_virtual_camera_tpu_torch.parallel.param_sharding
+import stable_virtual_camera_tpu_torch.parallel.tensor_parallel
+from stable_virtual_camera_tpu_torch.engine.saving import StreamingFrameWriter
+from stable_virtual_camera_tpu_torch.engine.runner import FILM_CACHE_MAX_T
+from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh_tp
+from stable_virtual_camera_tpu_torch.parallel.sharding import make_tensor_parallel_sampler
 from stable_virtual_camera_tpu_torch.models.io import load_bundle, read_safetensors, save_converted
 print("imported")
 """

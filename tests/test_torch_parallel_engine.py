@@ -8,8 +8,8 @@ render with every chunk view-sharded over 3 ranks (T=3); a second pass
 whose 3 chunks fan out over data=2 (a full group and a padded one), the
 same with the frames sharded over view=3, and batched two at a time with
 `chunk_batch=2` on one device; the CLI's --mesh_view / --mesh_data /
---platform flags (and the refusal of --mesh_model and --platform tpu); a
-served job on a mesh. The mesh paths sum in other orders than the serial
+--platform flags, --mesh_model (tensor parallelism over a "model" axis)
+and the refusal of --platform tpu; a served job on a mesh. The mesh paths sum in other orders than the serial
 one (the ring's merge, batched products), so frames agree within one uint8
 step, JAX's bar for its data-parallel engine.
 
@@ -209,8 +209,10 @@ def test_cli_mesh_flags_render_the_single_device_frames(tmp_path, calls):
                          work_dir=str(tmp_path / "mesh"), **opts)
     assert calls["sharded"] > 0 and calls["many"] == 2
     _assert_frames_close(_pngs(meshed), _pngs(single))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cli.main(str(scene.parent), device="cpu", mesh_model=2, **opts)
+    # --mesh_model: every chunk on weight shards over 2 model ranks
+    (tp,) = cli.main(str(scene.parent), device="cpu", mesh_model=2, work_dir=str(tmp_path / "tp"),
+                     **opts)
+    _assert_frames_close(_pngs(tp), _pngs(single))
     with pytest.raises(ValueError, match="JAX package"):
         cli.main(str(scene.parent), platform="tpu", **opts)
 

@@ -174,6 +174,31 @@ def test_categorize_gives_one_class_each(name, cls):
     assert (matches or ["other"])[0] == cls  # the first class whose pattern matches
 
 
+def test_busy_time_counts_overlapping_streams_once():
+    """chip_smoke.busy_intervals: the device's busy time is the union of its
+    kernels' intervals over every stream, so rank streams whose kernels
+    overlap count that time once; each stream's is its own union; host
+    events and empty intervals are no device time."""
+    import importlib.util
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+
+    def event(start, end, stream, device=DeviceType.CUDA):
+        return SimpleNamespace(device_type=device, device_resource_id=stream,
+                               time_range=SimpleNamespace(start=start, end=end))
+
+    events = [event(0, 1000, 7), event(500, 2000, 8), event(200, 400, 7), event(3000, 4000, 7),
+              event(5000, 5000, 8), event(0, 9000, 0, DeviceType.CPU)]
+    busy, streams = chip_smoke.busy_intervals(SimpleNamespace(events=lambda: events))
+    assert busy == 3.0 and streams == {7: 2.0, 8: 1.5}
+
+
 def _jax_stage_names() -> set[str]:
     with open(JAX_RUNNER) as f:
         return set(re.findall(r'stage\("([a-z_]+)"\)', f.read()))
@@ -182,9 +207,9 @@ def _jax_stage_names() -> set[str]:
 def test_run_one_scene_timer_reports_jax_stage_names():
     """A two-pass tiny render with a StageTimer: every stage the port times
     carries the JAX engine's name for it. The JAX engine's cache priming
-    and background flushes have no counterpart in the port, so
-    `second_pass_prime` and `second_pass_flush_join` do not occur; its
-    grouped second pass (`second_pass_conditioning`,
+    has no counterpart in the port, so `second_pass_prime` does not occur;
+    the second pass's flushes run on a worker thread and are joined under
+    `second_pass_flush_join`, as in JAX; its grouped second pass (`second_pass_conditioning`,
     `second_pass_sample_many`) runs only on a mesh's data axis or with
     `chunk_batch`, so not here."""
     from stable_virtual_camera_tpu_torch.apps.renderer import HeadlessRenderer, preprocess_basic
@@ -204,7 +229,7 @@ def test_run_one_scene_timer_reports_jax_stage_names():
     assert set(timer.totals) == {
         "prepare_images", "first_pass_build", "first_pass_sample", "first_pass_decode_extend",
         "first_pass_save", "second_pass_plan", "second_pass_build", "second_pass_sample",
-        "second_pass_flush", "final_save",
+        "second_pass_flush", "second_pass_flush_join", "final_save",
     }
     assert set(timer.totals) <= _jax_stage_names()
     assert timer.counts["first_pass_sample"] == plan["first_pass_chunks"]

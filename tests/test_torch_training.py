@@ -40,6 +40,7 @@ from stable_virtual_camera_tpu_torch.training.train_step import (
     make_train_step,
     torch_draw,
 )
+from test_torch_quant import one_torch_thread  # noqa: F401 (autouse: one intra-op thread)
 
 SPEC = SevaSpec(model_channels=32, num_frames=8, num_head_channels=16, context_dim=64)
 T, HW = SPEC.num_frames, 16
