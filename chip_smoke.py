@@ -157,6 +157,31 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      its FiLM cache) and through the Euler loop on the bundle's network
      (no cache): latents (relative L2, or one bf16 step), seconds, peak
      memory and the cache's bytes;
+ 29. `align_sharded`, after `global_align_synthetic`: its 56-edge scene
+     refined on an ALIGN_MESH (data, view) mesh of thread ranks on cuda:0
+     (14 edges a rank, one flat fp32 all-reduce of the gradients a step)
+     against the unsharded refinement at the same steps: loss, camera
+     centers and focal at the JAX package's sharded bars, ms a step;
+ 30. `ring_bwd`: the view-sharded joint attention's backward
+     (parallel/ring_attention.ring_backward) at each joint site of the
+     train step split over SHARDED_VIEW ranks: every rank's (q, k, v, o,
+     global lse, dO) made once on cuda:0, then the kernel route (K1-dKV
+     and K1-dQ on each (query shard, key shard) block) and the plain route
+     on those same tensors, dq, dk and dv of every rank at K1_BWD_REL_L2,
+     SHARDED_VIEW^2 launches of each kernel counted from zero, and the
+     ms of each route;
+ 31. `sharded_train`, after `train_path`: (a) the sharded train step
+     (frames over SHARDED_VIEW view ranks on cuda:0, one replica a rank,
+     remat) two steps from the unsharded step's weights and draws: loss
+     and gradient against the unsharded step's, the replicas bit-equal,
+     K1/K1-dKV/K1-dQ/K2 launches against the counts predicted from the
+     UNet's attention layers, step seconds against the unsharded step,
+     peak memory; (b) the FSDP step on FSDP_MESH: loss and params after
+     one step against the unsharded step's, each rank's persistent bytes
+     against the whole state's; (c) apps/train_cli.main --mesh_view
+     CLI_MESH_VIEW on train_path's scene written as a reconfusion scene,
+     two steps, its checkpoint read back and resumed for a third, and the
+     CLI's refusals (--lora_rank with a mesh, T % mesh_view);
 then a `kernels` summary line and the final `ok` line.
 Every phase prints one JSON line. Cuts against a real render, the CLI, a
 real fine-tune, the Advanced mode, the released checkpoints and the GUI
@@ -219,6 +244,8 @@ K1_BWD_REL_L2 = 2e-2  # P and dS rounded to bf16 for the products, bf16 outputs
 # same inputs and must give the same bits (L = 1701: 4 L is not a multiple of
 # 16, the row stride a TMA map of lse or D would need)
 K1_BWD_DETERMINISM_SHAPE = (1701, 1, 20)
+# the joint (T*h*w-token) sites among them: one sequence a chunk
+JOINT_TRAIN_SHAPES = [s for s in K1_TRAIN_SHAPES if s[1] == 1]
 TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2 = 1e-2, 5e-2
 REMAT_LOSS_REL, REMAT_GRAD_REL_L2 = 1e-6, 1e-3
 TRAIN_STEPS, TRAIN_INPUTS, TRAIN_LR, LORA_RANK = 4, 3, 1e-3, 16
@@ -272,6 +299,23 @@ TP_BYTES_SHARE = 0.51
 # film_cache: the cached chunk against the uncached one: relative L2, or
 # else one bf16 step at the latents' magnitude (max abs)
 FILM_REL_L2 = 1e-3
+# sharded_train: (a) the view ranks of the sharded step (7 frames each at
+# T=21), held to train_grad's bars against the unsharded step (loss rel
+# TRAIN_LOSS_REL, gradient rel L2 TRAIN_GRAD_REL_L2); (b) the FSDP mesh,
+# its params after one step within FSDP_PARAM_REL of the unsharded step's
+# (the difference's L2 against the update's), a rank's persistent bytes at
+# most FSDP_BYTES_SHARE of the whole state's; (c) the train CLI's
+# --mesh_view; every collective of these phases and of align_sharded waits
+# at most MESH_TIMEOUT seconds, so a deadlock shows quickly
+SHARDED_VIEW, FSDP_MESH, CLI_MESH_VIEW = 3, (2, 1), 3
+FSDP_PARAM_REL, FSDP_BYTES_SHARE = 5e-2, 0.51
+MESH_TIMEOUT = 120.0
+# align_sharded: the synthetic scene's edges over the "data" axis of this
+# mesh, held to the unsharded refinement at the JAX package's bars, with the
+# pointmap noise of the JAX package's sharded test (a noise-free scene's
+# loss falls toward 0, where a relative bar on it reads fp32 rounding)
+ALIGN_MESH, ALIGN_NOISE = (4, 1), 0.005
+ALIGN_LOSS_RTOL, ALIGN_CENTER_ATOL, ALIGN_FOCAL_RTOL = 1e-3, 5e-3, 1e-3
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "assets", "golden_scene")
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
@@ -1305,13 +1349,13 @@ def lookat_c2w(pos):
     return c2w
 
 
-def synthetic_scene(N: int, H: int, W: int, seed: int = SEED):
+def synthetic_scene(N: int, H: int, W: int, seed: int = SEED, noise: float = 0.0):
     """A known scene in the stereo network's output contract (the
     construction of tests/test_global_alignment.py, scaled to H x W): cameras
     on an arc looking at the origin, smooth per-image depth, and for every
     ordered pair (i, j) both pointmaps in camera i's frame at a random
-    per-edge scale, with confidences in [1, 10]. Returns (EdgePreds, c2ws,
-    focal, world points)."""
+    per-edge scale, with `noise` times unit-normal noise added to them, with
+    confidences in [1, 10]. Returns (EdgePreds, c2ws, focal, world points)."""
     import numpy as np
 
     from stable_virtual_camera_tpu_torch.core.global_alignment import EdgePreds
@@ -1332,6 +1376,9 @@ def synthetic_scene(N: int, H: int, W: int, seed: int = SEED):
         kappa = rng.uniform(0.5, 2.0)
         pts1[e] = kappa * (world[i] @ w2cs[i, :3, :3].T + w2cs[i, :3, 3])
         pts2[e] = kappa * (world[j] @ w2cs[i, :3, :3].T + w2cs[i, :3, 3])
+    if noise:
+        pts1 += (noise * rng.normal(size=pts1.shape)).astype(np.float32)
+        pts2 += (noise * rng.normal(size=pts2.shape)).astype(np.float32)
     conf = rng.uniform(1.0, 10.0, (2, len(pairs), H, W)).astype(np.float32)
     edges = EdgePreds(i_idx=np.array([i for i, _ in pairs]), j_idx=np.array([j for _, j in pairs]),
                       pts1=pts1, conf1=conf[0], pts2=pts2, conf2=conf[1])
@@ -3386,13 +3433,12 @@ def profile_train_step(bundle, gen) -> None:
     emit({"phase": "train_profile", "ok": True, "step_wall_s": prof.pop("wall_s"), **prof})
 
 
-def orbit_scene(n: int = 24):
-    """An in-memory scene: n seeded 576x576 images on a circular orbit
-    around the origin, looking at it, with pixel intrinsics."""
+def orbit_views(n: int = 24):
+    """n seeded 576x576 RGB images on a circular orbit around the origin,
+    looking at it: (images, OpenCV c2ws (n, 4, 4), pixel intrinsics K)."""
     import numpy as np
 
     from stable_virtual_camera_tpu_torch.core.trajectories import get_lookat_w2cs
-    from stable_virtual_camera_tpu_torch.data import Dataset, DirectParser
 
     rng = np.random.default_rng(SEED)
     theta = np.linspace(0.0, 2 * np.pi, n, endpoint=False)
@@ -3400,6 +3446,16 @@ def orbit_scene(n: int = 24):
     c2ws = np.linalg.inv(get_lookat_w2cs(positions, np.zeros(3), np.array([0.0, -1.0, 0.0])))
     K = np.array([[500.0, 0.0, RES / 2], [0.0, 500.0, RES / 2], [0.0, 0.0, 1.0]])
     imgs = [im for im in rng.integers(0, 256, (n, RES, RES, 3), dtype=np.uint8)]
+    return imgs, c2ws, K
+
+
+def orbit_scene(n: int = 24):
+    """The orbit of `orbit_views` as an in-memory scene."""
+    import numpy as np
+
+    from stable_virtual_camera_tpu_torch.data import Dataset, DirectParser
+
+    imgs, c2ws, K = orbit_views(n)
     return Dataset(DirectParser(imgs, c2ws[:, :3].astype(np.float32), np.repeat(K[None], n, 0)))
 
 
@@ -3477,6 +3533,387 @@ def run_train_path(bundle) -> dict:
     return counts
 
 
+def check_align_sharded() -> None:
+    """`align_sharded`: the 56-edge synthetic scene of
+    global_align_synthetic (with ALIGN_NOISE on its pointmaps) refined
+    unsharded and with its edges over the
+    "data" axis of an ALIGN_MESH mesh of thread ranks on cuda:0, the same
+    steps and schedule: final loss, camera centers and focal against the
+    unsharded run at the JAX package's bars, ms a step for each."""
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch.core import global_alignment as ga
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+
+    edges, c2ws, f, world = synthetic_scene(SCENE_N, SCENE_H, SCENE_W, noise=ALIGN_NOISE)
+    mesh = make_mesh(*ALIGN_MESH, devices=[DEVICE] * (ALIGN_MESH[0] * ALIGN_MESH[1]), timeout=MESH_TIMEOUT)
+    runs = {}
+    for name, kw in (("unsharded", {"device": DEVICE}), ("sharded", {"mesh": mesh})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = ga.global_align(edges, niter=ALIGN_STEPS, lr=0.01, **kw)
+        torch.cuda.synchronize()
+        runs[name + "_s"] = time.perf_counter() - t0
+    ref, out = runs["unsharded"], runs["sharded"]
+    loss_rel = abs(out.final_loss - ref.final_loss) / abs(ref.final_loss)
+    center_err = float(np.abs(out.c2ws[:, :3, 3] - ref.c2ws[:, :3, 3]).max())
+    focal_rel = float(abs(out.Ks[0, 0, 0] / ref.Ks[0, 0, 0] - 1))
+    err = scene_errors(out, c2ws, f, world)
+    ok = (np.isfinite(out.final_loss) and loss_rel <= ALIGN_LOSS_RTOL and center_err <= ALIGN_CENTER_ATOL
+          and focal_rel <= ALIGN_FOCAL_RTOL)
+    emit({"phase": "align_sharded", "ok": ok, "mesh": dict(zip(("data", "view"), ALIGN_MESH)),
+          "edges": len(edges.i_idx), "edges_a_rank": len(edges.i_idx) // ALIGN_MESH[0], "steps": ALIGN_STEPS,
+          "pointmap_noise": ALIGN_NOISE,
+          "loss": out.final_loss, "loss_unsharded": ref.final_loss, "loss_rel": loss_rel,
+          "center_max_abs_diff": center_err, "focal_rel_diff": focal_rel,
+          "ms_per_step": runs["sharded_s"] * 1e3 / ALIGN_STEPS,
+          "ms_per_step_unsharded": runs["unsharded_s"] * 1e3 / ALIGN_STEPS,
+          "includes": "host init, the refinement, the scene back on the host",
+          "recovery": err,
+          "bar": {"loss_rtol": ALIGN_LOSS_RTOL, "center_atol": ALIGN_CENTER_ATOL,
+                  "focal_rtol": ALIGN_FOCAL_RTOL}})
+    if not ok:
+        raise AssertionError("the edge-sharded alignment disagrees with the unsharded one")
+
+
+def check_ring_backward(gen) -> dict:
+    """`ring_bwd` (see the module docstring): returns the kernel route's
+    launch counts."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.ops.flash_upstream import flash_attention_cuda
+    from stable_virtual_camera_tpu_torch.parallel.ring_attention import ring_backward
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    n = SHARDED_VIEW
+    rows, counts = [], {}
+    for L, B, H in JOINT_TRAIN_SHAPES:
+        W, Ll = H * 64, L // n
+        # each rank's q, k, v as the UNet hands them to the ring: strided
+        # (B, H, L/n, 64) views of its packed projection; o (contiguous) and
+        # the fp32 lse of the whole sequence's attention, cut by rank; dO a
+        # (B, H, L/n, 64) view of a (B, L/n, H*64) gradient
+        qkv = torch.randn((B, L, 3 * W), generator=gen, device=DEVICE).to(torch.bfloat16)
+        q, k, v = (t.view(B, L, H, 64).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        saved, grads = [], []
+        for r in range(n):
+            part = qkv[:, r * Ll:(r + 1) * Ll].clone()
+            q_r, k_r, v_r = (t.view(B, Ll, H, 64).transpose(1, 2) for t in part.chunk(3, dim=-1))
+            saved.append((q_r, k_r, v_r, o[:, :, r * Ll:(r + 1) * Ll].contiguous(),
+                          lse[:, :, r * Ll:(r + 1) * Ll].contiguous()))
+            do = torch.randn((B, Ll, W), generator=gen, device=DEVICE).to(torch.bfloat16)
+            grads.append((do.view(B, Ll, H, 64).transpose(1, 2),))
+        del qkv, q, k, v, o, lse
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        kern = ring_backward(saved, grads, kernel=True)
+        torch.cuda.synchronize()
+        launched = {key: _kernels.counts()[key] for key in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
+        for key, c in launched.items():
+            counts[key] = counts.get(key, 0) + c
+        plain = ring_backward(saved, grads, kernel=False)
+        torch.cuda.synchronize()
+        errs = {name: max(rel(kern[r][i], plain[r][i]) for r in range(n))
+                for i, name in enumerate(("dq", "dk", "dv"))}
+        rows.append({
+            "L": L, "B": B, "H": H, "rank_rows": Ll, "rel_l2_worst_rank": errs,
+            "max_abs_err": max((kern[r][i].float() - plain[r][i].float()).abs().max().item()
+                               for r in range(n) for i in range(3)),
+            "finite": bool(all(torch.isfinite(t).all() for g in kern for t in g)),
+            "launches": launched,
+            "ms": cuda_ms(lambda: ring_backward(saved, grads, kernel=True), 3),
+            "plain_ms": cuda_ms(lambda: ring_backward(saved, grads, kernel=False), 1),
+        })
+        del saved, grads, kern, plain
+        torch.cuda.empty_cache()
+    ok = all(r["finite"] and max(r["rel_l2_worst_rank"].values()) <= K1_BWD_REL_L2
+             and all(c == n * n for c in r["launches"].values()) for r in rows)
+    emit({"phase": "ring_bwd", "ok": ok, "ranks": n,
+          "bar": {"rel_l2": K1_BWD_REL_L2, "launches_each": n * n}, "shapes": rows,
+          "inputs": "every rank's q, k, v, o, global lse and dO made once; both routes read the same tensors"})
+    if not ok:
+        raise AssertionError("the ring's kernel backward disagrees with its plain backward, or its "
+                             "launches are not one K1-dKV and one K1-dQ a block")
+    return counts
+
+
+def attention_sites(unet, h: int) -> dict:
+    """The attention layers of one SevaUNet forward at latent side h: the
+    per-frame self-attentions that take K1 (L = h*w >= 1024), the joint
+    (T*h*w-token) ones and the time-mixes (K2), from the UNet's stages."""
+    from stable_virtual_camera_tpu_torch.models.unet import FLASH_MIN_LEN
+
+    sites = {"per_frame_k1": 0, "joint": 0, "time_mix": 0}
+
+    def count(name, side):
+        m = getattr(unet, name)
+        sites["time_mix"] += m.depth
+        if m.unflatten:
+            sites["joint"] += m.depth
+        elif side * side >= FLASH_MIN_LEN:
+            sites["per_frame_k1"] += m.depth
+
+    side = h
+    for _name, attn, is_down in unet._encoder:
+        if is_down:
+            side = (side + 1) // 2
+        elif attn is not None:
+            count(attn, side)
+    count("middle_block_1", side)
+    for _name, attn, up in unet._decoder:
+        if attn is not None:
+            count(attn, side)
+        if up is not None:
+            side *= 2
+    return sites
+
+
+def predicted_step_launches(sites: dict, n_view: int = 1, n_data: int = 1) -> dict:
+    """K1, K1-dKV, K1-dQ and K2 launches of one train step with remat on
+    (n_data, n_view) ranks: each rank runs the per-frame layers on its
+    frames twice (forward and recompute) and their backward once; a joint
+    layer is a ring of n_view^2 K1 blocks forward (its recompute replays
+    the exchange) and n_view^2 K1-dKV and K1-dQ blocks backward (one K1 and
+    its backward pair unsharded); K2 runs twice a time-mix a rank. FSDP's
+    data ranks each run the whole step (JAX replicates the batch)."""
+    n = n_view
+    per, joint, mix = sites["per_frame_k1"], sites["joint"], sites["time_mix"]
+    bwd = n * per + n * n * joint
+    return {k: n_data * v for k, v in {"flash_attention": 2 * n * per + n * n * joint * (2 if n == 1 else 1),
+                                       "flash_attention_bwd_dkv": bwd, "flash_attention_bwd_dq": bwd,
+                                       "time_attention": 2 * n * mix}.items()}
+
+
+def write_orbit_scene(root: str) -> str:
+    """train_path's in-memory orbit scene written as a reconfusion scene
+    directory (PNGs, OpenGL transforms, one train/test split) for the train
+    CLI's --data_path."""
+    import cv2
+    import numpy as np
+
+    imgs, c2ws, K = orbit_views()
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    frames = []
+    for i, image in enumerate(imgs):
+        name = f"images/frame_{i:03d}.png"
+        cv2.imwrite(os.path.join(root, name), np.ascontiguousarray(image[..., ::-1]))
+        c2w = c2ws[i].copy()
+        c2w[:, [1, 2]] *= -1  # OpenCV -> OpenGL
+        frames.append({"file_path": f"./{name}", "transform_matrix": c2w.tolist(), "fl_x": float(K[0, 0]),
+                       "fl_y": float(K[1, 1]), "cx": float(K[0, 2]), "cy": float(K[1, 2]), "w": RES, "h": RES})
+    with open(os.path.join(root, "transforms.json"), "w") as fh:
+        json.dump({"frames": frames}, fh)
+    n = len(frames)
+    with open(os.path.join(root, f"train_test_split_{TRAIN_INPUTS}.json"), "w") as fh:
+        json.dump({"train_ids": list(range(n - 4)), "test_ids": list(range(n - 4, n))}, fh)
+    return root
+
+
+def run_sharded_train(bundle, gen) -> dict:
+    """`sharded_train`: (a) the view-sharded step, (b) the FSDP step, (c)
+    the train CLI on a view mesh (see the module docstring), all on thread
+    ranks on cuda:0 at full width (bf16, T=21, 576x576, remat); the UNet's
+    weights are put back as they were. Returns the launch counts by path."""
+    import numpy as np
+    import torch
+
+    from stable_virtual_camera_tpu_torch import _kernels
+    from stable_virtual_camera_tpu_torch.apps import train_cli
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+    from stable_virtual_camera_tpu_torch.training.checkpoint import restore_train_state
+    from stable_virtual_camera_tpu_torch.training.optim import AdamW
+    from stable_virtual_camera_tpu_torch.training.train_step import (
+        make_fsdp_train_step,
+        make_loss_fn,
+        make_sharded_train_step,
+        make_train_step,
+    )
+
+    unet = bundle.unet
+    # train_path's LoRA step leaves the base weights frozen; the full
+    # fine-tune trains them all (their flags are put back at the end)
+    trainable = {n: p.requires_grad for n, p in unet.named_parameters()}
+    unet.requires_grad_(True)
+    batch, _ = train_inputs(bundle, gen)
+    eps = [torch.randn(tuple(batch.latents.shape), generator=gen, device=DEVICE) for _ in range(2)]
+    draws = [lambda shape, t=t, e=e: (torch.tensor(t, device=DEVICE), e) for t, e in zip((500, 700), eps)]
+    sites = attention_sites(unet, RES // 8)
+    names = [n for n, _ in unet.named_parameters()]
+    unet_bytes = sum(p.numel() * p.element_size() for p in unet.parameters())
+    start = {n: p.detach().clone() for n, p in unet.named_parameters()}
+
+    def restore():
+        unet.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            for n, p in unet.named_parameters():
+                p.copy_(start[n])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def rel_l2(a: dict, b: dict, base: dict | None = None) -> float:
+        num = torch.stack([(a[n].float() - b[n].float()).norm() for n in b]).norm()
+        den = torch.stack([(b[n].float() - (0 if base is None else base[n].float())).norm() for n in b]).norm()
+        return (num / den).item()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def launches(counts):
+        return {k: counts[k] for k in TRAIN_KERNELS}
+
+    # the unsharded step from `start`: step 1 by hand (its gradient kept),
+    # step 2 timed with its launches
+    restore()
+    opt = AdamW(unet.parameters(), TRAIN_LR)
+    loss1 = make_loss_fn(unet, TRAIN_T, remat=True)(batch, draws[0])
+    loss1.backward()
+    g_ref = {n: p.grad.detach().clone() for n, p in unet.named_parameters() if p.grad is not None}
+    opt.step()
+    p1_ref = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    step = make_train_step(unet, opt, TRAIN_T, remat=True)
+    _kernels.reset_counts()
+    loss2, unsharded_s = timed(lambda: step(batch, draws[1]).item())
+    unsharded_counts = launches(_kernels.counts())
+    p2_ref = {n: p.detach().clone() for n, p in unet.named_parameters()}
+    ref = {"loss": [loss1.item(), loss2], "step_s": unsharded_s, "launches": unsharded_counts}
+    del opt, step, loss1
+    free()
+
+    # (a) the view-sharded step
+    restore()
+    opt = AdamW(unet.parameters(), TRAIN_LR)
+    mesh = make_mesh(1, SHARDED_VIEW, devices=[DEVICE] * SHARDED_VIEW, timeout=MESH_TIMEOUT)
+    step = make_sharded_train_step(unet, opt, TRAIN_T, mesh, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    s1, first_s = timed(lambda: step.loss_and_grads(batch, draws[0]).item())
+    grad_rel = rel_l2({n: p.grad for n, p in unet.named_parameters() if n in g_ref}, g_ref)
+    step.apply()
+    _kernels.reset_counts()
+    s2, sharded_s = timed(lambda: step(batch, draws[1]).item())
+    counts = {"sharded_train": _kernels.counts()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    own = dict(unet.named_parameters())
+    replicas_equal = all(torch.equal(own[n], r.params[n]) for r in step.replicas[1:] for n in names)
+    params_rel = rel_l2({n: p.detach() for n, p in own.items()}, p2_ref, start)
+    del step, opt, own, g_ref, p2_ref
+    free()
+    predicted = predicted_step_launches(sites, SHARDED_VIEW)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip((s1, s2), ref["loss"]))
+    a_ok = (loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL_L2 and replicas_equal
+            and launches(counts["sharded_train"]) == predicted
+            and unsharded_counts == predicted_step_launches(sites))
+    sharded = {"ok": a_ok, "mesh": {"data": 1, "view": SHARDED_VIEW}, "loss": [s1, s2], "loss_rel": loss_rel,
+               "grad_rel_l2": grad_rel, "replicas_bit_equal": replicas_equal,
+               "params_after_2_steps_rel_l2_of_update": params_rel,
+               "launches_step_2": launches(counts["sharded_train"]), "predicted": predicted,
+               "first_step_s_with_replication": first_s, "step_s": sharded_s,
+               "step_s_over_unsharded": sharded_s / unsharded_s, "peak_gb": peak_gb}
+
+    # (b) FSDP: every leaf over "data", one step against the unsharded step 1
+    restore()
+    opt = AdamW(unet.parameters(), TRAIN_LR)
+    mesh = make_mesh(*FSDP_MESH, devices=[DEVICE] * (FSDP_MESH[0] * FSDP_MESH[1]), timeout=MESH_TIMEOUT)
+    fstep, finit = make_fsdp_train_step(unet, opt, TRAIN_T, mesh, remat=True)
+    state = finit()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_counts()
+    f1, fsdp_s = timed(lambda: fstep(state, batch, draws[0]).item())
+    counts["fsdp_train"] = _kernels.counts()
+    fsdp_peak = torch.cuda.max_memory_allocated() / 1e9
+    whole = state.params()
+    fsdp_rel = rel_l2(whole, p1_ref, start)
+    fsdp_equal = all(torch.equal(whole[n], p1_ref[n]) for n in names)
+    shares = [state.persistent_bytes(r) / (3 * unet_bytes) for r in range(mesh.size)]
+    del state, fstep, finit, opt, whole, p1_ref
+    free()
+    f_predicted = predicted_step_launches(sites, FSDP_MESH[1], FSDP_MESH[0])
+    f_loss_rel = abs(f1 - ref["loss"][0]) / abs(ref["loss"][0])
+    b_ok = (f_loss_rel <= TRAIN_LOSS_REL and fsdp_rel <= FSDP_PARAM_REL and max(shares) <= FSDP_BYTES_SHARE
+            and launches(counts["fsdp_train"]) == f_predicted)
+    fsdp = {"ok": b_ok, "mesh": dict(zip(("data", "view"), FSDP_MESH)), "loss": f1, "loss_rel": f_loss_rel,
+            "params_rel_l2_of_update": fsdp_rel, "params_bit_equal": fsdp_equal,
+            "persistent_share_by_rank": shares, "whole_state_bytes": 3 * unet_bytes,
+            "launches": launches(counts["fsdp_train"]), "predicted": f_predicted, "step_s": fsdp_s,
+            "step_s_over_unsharded": fsdp_s / unsharded_s, "peak_gb": fsdp_peak,
+            "gathered_during_a_step": "each rank's whole weights and their whole gradient"}
+    restore()
+    del start
+    for n, p in unet.named_parameters():
+        p.requires_grad_(trainable[n])
+    free()
+
+    # (c) the train CLI on a (1, CLI_MESH_VIEW) mesh: two steps, the
+    # checkpoint read back, then resumed for a third
+    refusals = {}
+    # the CLI draws its own random weights: keep them, to hold its
+    # checkpoint against the weights it trained
+    made = []
+    make = train_cli.random_model_bundle
+    train_cli.random_model_bundle = lambda device: made.append(make(device)) or made[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = write_orbit_scene(os.path.join(tmp, "scene"))
+        kw = dict(data_path=scene, random_model=True, num_input_frames=TRAIN_INPUTS, lr=TRAIN_LR,
+                  warmup_steps=1, remat=True, log_every=1, seed=SEED, device=DEVICE,
+                  mesh_timeout=MESH_TIMEOUT)
+        for name, extra in (("lora_rank", {"mesh_view": CLI_MESH_VIEW, "lora_rank": LORA_RANK}),
+                            ("t_mod_mesh_view", {"mesh_view": 4})):
+            try:
+                train_cli.main(work_dir=os.path.join(tmp, name), num_steps=1, **kw, **extra)
+                refusals[name] = "trained"
+            except ValueError as e:
+                refusals[name] = str(e)
+            made.clear()
+            free()
+        work = os.path.join(tmp, "ft")
+        _kernels.reset_counts()
+        first = train_cli.main(work_dir=work, num_steps=2, mesh_view=CLI_MESH_VIEW, **kw)
+        counts["train_cli_mesh"] = _kernels.counts()
+        params, _, saved_step, _ = restore_train_state(first["ckpt_path"])
+        live = dict(made[-1][0].unet.named_parameters())
+        restored_equal = saved_step == 2 and all(torch.equal(t, live[n].detach().cpu())
+                                                  for n, t in params.items())
+        first_losses, first_seconds = first["losses"], first["step_seconds"]
+        del first, live, params
+        made.clear()
+        free()
+        second = train_cli.main(work_dir=work, num_steps=3, mesh_view=CLI_MESH_VIEW, **kw)
+        resumed = len(second["losses"]) == 1 and restore_train_state(second["ckpt_path"])[2] == 3
+        losses = first_losses + second["losses"]
+        del second
+        made.clear()
+        free()
+    train_cli.random_model_bundle = make
+    c_ok = (all(math.isfinite(x) for x in losses) and restored_equal and resumed
+            and "does not combine" in refusals["lora_rank"] and "must divide" in refusals["t_mod_mesh_view"]
+            and all(counts["train_cli_mesh"][k] > 0 for k in TRAIN_KERNELS))
+    cli = {"ok": c_ok, "mesh_view": CLI_MESH_VIEW, "losses": losses, "step_seconds": first_seconds,
+           "checkpoint_restored_equal": restored_equal,
+           "resumed_for_step_3": resumed, "refusals": refusals, "launches": launches(counts["train_cli_mesh"])}
+    ok = a_ok and b_ok and c_ok
+    emit({"phase": "sharded_train", "ok": ok, "frames": TRAIN_T, "latent": [RES // 8, RES // 8],
+          "remat": True, "attention_sites": sites, "unsharded": ref, "sharded": sharded, "fsdp": fsdp,
+          "train_cli_mesh": cli,
+          "bar": {"loss_rel": TRAIN_LOSS_REL, "grad_rel_l2": TRAIN_GRAD_REL_L2, "fsdp_param_rel": FSDP_PARAM_REL,
+                  "fsdp_bytes_share": FSDP_BYTES_SHARE, "collective_timeout_s": MESH_TIMEOUT},
+          "cuts": {"steps": "2 (sharded), 1 (FSDP), 2 + 1 resumed (CLI)",
+                   "ranks": "threads on the one card's cuda:0, each on its own stream",
+                   "weights": "random bf16 (flax-default init, seed 0), full width"}})
+    if not ok:
+        raise AssertionError("the sharded training path failed its checks")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -3516,15 +3953,18 @@ def main() -> int:
 
     failures: list[str] = []
     results: dict = {}
+    ring_counts: dict = {}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     for key, fn in (("flash_attention", check_k1), ("time_attention", check_k2),
-                    ("k1_bwd", check_k1_bwd),
+                    ("k1_bwd", check_k1_bwd), ("ring_bwd", check_ring_backward),
                     ("flash_attention_blhd", lambda g: check_layout_kernel(g, "blhd")),
                     ("flash_attention_packed", lambda g: check_layout_kernel(g, "packed"))):
         try:
             out = fn(gen)
             if key == "k1_bwd":
                 results.update(out)
+            elif key == "ring_bwd":
+                ring_counts = out
             else:
                 results[key] = out
         except Exception:  # noqa: BLE001 - report every phase, then fail
@@ -3536,6 +3976,8 @@ def main() -> int:
                                "server_static": {}, "export": {}, "export_server": {},
                                "parallel_view1": {}, f"parallel_view{PARALLEL_VIEW}": {}, "parallel_cli": {},
                                "parallel_chunk_batch": {}, "stream": {}, "film_cache": {},
+                               "ring_bwd": ring_counts, "sharded_train": {}, "fsdp_train": {},
+                               "train_cli_mesh": {},
                                **{"tp_" + "x".join(map(str, m)): {} for m in TP_MESHES}}
     try:
         k5 = check_k5_layer_norm(gen)
@@ -3549,6 +3991,11 @@ def main() -> int:
     except Exception:  # noqa: BLE001
         traceback.print_exc()
         failures.append("global_align_synthetic")
+    try:
+        check_align_sharded()
+    except Exception:  # noqa: BLE001
+        traceback.print_exc()
+        failures.append("align_sharded")
     pipe = None
     try:
         pipe = check_dust3r_forward()
@@ -3589,7 +4036,8 @@ def main() -> int:
                         ("film_cache", lambda: run_film_cache(bundle)),
                         ("train_grad", lambda: check_train_grad(bundle, gen)),
                         ("train_profile", lambda: profile_train_step(bundle, gen)),
-                        ("train_path", lambda: run_train_path(bundle))):
+                        ("train_path", lambda: run_train_path(bundle)),
+                        ("sharded_train", lambda: run_sharded_train(bundle, gen))):
             try:
                 out = fn()
                 if key == "main_path":
@@ -3619,6 +4067,8 @@ def main() -> int:
                     counts["film_cache"] = out
                 elif key == "train_path":
                     counts["train"] = out
+                elif key == "sharded_train":
+                    counts.update(out)
             except Exception:  # noqa: BLE001
                 traceback.print_exc()
                 failures.append(key)
@@ -3694,7 +4144,11 @@ def main() -> int:
                    ("stream", ("flash_attention_blhd", "time_attention")),
                    ("tp_1x1x2", ("flash_attention", "time_attention")),
                    ("film_cache", ("flash_attention", "time_attention")),
-                   ("train", TRAIN_KERNELS))
+                   ("train", TRAIN_KERNELS),
+                   ("ring_bwd", ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")),
+                   ("sharded_train", TRAIN_KERNELS),
+                   ("fsdp_train", TRAIN_KERNELS),
+                   ("train_cli_mesh", TRAIN_KERNELS))
                for k in ks if counts[path].get(k, 0) == 0]
     if missing and not failures:
         failures.append(f"kernels not launched on their path: {missing}")

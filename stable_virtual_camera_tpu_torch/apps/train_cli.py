@@ -1,13 +1,18 @@
 """Fine-tuning command line: scene directory -> fine-tuned UNet checkpoint.
 
-Counterpart of stable_virtual_camera_tpu/apps/train_cli.py for one device:
-parse a scene (COLMAP / reconfusion), stream T-frame chunks through the
-prefetched host pipeline, and run the epsilon-prediction step with
-warmup-cosine LR, optional EMA shadow weights, gradient accumulation,
-rematerialisation and periodic checkpoint/resume.
+Counterpart of stable_virtual_camera_tpu/apps/train_cli.py: parse a scene
+(COLMAP / reconfusion), stream T-frame chunks through the prefetched host
+pipeline, and run the epsilon-prediction step (view-sharded with
+--mesh_view N: training/train_step.make_sharded_train_step on a (1, N) mesh
+of the local CUDA devices, repeated where there are fewer cards, or of the
+CPU under --platform cpu) with warmup-cosine LR, optional EMA shadow
+weights, gradient accumulation, rematerialisation and periodic
+checkpoint/resume. The checkpoint holds the whole state either way, so a
+sharded run resumes unsharded and the other way round.
 
-Invocation (the same fire-style flags as the JAX package's CLI, less
-`mesh_view` and `platform`, plus `device`):
+Invocation (the same fire-style flags as the JAX package's CLI, plus
+`device` and `mesh_timeout`, the seconds a rank waits at a collective;
+`--platform cpu|gpu` picks the device as in apps/cli.py):
   python -m stable_virtual_camera_tpu_torch.apps.train_cli \
       --data_path scenes/rose --random_model True \
       --work_dir work_dirs/ft_rose --num_steps 2000 --lr 1e-5 \
@@ -34,6 +39,7 @@ import torch
 
 from stable_virtual_camera_tpu_torch.data.dataset import Dataset
 from stable_virtual_camera_tpu_torch.data.parsers import get_parser
+from stable_virtual_camera_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT
 from stable_virtual_camera_tpu_torch.training.checkpoint import (
     restore_train_state,
     save_train_state,
@@ -46,6 +52,7 @@ from stable_virtual_camera_tpu_torch.training.optim import (
 )
 from stable_virtual_camera_tpu_torch.training.train_step import (
     ema_init,
+    make_sharded_train_step,
     make_train_step,
     torch_draw,
 )
@@ -106,8 +113,15 @@ def main(
     prefetch: int = 2,
     encoding_t: int = 0,
     device: str = "cuda",
+    mesh_view: int = 1,
+    platform: str | None = None,
+    mesh_timeout: float = DEFAULT_TIMEOUT,
 ):
+    from stable_virtual_camera_tpu_torch.apps.cli import platform_device
+
+    device = platform_device(platform, device)
     seed_everything(seed)
+    mesh = train_mesh(mesh_view, device, mesh_timeout)
     if random_model:
         bundle, (W0, H0) = random_model_bundle(device)
     elif checkpoint_dir:
@@ -120,6 +134,8 @@ def main(
         parser = _detect_parser(data_path)
     scene_parser = get_parser(parser, data_dir=data_path)
     T = bundle.spec.num_frames
+    if mesh is not None and T % mesh_view != 0:
+        raise ValueError(f"num_frames {T} must divide --mesh_view {mesh_view}")
     num_input_frames = min(num_input_frames, T - 1)
     split_n = None
     if parser == "reconfusion":
@@ -136,7 +152,24 @@ def main(
         grad_accum=grad_accum, remat=remat, lora_rank=lora_rank, lora_alpha=lora_alpha,
         lora_pattern=lora_pattern, save_merged=save_merged, ckpt_every=ckpt_every,
         log_every=log_every, resume=resume, seed=seed, prefetch=prefetch, encoding_t=encoding_t,
+        mesh=mesh,
     )
+
+
+def train_mesh(mesh_view: int, device, timeout: float = DEFAULT_TIMEOUT):
+    """The (1, mesh_view) view mesh of --mesh_view, or None for 1: the local
+    CUDA devices, repeated where there are fewer, or `device` repeated off
+    the card; its collectives wait at most `timeout` seconds."""
+    n = int(mesh_view or 1)
+    if n < 1:
+        raise ValueError(f"--mesh_view must be >= 1, got {mesh_view}")
+    if n == 1:
+        return None
+    from stable_virtual_camera_tpu_torch.parallel.mesh import local_cuda_devices, make_mesh
+
+    dev = torch.device(device)
+    pool = local_cuda_devices() if dev.type == "cuda" else [dev]
+    return make_mesh(1, n, devices=[pool[i % len(pool)] for i in range(n)], timeout=timeout)
 
 
 def train(
@@ -163,10 +196,12 @@ def train(
     seed: int,
     prefetch: int,
     encoding_t: int,
+    mesh=None,
 ) -> dict:
-    """The fine-tuning loop on a parsed scene. Returns {"losses",
-    "step_seconds" (wall time of each step, loss read back included),
-    "ckpt_path", "lora" (the adapters or None), "ema_params"}."""
+    """The fine-tuning loop on a parsed scene, view-sharded on `mesh` (a
+    parallel/mesh.Mesh) when given. Returns {"losses", "step_seconds"
+    (wall time of each step, loss read back included), "ckpt_path", "lora"
+    (the adapters or None), "ema_params"}."""
     os.makedirs(work_dir, exist_ok=True)
     unet = bundle.unet
     dev = bundle.device
@@ -183,6 +218,8 @@ def train(
     if lora_rank is not None:
         # parameter-efficient path (training/lora.py): only the adapters
         # train; the base weights flow through the step frozen
+        if mesh is not None:
+            raise ValueError("--lora_rank does not combine with --mesh_view (shard the full fine-tune instead)")
         if ema_decay is not None:
             raise ValueError("--lora_rank does not combine with --ema_decay (adapters converge "
                              "in few steps; EMA targets the full fine-tune)")
@@ -211,7 +248,10 @@ def train(
             return lora_step(lora, batch, draw)
     else:
         ema_params = ema_init(unet) if ema_decay is not None else None
-        full_step = make_train_step(unet, opt, T, remat=remat, ema_decay=ema_decay)
+        if mesh is not None:
+            full_step = make_sharded_train_step(unet, opt, T, mesh, remat=remat, ema_decay=ema_decay)
+        else:
+            full_step = make_train_step(unet, opt, T, remat=remat, ema_decay=ema_decay)
 
         def step_fn(batch, draw):
             return full_step(batch, draw, ema_params)

@@ -26,6 +26,18 @@ card in place of the jitted `optax.adam` scan, step for step: b1 0.9, b2
 the learning rate of update k read from optax's cosine-decay or linear
 schedule at count k (the count before the update). `final_loss` is the loss
 computed in the last step, before its update.
+
+With a mesh (parallel/mesh.Mesh), the per-edge work shards over its "data"
+axis as JAX shards it: data row d takes its cut of the edge rows (i, j,
+pts1, c1, pts2, c2, and the per-edge log-scales once their mean is taken
+over every edge), while the parameters, the per-image data and conf_total
+stay whole on every rank. Each rank runs the backward of its partial loss
+in its own thread, then ONE flat fp32 all-reduce of the five gradients and
+the partial loss (parallel/comm.Comm.all_reduce, rank order, outside the
+autograd engine), and every rank takes the same Adam step. The ranks off
+view 0 (and model 0) would repeat their row's work, as JAX replicates the
+edges over those axes, so they sit out. An edge count that does not divide
+over "data" raises ValueError, as JAX's device_put does.
 """
 
 from __future__ import annotations
@@ -377,8 +389,17 @@ def _rotate(R: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (R[:, None, None] * x[..., None, :]).sum(-1)
 
 
-def _loss_fn(p: dict, data: dict) -> torch.Tensor:
+# the per-edge arrays of the problem's data, cut over "data" on a mesh
+EDGE_KEYS = ("i", "j", "pts1", "c1", "pts2", "c2")
+
+
+def _loss_fn(p: dict, data: dict, edges: slice | None = None) -> torch.Tensor:
+    """The loss over `data`'s edges; with `edges`, data holds the rows
+    `edges` of every per-edge array (one rank's share) and the per-edge
+    scales, normalised over every edge, are cut to them."""
     R, t, f, depth, scales = _unpack(p, data)
+    if edges is not None:
+        scales = scales[edges]
     xy = (data["uv"][None] - data["pp"][:, None, None, :]) / f[:, None, None, None]
     dirs = torch.cat([xy, torch.ones_like(xy[..., :1])], -1)
     cam = depth[..., None] * dirs
@@ -451,11 +472,15 @@ def alignment_problem(edges: EdgePreds, same_focals: bool = True, device="cuda")
     return params, data
 
 
-def refine(params: dict, data: dict, niter: int, lr: float = 0.01, schedule: str = "cosine") -> float:
+def refine(params: dict, data: dict, niter: int, lr: float = 0.01, schedule: str = "cosine",
+           mesh=None) -> float:
     """`niter` Adam steps on `params` in place, as optax.adam under the
-    schedule; returns the loss of the last step (before its update)."""
+    schedule; returns the loss of the last step (before its update). With a
+    `mesh`, the edges shard over its "data" axis (`refine_sharded`)."""
     if niter < 1:
         raise ValueError(f"niter must be at least 1, got {niter}")
+    if mesh is not None:
+        return refine_sharded(params, data, niter, lr, schedule, mesh)
     sched = learning_rate(schedule, lr, niter)
     opt = torch.optim.Adam(list(params.values()), lr=sched(0), betas=(0.9, 0.999), eps=1e-8)
     with torch.enable_grad():
@@ -467,6 +492,49 @@ def refine(params: dict, data: dict, niter: int, lr: float = 0.01, schedule: str
             loss.backward()
             opt.step()
     return float(loss.detach())
+
+
+def refine_sharded(params: dict, data: dict, niter: int, lr: float, schedule: str, mesh) -> float:
+    """`refine` with the edges over the mesh's "data" axis (see the module
+    docstring); `params` end as data row 0's, the same bits on every row."""
+    from stable_virtual_camera_tpu_torch.parallel.comm import run_ranks
+
+    n = mesh.shape["data"]
+    E = data["i"].shape[0]
+    if E % n:
+        raise ValueError(f"global_align: {E} edges must divide over the mesh's data axis ({n})")
+    per = E // n
+    sched = learning_rate(schedule, lr, niter)
+    names = list(params)
+
+    def rank(ctx):
+        if ctx.view or ctx.model:
+            return None
+        dev = ctx.device
+        rows = slice(ctx.data * per, (ctx.data + 1) * per)
+        mine = {k: (v[rows] if k in EDGE_KEYS else v).to(dev) for k, v in data.items()}
+        p = {k: params[k].detach().to(dev, copy=True).requires_grad_(True) for k in names}
+        sizes = [p[k].numel() for k in names]
+        opt = torch.optim.Adam([p[k] for k in names], lr=sched(0), betas=(0.9, 0.999), eps=1e-8)
+        with torch.enable_grad():
+            for count in range(niter):
+                for group in opt.param_groups:
+                    group["lr"] = sched(count)
+                loss = _loss_fn(p, mine, rows)
+                grads = torch.autograd.grad(loss, [p[k] for k in names])
+                flat = torch.cat([g.reshape(-1).float() for g in grads] + [loss.detach().reshape(1)])
+                flat = ctx.data_comm.all_reduce(flat)
+                for k, g in zip(names, flat[:-1].split(sizes)):
+                    p[k].grad = g.view_as(p[k])
+                opt.step()
+        return p, flat[-1]
+
+    outs = run_ranks(mesh, rank)
+    p, loss = outs[0]
+    with torch.no_grad():
+        for k in names:
+            params[k].copy_(p[k])
+    return float(loss)
 
 
 def aligned_scene(edges: EdgePreds, params: dict, data: dict, final_loss: float) -> AlignedScene:
@@ -515,14 +583,13 @@ def global_align(
     device="cuda",
 ) -> AlignedScene:
     """Initialize on the host, refine with `niter` Adam steps on `device`
-    (the card unless the caller passes the CPU). `mesh` (the JAX package's
-    edge-sharded refinement) waits for ROADMAP queue 1, item 5."""
+    (the card unless the caller passes the CPU), or with a `mesh`
+    (parallel/mesh.Mesh) with the edges over its "data" axis, the problem
+    built on its first device."""
     if mesh is not None:
-        raise NotImplementedError(
-            "edge-sharded global alignment across devices is not ported yet (ROADMAP queue 1, item 5)"
-        )
+        device = mesh.device(0)
     params, data = alignment_problem(edges, same_focals, device)
-    final_loss = refine(params, data, niter, lr, schedule)
+    final_loss = refine(params, data, niter, lr, schedule, mesh)
     return aligned_scene(edges, params, data, final_loss)
 
 

@@ -88,6 +88,14 @@ def plan_dense_anchors(
     include both ends."""
     cap = T_second - 2 - num_gt_inputs
     assert cap >= 1, f"no target slots: T_second={T_second} with {num_gt_inputs} gt inputs"
+    if not deliver and cap < 2 and num_targets > 2:
+        # without delivery the last gap samples its width plus the final
+        # target, at least 2, so no anchor count fits (JAX loops forever)
+        raise ValueError(
+            f"plan_dense_anchors: T_second={T_second} with num_gt_inputs={num_gt_inputs} leaves "
+            f"{cap} target slot a chunk, and without delivery (deliver={deliver}) the last gap "
+            "needs 2; deliver the anchors or widen the window"
+        )
     if num_targets <= 2:
         return list(range(num_targets))
     stride = cap + 1 if deliver else cap

@@ -16,7 +16,12 @@ buffers, the layout the fake implementations give `torch.export`.
 
 The log-sum-exp `lse` is stored in natural-log units, ln sum_j exp(s_j)
 with s = q.k / sqrt(D), in both paths; the kernels convert it to their base-2
-state by multiplying with log2(e).
+state by multiplying with log2(e). A gradient `dlse` on it reaches the scores
+as dS = P (dP - (D - dlse)), since d lse / dS = P: it folds into the delta
+D = rowsum(o dO) that K1-dKV and K1-dQ read, so the same kernels serve it.
+The ring's backward (parallel/ring_attention.py) calls the pair per block of
+queries and keys with the global lse and delta through
+`flash_attention_bwd_blocks`.
 """
 
 from __future__ import annotations
@@ -42,32 +47,44 @@ def flash_attention_plain(
     return online_softmax_attention(q, k, v, return_lse=return_lse)
 
 
-def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+def attention_delta(o: torch.Tensor, do: torch.Tensor, dlse: torch.Tensor | None = None) -> torch.Tensor:
     """D = rowsum(o dO) in fp32, (B, H, L): the backward's preprocessing, a
     plain reduction as upstream computes it outside its kernels. `do` is
     upcast inside the product (the same fp32 values as a separate copy,
-    without writing one)."""
-    return (o.float() * do).sum(-1)
+    without writing one). With a gradient `dlse` on the log-sum-exp, D - dlse."""
+    delta = (o.float() * do).sum(-1)
+    return delta if dlse is None else delta - dlse
 
 
 def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-    lse: torch.Tensor, do: torch.Tensor, chunk: int = _BWD_CHUNK,
+    lse: torch.Tensor, do: torch.Tensor, chunk: int = _BWD_CHUNK, dlse: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The FlashAttention-2 backward in fp32, chunked over keys and queries
     so no (L, L) score tensor is held: P = exp(S - lse), dV = P^T dO,
-    dP = dO V^T, dS = P (dP - D) with D = rowsum(o dO), dK = dS^T Q / sqrt(D),
+    dP = dO V^T, dS = P (dP - D) with D = rowsum(o dO) (less `dlse`, the
+    gradient on the log-sum-exp, where given), dK = dS^T Q / sqrt(D),
     dQ = dS K / sqrt(D). Returns (dq, dk, dv) in the dtypes of q, k, v."""
-    L, D = q.shape[-2], q.shape[-1]
+    return flash_attention_bwd_delta_plain(q, k, v, do, lse, attention_delta(o, do, dlse), chunk)
+
+
+def flash_attention_bwd_delta_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, chunk: int = _BWD_CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_attention_bwd_plain` from a given lse and delta (the rows of
+    q), as K1-dKV and K1-dQ take them: the block of the queries q against
+    the keys k, v. q and k may differ in length."""
+    D = q.shape[-1]
     scale = D**-0.5
-    delta = attention_delta(o, do)
+    Lq, Lk = q.shape[-2], k.shape[-2]
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
-    for k0 in range(0, L, chunk):
+    for k0 in range(0, Lk, chunk):
         kc = k[:, :, k0 : k0 + chunk].float()
         vc = v[:, :, k0 : k0 + chunk].float()
-        for q0 in range(0, L, chunk):
+        for q0 in range(0, Lq, chunk):
             rows = slice(q0, q0 + chunk)
             qc = q[:, :, rows].float()
             doc = do[:, :, rows].float()
@@ -232,13 +249,14 @@ def flash_attention_bwd_dq_cuda(
 
 def flash_attention_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-    lse: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, dlse: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1's backward: D = rowsum(o dO) as a plain fp32 reduction (the
-    upstream TPU kernel computes it outside its kernels too, from the same
-    bf16 o the forward wrote), then K1-dKV and K1-dQ. Returns (dq, dk, dv)."""
+    """K1's backward: D = rowsum(o dO) (less `dlse` where given) as a plain
+    fp32 reduction (the upstream TPU kernel computes it outside its kernels
+    too, from the same bf16 o the forward wrote), then K1-dKV and K1-dQ.
+    Returns (dq, dk, dv)."""
     _check("o", o, q.shape)
-    delta = attention_delta(o, do)
+    delta = attention_delta(o, do, dlse)
     dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
     return flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), dk, dv
 
@@ -276,31 +294,57 @@ def _(q, k, v, return_lse):
 @torch.library.custom_op(f"{_kernels.OPS}::flash_attention_bwd", mutates_args=())
 def flash_attention_bwd_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    do: torch.Tensor,
+    do: torch.Tensor, dlse: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of `flash_attention_op` from its o and log-sum-exp: K1-dKV
-    and K1-dQ on CUDA tensors, the plain backward on CPU tensors; each a
+    """(dq, dk, dv) of `flash_attention_op` from its o and log-sum-exp, with
+    `dlse` the gradient on the log-sum-exp where it has one: K1-dKV and
+    K1-dQ on CUDA tensors, the plain backward on CPU tensors; each a
     (B, H, L, 64) view of a (B, L, H, 64) buffer."""
+    if dlse is not None:
+        _check_rows("dlse", dlse, *lse.shape, q.device)
     if _kernels.device_route("flash attention", q) == "cuda":
-        return flash_attention_bwd_cuda(q, k, v, o, lse, _kernel_layout(do))
-    return tuple(_in_bhld(g) for g in flash_attention_bwd_plain(q, k, v, o, lse, do))
+        return flash_attention_bwd_cuda(q, k, v, o, lse, _kernel_layout(do), dlse)
+    return tuple(_in_bhld(g) for g in flash_attention_bwd_plain(q, k, v, o, lse, do, dlse=dlse))
 
 
 @flash_attention_bwd_op.register_fake
-def _(q, k, v, o, lse, do):
+def _(q, k, v, o, lse, do, dlse=None):
     return _empty_like_bhld(q), _empty_like_bhld(k), _empty_like_bhld(v)
+
+
+def flash_attention_bwd_blocks(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, kernel: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One block of a backward split over query and key blocks of equal
+    length: the queries q (with their dO, their global lse and delta) against
+    the keys k, v. K1-dKV and K1-dQ on CUDA tensors with `kernel`, else
+    `flash_attention_bwd_delta_plain`. Returns (dq, dk, dv): the block's
+    share of each, summed over the blocks by the caller."""
+    if kernel and _kernels.device_route("flash attention", q) == "cuda":
+        do = _kernel_layout(do)
+        dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+        return flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), dk, dv
+    return flash_attention_bwd_delta_plain(q, k, v, do, lse, delta)
 
 
 def _setup_context(ctx, inputs, output):
     q, k, v, _ = inputs
     ctx.save_for_backward(q, k, v, *output)
+    # a gradient that reaches only o, or only the log-sum-exp, leaves the
+    # other None rather than a tensor of zeros
+    ctx.set_materialize_grads(False)
 
 
-def _backward(ctx, do, _dlse):
+def _backward(ctx, do, dlse):
     q, k, v, o, lse = ctx.saved_tensors
     if lse.numel() == 0:
         raise RuntimeError("flash attention: a gradient needs the forward run with return_lse=True")
-    return (*flash_attention_bwd_op(q, k, v, o, lse, do), None)
+    if do is None:
+        do = torch.zeros_like(o)
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    return (*flash_attention_bwd_op(q, k, v, o, lse, do, dlse), None)
 
 
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)

@@ -32,15 +32,19 @@ import torch
 _STREAMS: dict[tuple[torch.device, int], torch.cuda.Stream] = {}
 _STREAMS_LOCK = threading.Lock()
 
+DEFAULT_TIMEOUT = 600.0  # seconds a rank waits for its group at a collective
+
 
 class Mesh:
     """An (n_data, n_view) grid of devices, or with a "model" axis an
     (n_data, n_view, n_model) one (`make_mesh_tp`). Rank r sits at
     (data, view) = divmod(r, n_view), or at (data, view, model) in the same
     row-major order, as JAX's `np.array(devices).reshape(...)` lays the
-    grid. Each rank runs on a CUDA stream of its own (`stream`)."""
+    grid. Each rank runs on a CUDA stream of its own (`stream`).
+    `timeout` is how many seconds a rank waits for its group at a
+    collective (parallel/comm.run_ranks)."""
 
-    def __init__(self, grid: list):
+    def __init__(self, grid: list, timeout: float = DEFAULT_TIMEOUT):
         if grid and grid[0] and isinstance(grid[0][0], (list, tuple)):
             self.axes = ("data", "view", "model")
             dims = (len(grid), len(grid[0]), len(grid[0][0]))
@@ -50,6 +54,7 @@ class Mesh:
             dims = (len(grid), len(grid[0]))
             flat = [d for row in grid for d in row]
         self.dims = dims
+        self.timeout = timeout
         self._devices = [_indexed(d) for d in flat]
 
     @property
@@ -119,11 +124,13 @@ def local_cuda_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def make_mesh(n_data: int = 1, n_view: int | None = None, devices=None) -> Mesh:
+def make_mesh(n_data: int = 1, n_view: int | None = None, devices=None,
+              timeout: float = DEFAULT_TIMEOUT) -> Mesh:
     """A (n_data, n_view) mesh over `devices` (default: every local CUDA
     device, one rank each). `n_view=None` takes every device left over.
     An explicit list may repeat a device. Asking for more ranks than
-    devices raises, as JAX's assert does."""
+    devices raises, as JAX's assert does. `timeout`: the mesh's collective
+    timeout in seconds."""
     devices = list(local_cuda_devices() if devices is None else devices)
     if n_data < 1:
         raise ValueError(f"make_mesh: n_data must be >= 1, got {n_data}")
@@ -132,7 +139,7 @@ def make_mesh(n_data: int = 1, n_view: int | None = None, devices=None) -> Mesh:
     if n_view < 1 or n_data * n_view > len(devices):
         raise ValueError(f"mesh {n_data}x{n_view} needs more than {len(devices)} devices")
     flat = devices[: n_data * n_view]
-    return Mesh([flat[d * n_view : (d + 1) * n_view] for d in range(n_data)])
+    return Mesh([flat[d * n_view : (d + 1) * n_view] for d in range(n_data)], timeout)
 
 
 def make_mesh_tp(n_data: int = 1, n_view: int = 1, n_model: int | None = None, devices=None) -> Mesh:

@@ -18,14 +18,29 @@ normalised: lse' = logaddexp(lse, lse_i),
 acc' = acc * exp(lse - lse') + o_i * exp(lse_i - lse'). One partial merges
 exactly (acc = o_i in fp32, cast back), so a 1-rank ring returns K1's
 output bit for bit.
+
+The ring has its own exact backward rather than a differentiated merge: it
+is one join node over every rank's q, k, v (`Comm.exchange_with_grad`),
+which keeps each rank's output o and its global fp32 lse, forms
+D_i = rowsum(o_i dO_i), and runs every (query shard i, key shard j) block
+through K1-dQ (dQ_i) and K1-dKV (dK_j, dV_j) with the global lse_i and D_i,
+so each block's P is the exact global softmax restricted to that block; the
+blocks' shares add in fp32. On CPU tensors, or without the kernel route,
+`flash_attention_bwd_delta_plain` takes the kernels' place. A 1-rank ring
+is K1 alone, with K1's own backward.
 """
 
 from __future__ import annotations
 
 import torch
 
-from stable_virtual_camera_tpu_torch.ops.flash_upstream import flash_attention_op, flash_attention_plain
-from stable_virtual_camera_tpu_torch.parallel.comm import Comm, run_ranks
+from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
+    attention_delta,
+    flash_attention_bwd_blocks,
+    flash_attention_op,
+    flash_attention_plain,
+)
+from stable_virtual_camera_tpu_torch.parallel.comm import Comm, _on, run_ranks
 
 
 def _attend(q, k, v, kernel: bool):
@@ -49,14 +64,48 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, comm: Comm
     rank's (B, H, L_local, D) shards, equal L_local on every rank. `kernel`
     sends each block to K1's op (which runs the plain twin on CPU tensors;
     on the card it needs bf16 and D = 64), else to the plain twin. Returns
-    (B, H, L_local, D) in q's dtype."""
-    o, lse = _attend(q, k, v, kernel)
-    acc = o.float()
-    kv = (k, v)
-    for _ in range(comm.size - 1):
-        kv = comm.ring_shift(kv)
-        acc, lse = merge_partials(acc, lse, *_attend(q, *kv, kernel))
-    return acc.to(q.dtype)
+    (B, H, L_local, D) in q's dtype. Differentiable (see the module
+    docstring)."""
+    if comm.size == 1:
+        return _attend(q, k, v, kernel)[0]
+
+    def forward(q, k, v):
+        o, lse = _attend(q, k, v, kernel)
+        acc = o.float()
+        kv = (k, v)
+        for _ in range(comm.size - 1):
+            kv = comm.ring_shift(kv)
+            acc, lse = merge_partials(acc, lse, *_attend(q, *kv, kernel))
+        o = acc.to(q.dtype)
+        return (o,), (q, k, v, o, lse)
+
+    def backward(saved, grads):
+        return ring_backward(saved, grads, kernel)
+
+    return comm.exchange_with_grad((q, k, v), forward, backward)[0]
+
+
+def ring_backward(saved, grads, kernel: bool = True):
+    """Every rank's (dq, dk, dv) of the ring at once, from every rank's
+    (q, k, v, o, lse) and dO (lists by rank, as `Comm.exchange_with_grad`
+    hands them): block (i, j) adds K1-dQ's dq to dq_i and K1-dKV's dk, dv
+    to dk_j, dv_j, in fp32."""
+    n = len(saved)
+    dq, dk, dv = ([torch.zeros(t.shape, dtype=torch.float32, device=t.device) for t in ts]
+                  for ts in zip(*(s[:3] for s in saved)))
+    for i in range(n):
+        q, _, _, o, lse = saved[i]
+        (do,) = grads[i]
+        dev = q.device
+        q, o, lse, do = (_on(t, dev) for t in (q, o, lse, do))
+        delta = attention_delta(o, do)
+        for j in range(n):
+            _, k, v, _, _ = saved[j]
+            a, b, c = flash_attention_bwd_blocks(q, _on(k, dev), _on(v, dev), do, lse, delta, kernel)
+            dq[i] += a
+            dk[j] += _on(b, dk[j].device)
+            dv[j] += _on(c, dv[j].device)
+    return [tuple(g.to(t.dtype) for g, t in zip((dq[r], dk[r], dv[r]), saved[r][:3])) for r in range(n)]
 
 
 def ring_sdpa_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, comm: Comm,

@@ -17,7 +17,12 @@ stable_virtual_camera_tpu/apps/train_cli.py:143-151.
     schedule advances once per real update.
 
 Both optimizers take gradients from the parameters' `.grad` and clear them
-after each call.
+after each call. Both run on shards as they run on whole tensors (every
+update is elementwise): `replicate(params)` builds the same optimizer over
+other tensors (a rank's replica, or its shards), and `slice_state` /
+`concat_state` cut a whole `state_dict()` into a rank's and join the ranks'
+back (the update count, a scalar, stays whole on every rank), so a
+checkpoint always holds the whole state.
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ class AdamW:
         weight_decay: float = 1e-4,
     ):
         self.params = list(params)
+        self.learning_rate, self.weight_decay = learning_rate, weight_decay
         schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
         # base lr 1.0, so LambdaLR sets each update's lr to schedule(count)
         self.opt = torch.optim.AdamW(
@@ -82,6 +88,10 @@ class AdamW:
         self.opt.step()
         self.lr.step()
         self.opt.zero_grad(set_to_none=True)
+
+    def replicate(self, params: Iterable[torch.Tensor]) -> "AdamW":
+        """A fresh AdamW with the same schedule and decay over `params`."""
+        return AdamW(params, self.learning_rate, self.weight_decay)
 
     def state_dict(self) -> dict:
         return {"adamw": self.opt.state_dict(), "schedule": self.lr.state_dict()}
@@ -121,6 +131,9 @@ class MultiSteps:
                 acc.zero_()
             self.inner.step()
 
+    def replicate(self, params: Iterable[torch.Tensor]) -> "MultiSteps":
+        return MultiSteps(self.inner.replicate(params), self.every_k)
+
     def state_dict(self) -> dict:
         return {"inner": self.inner.state_dict(), "mini_step": self.mini_step, "acc": self.acc}
 
@@ -130,3 +143,47 @@ class MultiSteps:
         for acc, saved in zip(self.acc, state["acc"]):
             acc.copy_(saved)
 
+
+
+def map_param_state(state: dict, fn: Callable) -> dict:
+    """A copy of an AdamW or MultiSteps `state_dict()` with `fn(i, t)` in
+    place of every tensor that has the shape of parameter i (AdamW's
+    moments, MultiSteps' running mean); counts and scalars are kept."""
+    if "inner" in state:
+        return {**state, "inner": map_param_state(state["inner"], fn),
+                "acc": [fn(i, t) for i, t in enumerate(state["acc"])]}
+    adamw = state["adamw"]
+    per_param = {i: {key: fn(i, t) if isinstance(t, torch.Tensor) and t.dim() else t
+                     for key, t in entry.items()}
+                 for i, entry in adamw["state"].items()}
+    return {**state, "adamw": {**adamw, "state": per_param}}
+
+
+def slice_state(state: dict, cuts: list, rank: int) -> dict:
+    """Rank `rank`'s share of a whole optimizer state: `cuts[i]` is
+    parameter i's (dim, shard length) or None (whole on every rank)."""
+
+    def cut(i, t):
+        if cuts[i] is None:
+            return t.clone()
+        d, size = cuts[i]
+        return t.narrow(d, rank * size, size).clone(memory_format=torch.contiguous_format)
+
+    return map_param_state(state, cut)
+
+
+def concat_state(states: list[dict], cuts: list) -> dict:
+    """The whole optimizer state from every rank's share, in rank order
+    (the inverse of `slice_state`)."""
+    flat = [[] for _ in states]
+    for r, st in enumerate(states):
+        map_param_state(st, lambda i, t, r=r: flat[r].append(t))
+    it = iter(range(len(flat[0])))
+
+    def join(i, t):
+        n = next(it)
+        if cuts[i] is None:
+            return t
+        return torch.cat([f[n].to(t.device) for f in flat], dim=cuts[i][0])
+
+    return map_param_state(states[0], join)

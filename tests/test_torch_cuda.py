@@ -6,7 +6,8 @@ the card that reaches the attention weights, K3's recompute backward against
 K1's kernel backward, a UNet exported through torch.export against its eager
 forward, a DUSt3R forward on the card against the CPU, and the view-sharded
 ring attention (parallel/ring_attention.py) over ranks on repeated cuda:0,
-its blocks through K1 against the ring through the plain twin, and rank
+its blocks through K1 against the ring through the plain twin, its backward
+blocks through K1-dKV and K1-dQ against the plain blocks, and rank
 threads started on a card whose allocator cache fills it.
 
 The `cuda` tests need an NVIDIA GPU and skip elsewhere. This file imports
@@ -143,6 +144,36 @@ def test_flash_backward_kernels_are_deterministic(cuda):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_lse_gradient_through_the_kernels(cuda):
+    """A loss on o and on K1's log-sum-exp through the op on the card (K1,
+    then K1-dKV and K1-dQ with delta D - dlse) against the plain backward
+    given the same dlse, and the LSE alone giving a nonzero dq."""
+    from stable_virtual_camera_tpu_torch.ops.flash_upstream import flash_attention_op
+
+    rng = np.random.default_rng(13)
+    B, H, L = 1, 2, 1100
+    q, k, v = (t.detach().requires_grad_() for t in
+               _bf16(rng, (B, L, 3, H, 64), cuda).permute(2, 0, 3, 1, 4).unbind(0))
+    wo = _bf16(rng, (B, H, L, 64), cuda)
+    wl = torch.from_numpy(rng.normal(size=(B, H, L)).astype(np.float32)).to(cuda)
+    before = _kernels.counts()
+    o, lse = flash_attention_op(q, k, v, True)
+    ((o.float() * wo.float()).sum() + (lse * wl).sum()).backward()
+    after = _kernels.counts()
+    assert after["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    refs = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(),
+                                     wo, dlse=wl)
+    for t, r in zip((q, k, v), refs):
+        assert torch.isfinite(t.grad).all() and _rel(t.grad, r) <= 2e-2
+    q.grad = None
+    _, lse = flash_attention_op(q, k, v, True)
+    (lse * wl).sum().backward()
+    torch.cuda.synchronize()
+    assert q.grad.float().norm().item() > 0
 
 
 @pytest.mark.cuda
@@ -587,6 +618,43 @@ def test_ring_attention_with_k1_matches_the_ring_with_its_plain_twin(cuda, B, H,
     for ref in (twin, whole):
         diff = (out.float() - ref.float()).abs()
         assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L", [(1, 20, 567), (1, 10, 100)])
+def test_ring_backward_blocks_through_the_kernels_match_the_plain_blocks(cuda, B, H, L):
+    """The ring's backward (ring_backward) over 3 ranks' saved tensors: each
+    (query shard, key shard) block through K1-dKV and K1-dQ with the global
+    lse and D (one launch of each a block) against the same blocks through
+    the plain backward, and against the plain backward of the whole
+    sequence; L is a rank's share (the ds8 joint site of a 576x576 train
+    step, and a ragged one). The K1 backward's bar (relative L2 2e-2)."""
+    from stable_virtual_camera_tpu_torch.parallel.ring_attention import ring_backward
+
+    n = 3
+    rng = np.random.default_rng(L)
+    q, k, v = _bf16(rng, (B, n * L, 3, H, 64), cuda).permute(2, 0, 3, 1, 4).unbind(0)
+    do = _bf16(rng, (B, n * L, H, 64), cuda).transpose(1, 2)
+    o, lse = flash_attention_plain(q, k, v, return_lse=True)
+    cut = [slice(r * L, (r + 1) * L) for r in range(n)]
+    # o and lse as the ring's forward keeps them: contiguous, by rank
+    saved = [(q[:, :, c], k[:, :, c], v[:, :, c], o[:, :, c].contiguous(), lse[:, :, c].contiguous())
+             for c in cut]
+    grads = [(do[:, :, c],) for c in cut]
+    before = _kernels.counts()
+    kern = ring_backward(saved, grads, kernel=True)
+    torch.cuda.synchronize()
+    after = _kernels.counts()
+    for key in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        assert after[key] == before[key] + n * n
+    plain = ring_backward(saved, grads, kernel=False)
+    whole = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for i in range(3):
+        got = torch.cat([kern[r][i] for r in range(n)], dim=2)
+        assert torch.isfinite(got).all()
+        assert _rel(got, whole[i]) <= 2e-2
+        for r in range(n):
+            assert _rel(kern[r][i], plain[r][i]) <= 2e-2
 
 
 @pytest.mark.cuda

@@ -7,7 +7,8 @@ confidences. The host initialization must equal JAX's to 1e-10 (the same
 numpy code); the torch Adam refinement must follow the optax scan (after 60
 steps: loss rtol 1e-3, camera centers atol 5e-3, focal rtol 1e-3, the bars
 the JAX package holds its sharded aligner to) and recover the scene at the
-JAX test's tolerances.
+JAX test's tolerances. The edge-sharded refinement (`mesh=`, thread ranks
+on the repeated CPU) is held to JAX's on `make_mesh(4, 2)` at those bars.
 """
 
 import numpy as np
@@ -132,10 +133,36 @@ def test_mixed_resolution_edges_pad_as_jax_and_recover_the_scene():
 
 
 def test_refuses_a_mesh_and_zero_steps():
+    """An edge count that does not divide over the mesh's "data" axis (6
+    edges over 4 rows) raises ValueError, as JAX's device_put does."""
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+
     edges, _ = _make_scene(N=3, seed=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ga.global_align(_port_edges(edges), niter=5, mesh=object(), device="cpu")
+    mesh = make_mesh(4, 1, devices=["cpu"] * 4)
+    with pytest.raises(ValueError, match="must divide over the mesh's data axis"):
+        ga.global_align(_port_edges(edges), niter=5, mesh=mesh)
     with pytest.raises(ValueError):
         ga.global_align(_port_edges(edges), niter=0, device="cpu")
     with pytest.raises(ValueError, match="schedule"):
         ga.global_align(_port_edges(edges), niter=5, schedule="step", device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(4, 2), (2, 1)])
+def test_sharded_refinement_follows_jax_on_a_mesh(shape):
+    """The edges (12 at N=4) over the "data" axis against JAX's edge-sharded
+    refinement on its virtual 4x2 mesh, after 60 steps, at the bars of
+    tests/test_global_alignment.py:166-181 (seed 7, as the unsharded test
+    above); the sharded port also ends where its unsharded refinement does."""
+    from stable_virtual_camera_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh
+
+    edges, _ = _make_scene(N=4, noise=0.005, seed=7)
+    ref = jax_ga.global_align(edges, niter=60, lr=0.01, mesh=jax_make_mesh(n_data=4, n_view=2))
+    mesh = make_mesh(*shape, devices=["cpu"] * (shape[0] * shape[1]))
+    out = ga.global_align(_port_edges(edges), niter=60, lr=0.01, mesh=mesh)
+    single = ga.global_align(_port_edges(edges), niter=60, lr=0.01, device="cpu")
+    for other in (ref, single):
+        np.testing.assert_allclose(out.final_loss, other.final_loss, rtol=1e-3)
+        np.testing.assert_allclose(out.c2ws[:, :3, 3], other.c2ws[:, :3, 3], atol=5e-3)
+        np.testing.assert_allclose(out.Ks[0, 0, 0], other.Ks[0, 0, 0], rtol=1e-3)
+    np.testing.assert_array_equal(out.conf, ref.conf)

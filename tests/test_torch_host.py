@@ -181,3 +181,16 @@ def test_scene_engine_keeps_its_own_options():
     engine = SceneEngine(None, config.VersionConfig(), options)
     prior.resolve_anchors(21, 1, 20, config.VersionConfig(), engine.options)
     assert engine.options.deliver_anchors is True and options.deliver_anchors is None
+
+
+def test_plan_dense_anchors_refuses_the_window_that_never_ends():
+    """T_second = 3 with no input leaves one target slot a chunk; without
+    delivery the last gap samples its width plus the final target, so no
+    anchor count fits (JAX's loop never returns): the port raises. With
+    delivery every cap >= 1 fits, and the anchors equal JAX's."""
+    with pytest.raises(ValueError, match=r"T_second=3 .*num_gt_inputs=0.*deliver=False"):
+        prior.plan_dense_anchors(80, 3, 0, deliver=False)
+    anchors = prior.plan_dense_anchors(80, 3, 0, deliver=True)
+    assert anchors == jax_prior.plan_dense_anchors(80, 3, 0, deliver=True)
+    assert anchors[0] == 0 and anchors[-1] == 79
+    assert prior.plan_dense_anchors(2, 3, 0) == [0, 1]

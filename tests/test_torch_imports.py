@@ -2,7 +2,8 @@
 path, its weight loading, its W8A8 serving, its HTTP service, its GUI demo,
 its utilities, LPIPS, its ahead-of-time export and its multi-device
 sampling (parallel/, tensor parallelism included), with its streamed frame
-writes and FiLM cache, import no JAX, nothing of the JAX package, no
+writes and FiLM cache, and its sharded training (the view-sharded and FSDP
+train steps, the train CLI's mesh) and edge-sharded alignment, import no JAX, nothing of the JAX package, no
 `safetensors`, no image library and neither gradio nor viser.
 
 The machine with the card has PyTorch but no JAX, no `safetensors` (so the
@@ -90,6 +91,13 @@ from stable_virtual_camera_tpu_torch.engine.runner import FILM_CACHE_MAX_T
 from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh_tp
 from stable_virtual_camera_tpu_torch.parallel.sharding import make_tensor_parallel_sampler
 from stable_virtual_camera_tpu_torch.models.io import load_bundle, read_safetensors, save_converted
+from stable_virtual_camera_tpu_torch.training.train_step import (
+    make_fsdp_train_step, make_sharded_train_step, make_train_step_ema)
+from stable_virtual_camera_tpu_torch.training.optim import concat_state, slice_state
+from stable_virtual_camera_tpu_torch.parallel.comm import RematRecord
+from stable_virtual_camera_tpu_torch.parallel.ring_attention import ring_backward
+from stable_virtual_camera_tpu_torch.core.global_alignment import refine_sharded
+from stable_virtual_camera_tpu_torch.apps.train_cli import train_mesh
 print("imported")
 """
 

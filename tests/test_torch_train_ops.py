@@ -3,7 +3,8 @@ CPU in fp32: K1's plain forward (with its log-sum-exp) and plain backward
 through `FlashAttentionFn`, held against `jax.grad` of
 `flash_attention_upstream_bhld` with the upstream Pallas kernels in
 interpret mode; `TimeAttentionFn` against `jax.grad` of
-`time_attention_bhds(..., interpret=True)`. Inputs are numpy-seeded.
+`time_attention_bhds(..., interpret=True)`; K1's op differentiated through
+its log-sum-exp against autograd of the plain math. Inputs are numpy-seeded.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import jax.numpy as jnp
 
 from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
     flash_attention_bwd_plain,
+    flash_attention_op,
     flash_attention_plain,
     flash_attention_upstream_bhld,
 )
@@ -119,3 +121,31 @@ def test_time_attention_grads_match_jax():
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
     for name, g, r in zip("qkv", grads, ref_grads):
         np.testing.assert_allclose(g, r, atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("through", ["lse", "o_and_lse"])
+def test_flash_op_gradient_through_the_lse_matches_autograd(through):
+    """A loss on K1's log-sum-exp (alone, and with one on o) against autograd
+    of softmax(q k^T / 8) v and logsumexp(q k^T / 8) in float64: the
+    gradient on the LSE folds into the backward's delta (D - dlse)."""
+    rng = np.random.default_rng(11)
+    q, k, v, wo = (_normal(rng, (2, 3, 90, 64)) for _ in range(4))
+    wl = _normal(rng, (2, 3, 90))
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    o, lse = flash_attention_op(*ts, True)
+    loss = (lse * torch.from_numpy(wl)).sum()
+    if through == "o_and_lse":
+        loss = loss + (o * torch.from_numpy(wo)).sum()
+    loss.backward()
+    refs = [torch.from_numpy(x).double().requires_grad_() for x in (q, k, v)]
+    s = refs[0] @ refs[1].transpose(-1, -2) / 8.0
+    ref_loss = (torch.logsumexp(s, -1) * torch.from_numpy(wl).double()).sum()
+    if through == "o_and_lse":
+        ref_loss = ref_loss + ((torch.softmax(s, -1) @ refs[2]) * torch.from_numpy(wo).double()).sum()
+    ref_loss.backward()
+    for name, t, r in zip("qkv", ts, refs):
+        ref = torch.zeros_like(r) if r.grad is None else r.grad  # v does not reach the LSE
+        scale = ref.abs().max().item()
+        err = (t.grad.double() - ref).abs().max().item()
+        assert err <= 1e-5 * max(scale, 1.0), f"d{name}: {err} (scale {scale})"
+    assert ts[0].grad.norm() > 0
