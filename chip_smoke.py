@@ -22,17 +22,27 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
   5. `k3_flash_attention` and `k4_flash_packed`: K3 ((B, L, H, 64) layout)
      and K4 (packed (B, L, W) layout) against their plain versions at the
      self-attention shapes of a 576x576 render they take, on the split-qkv
-     views the UNet's generic path passes;
+     views the UNet's generic path passes; then `fp32_flash_attention`: the
+     fp32 entry of K1, K3 and K4 (csrc/flash_attention_fp32.cu) in each
+     layout at those shapes, and `fp32_flash_bwd`: the fp32 entries of
+     K1-dKV and K1-dQ at the training shapes, against the plain fp32
+     versions (relative L2 1e-5 and max abs 1e-4; 1e-4), with SDPA's
+     memory-efficient backend, forward and backward, as the yardstick;
   6. one full-width SevaUNet forward (bf16 random weights, 42 frames,
      576x576) through the kernels and through the plain versions, with a
      torch.profiler window over one forward (device time by kernel class,
      K1's share), then `unet_forward_backends`: the same with
      attention="flash" (K3) and "packed" (K4), then `f1_fp32_routes`: the
-     demo CLI's tiny fp32 bundle rendering the golden scene and one fp32
-     full-width forward on a 21-frame scene, both on the card with the
-     "plain" attention backend that fp32 models get there (the kernels
-     take bf16 only) and no kernel launched, the forward held against the
-     bf16 network through the kernels;
+     demo CLI's tiny fp32 bundle rendering the golden scene through K2's
+     entry for head dim 16 (time_attention_any), within one uint8 step of
+     the same render on the "plain" backend; one fp32 full-width forward on
+     a 21-frame scene launching the fp32 K1 14 times and that K2 entry 16
+     times, within 1e-5 of the "plain" backend and 2.5e-2 of the bf16
+     network, and the same forward on "flash" and "packed"; one fp32 loss
+     and backward (T=21, per-block remat) through the fp32 kernels against
+     the plain attention (loss 1e-5, gradient 1e-4); then
+     `k2_any_time_attention`: that K2 entry against its plain version at
+     the fp32 render's time-mix shapes and the tiny CLI's (fp32 and bf16);
   7. the render path: HeadlessRenderer.render in Basic mode at full width
      (SevaSpec(), ClipVisionSpec(), SD2.1 VAE, bf16 random weights) on one
      seeded 576x576 image along the `orbit` preset, both passes, with the
@@ -145,14 +155,22 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      chunk_batch=2 (PSNR bar), the second pass in 2 groups;
  26. `stream_path`: parallel_path's 30-target s-prob render (3 second-pass
      chunks) through the CLI with the engine's streamed frame writes on and
-     off (PNGs byte-equal), each with --engine_timing (per-pass seconds,
-     final_save and the second pass's flush stages);
+     the conditioning prefetch window of 3, and with the writes off and a
+     window of 1, each with --engine_timing (per-pass seconds, final_save,
+     the second pass's flush, conditioning and sample stages), then
+     streamed without the timer at windows 3 and 1 with the device's idle
+     gap between consecutive second-pass chunks from CUDA events; every
+     PNG byte-equal across the four renders;
  27. `tp_path`: parallel_path's seeded chunk on (data, view, model) =
      (1, 1, 2) and, where memory allows, (1, 3, 2) meshes of thread ranks
      on cuda:0 (tensor parallelism): latents against the unsharded chunk,
      the model ranks bit-equal, each rank's share of the UNet's bytes, K1
      and K2 launches, seconds against the unsharded chunk, the device's
-     idle share;
+     idle share; then on (1, 1, 2) under w8a8 and w8a8-static: the chunk
+     against the unsharded chunk in the same mode (below W8A8's own gap to
+     the exact chunk), the model ranks bit-equal, an input-sharded
+     QuantLinear and QuantConv bit-equal to the unsharded layers, a rank's
+     share of the int8 weights;
  28. `film_cache`: the same chunk through the engine's sample_latents (on
      its FiLM cache) and through the Euler loop on the bundle's network
      (no cache): latents (relative L2, or one bf16 step), seconds, peak
@@ -182,7 +200,8 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      CLI_MESH_VIEW on train_path's scene written as a reconfusion scene,
      two steps, its checkpoint read back and resumed for a third, and the
      CLI's refusals (--lora_rank with a mesh, T % mesh_view);
-then a `kernels` summary line and the final `ok` line.
+then the script's total seconds, a `kernels` summary line (the eleven
+kernels) and the final `ok` line.
 Every phase prints one JSON line. Cuts against a real render, the CLI, a
 real fine-tune, the Advanced mode, the released checkpoints and the GUI
 are printed in phases 7, 8, 11, 15, 17 and 21. Any failed phase exits
@@ -231,10 +250,23 @@ K2_REPS, K2_PROFILED = 20, 20
 K2_COLD_BYTES = 200e6
 K2_REPEAT_SHAPE = (5184, 5, 21, 2)
 UNET_REL_L2 = 3e-2
-# the fp32 network through the plain versions against the bf16 one through
-# the kernels, on one 21-frame scene: 1.26e-2 read on an H100 (PERF.md),
-# held to twice that
+# the fp32 network against the bf16 one through the kernels, on one
+# 21-frame scene: 1.26e-2 read on an H100 (PERF.md), held to twice that
 FP32_REL_L2 = 2.5e-2
+# the fp32 entries of K1/K3/K4 and K1-dKV/K1-dQ and K2's entry for any head
+# dim and dtype, against their plain fp32 versions with TF32 off: every
+# product is an fp32 FFMA, so only the order of the sums differs (TF32
+# products would give ~1e-3); FP32_REPS launches an event reading averages
+FP32_FWD_REL_L2, FP32_FWD_MAX_ABS, FP32_BWD_REL_L2, K2_ANY_REL_L2 = 1e-5, 1e-4, 1e-4, 1e-5
+FP32_REPS = 3
+# f1_fp32_routes: the full-width fp32 forward through the kernels against
+# its "plain" backend, and the fp32 loss and gradient likewise; the
+# forward's launches (7 per-frame and 7 joint K1 sites, 16 time-mixes) and
+# the kernels of the fp32 training path
+FP32_PLAIN_REL_L2, FP32_TRAIN_LOSS_REL, FP32_TRAIN_GRAD_REL_L2 = 1e-5, 1e-5, 1e-4
+FP32_FORWARD_LAUNCHES = {"flash_attention_fp32": 14, "time_attention_any": 16}
+FP32_TRAIN_KERNELS = ("flash_attention_fp32", "flash_attention_bwd_dkv_fp32", "flash_attention_bwd_dq_fp32",
+                      "time_attention_any")
 # training: T=21 frames of one scene, (L, B, H) of every self-attention
 TRAIN_T = 21
 K1_TRAIN_SHAPES = [(5184, 21, 5), (1296, 21, 10), (27216, 1, 10), (6804, 1, 20), (1701, 1, 20)]
@@ -296,6 +328,9 @@ PARALLEL_TARGETS, PARALLEL_MESH, PARALLEL_FRAME_PSNR_DB = 30, (2, 3), 40.0
 # whole); its latents are held to parallel_path's PARALLEL_REL_L2
 TP_MESHES = [(1, 1, 2), (1, 3, 2)]
 TP_BYTES_SHARE = 0.51
+# tp_path under W8A8: the sharded chunk's distance to the exact chunk at
+# most this many times the unsharded W8A8 chunk's (see tp_w8a8)
+TP_W8A8_GAP_RATIO = 1.5
 # film_cache: the cached chunk against the uncached one: relative L2, or
 # else one bf16 step at the latents' magnitude (max abs)
 FILM_REL_L2 = 1e-3
@@ -752,17 +787,238 @@ def k1_event_ms(forward) -> float:
     return sum(s.elapsed_time(e) for s, e in events)
 
 
-def check_fp32_routes(bundle, upstream: dict) -> None:
-    """Fault F1's repair on the card: the kernels take bf16 only, so an fp32
-    model there is built with the "plain" attention backend
-    (models/io.attention_backend) instead of raising at its first
-    attention. (a) The demo CLI with --random_model True (the tiny fp32
-    bundle) renders the golden scene in two passes; (b) the full-width
-    SevaSpec() bundle in fp32, random_bundle's default dtype, runs one
-    forward on one 21-frame scene at 576x576 (per-frame attention at L =
-    5184 >= 1024, head dim 64), held within FP32_REL_L2 of the bf16
-    network through the kernels on the same inputs. Both must launch no
-    kernel."""
+def fp32_flash_row(gen, layout: str, L: int, B: int, H: int) -> dict:
+    """The fp32 entry of K1 ("k1": (B, H, L, 64) views of a packed
+    (B, L, 3, H, 64) projection), K3 ("k3": (B, L, H, 64) chunks of a
+    (B, L, 3 H 64) one) or K4 ("k4": its packed (B, L, H 64) chunks) against
+    the plain fp32 version, with SDPA's memory-efficient backend (the one
+    that takes fp32) on (B, H, L, 64) views of the same tensors as the
+    one-call yardstick."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from stable_virtual_camera_tpu_torch.ops import flash_attention as fa
+    from stable_virtual_camera_tpu_torch.ops import flash_attention_packed as fap
+    from stable_virtual_camera_tpu_torch.ops.flash_upstream import flash_attention_cuda, flash_attention_plain
+
+    if layout == "k1":
+        qkv = torch.randn((B, L, 3, H, 64), generator=gen, device=DEVICE)
+        q, k, v = bhld = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        kernel, plain = (lambda: flash_attention_cuda(q, k, v)), (lambda: flash_attention_plain(q, k, v))
+    else:
+        qkv = torch.randn((B, L, 3 * H * 64), generator=gen, device=DEVICE)
+        q, k, v = qkv.chunk(3, dim=-1)
+        bhld = [t.view(B, L, H, 64).transpose(1, 2) for t in (q, k, v)]
+        if layout == "k3":
+            q, k, v = (t.view(B, L, H, 64) for t in (q, k, v))
+            kernel, plain = (lambda: fa.flash_attention_cuda(q, k, v)), (lambda: fa.flash_attention_plain(q, k, v))
+        else:
+            kernel = lambda: fap.flash_attention_packed_cuda(q, k, v, H)  # noqa: E731
+            plain = lambda: fap.flash_attention_packed_plain(q, k, v, H)  # noqa: E731
+
+    def library():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(*bhld)
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    row = {"layout": layout, "L": L, "B": B, "H": H,
+           "rel_l2": ((out - ref).norm() / ref.norm()).item(), "max_abs_err": diff.max().item(),
+           "finite": bool(torch.isfinite(out).all()),
+           "ms": cuda_ms(kernel, FP32_REPS), "plain_ms": cuda_ms(plain, 1), "library_ms": cuda_ms(library, FP32_REPS)}
+    flops = 4.0 * L * L * 64 * H * B
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    row["bound_ms"], row["bound_by"] = bound(flops, 4 * B * H * L * 64 * 4, PEAK_FP32_FLOPS)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    del qkv, q, k, v, bhld, out, ref, diff
+    torch.cuda.empty_cache()
+    return row
+
+
+def fp32_sums(rows: list[dict]) -> dict:
+    bound_ms, bound_by = sum_bounds(rows)
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "library_ms")},
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_fp32_flash(gen) -> dict:
+    """`fp32_flash_attention`: the fp32 entry of K1, K3 and K4
+    (csrc/flash_attention_fp32.cu) in each route's layout at the 576x576
+    render's self-attention shapes (K4: the ones it takes), against the
+    plain fp32 versions at FP32_FWD_REL_L2 and FP32_FWD_MAX_ABS."""
+    rows = {layout: [fp32_flash_row(gen, layout, *shape) for shape in (K4_SHAPES if layout == "k4" else K1_SHAPES)]
+            for layout in ("k1", "k3", "k4")}
+    ok = all(r["finite"] and r["rel_l2"] <= FP32_FWD_REL_L2 and r["max_abs_err"] <= FP32_FWD_MAX_ABS
+             for rs in rows.values() for r in rs)
+    sums = {layout: fp32_sums(rs) for layout, rs in rows.items()}
+    emit({"phase": "fp32_flash_attention", "ok": ok,
+          "bar": {"rel_l2": FP32_FWD_REL_L2, "max_abs": FP32_FWD_MAX_ABS}, "sums": sums, "shapes": rows,
+          "library": "F.scaled_dot_product_attention with SDPBackend.EFFICIENT_ATTENTION (the flash "
+                     "backend takes no fp32) on (B, H, L, 64) views of the same tensors"})
+    if not ok:
+        raise AssertionError("the fp32 flash forward disagrees with its plain version")
+    return {**sums["k1"], "by_layout": sums,
+            "library": "SDPA, memory-efficient backend, fp32, on the same views"}
+
+
+def check_fp32_flash_bwd(gen) -> dict:
+    """`fp32_flash_bwd`: the fp32 entries of K1-dKV and K1-dQ
+    (csrc/flash_attention_bwd_fp32.cu) at the training shapes, on K1's
+    fp32 output and log-sum-exp, against the plain fp32 backward at
+    FP32_BWD_REL_L2, with SDPA's memory-efficient backward (dq, dk, dv) as
+    the one-call yardstick."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
+        attention_delta,
+        flash_attention_bwd_dkv_cuda,
+        flash_attention_bwd_dq_cuda,
+        flash_attention_bwd_plain,
+        flash_attention_cuda,
+    )
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    rows = []
+    for L, B, H in K1_TRAIN_SHAPES:
+        qkv = torch.randn((B, L, 3, H, 64), generator=gen, device=DEVICE)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        do = torch.randn((B, L, H, 64), generator=gen, device=DEVICE).transpose(1, 2)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        delta = attention_delta(o, do)
+        dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+        dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+        pq, pk, pv = flash_attention_bwd_plain(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        row = {"L": L, "B": B, "H": H,
+               "rel_l2": {"dq": rel(dq, pq), "dk": rel(dk, pk), "dv": rel(dv, pv)},
+               "max_abs_err": {"dq": (dq - pq).abs().max().item(),
+                               "dkv": max((dk - pk).abs().max().item(), (dv - pv).abs().max().item())},
+               "finite": bool(all(torch.isfinite(t).all() for t in (dq, dk, dv))),
+               "dkv_ms": cuda_ms(lambda: flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta), 2),
+               "dq_ms": cuda_ms(lambda: flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), 2),
+               "delta_ms": cuda_ms(lambda: attention_delta(o, do), 2),
+               "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), 1)}
+        del pq, pk, pv, dq, dk, dv
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            out = torch.nn.functional.scaled_dot_product_attention(*leaves)
+            row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 2)
+        del out, leaves
+        n = 64 * B * H
+        row["dkv_tflops"] = 8.0 * L * L * n / (row["dkv_ms"] * 1e-3) / 1e12
+        row["dq_tflops"] = 6.0 * L * L * n / (row["dq_ms"] * 1e-3) / 1e12
+        row["dkv_bound_ms"], row["dkv_bound_by"] = bound(8.0 * L * L * n, (6 * L * 64 * 4 + 2 * L * 4) * B * H,
+                                                         PEAK_FP32_FLOPS)
+        row["dq_bound_ms"], row["dq_bound_by"] = bound(6.0 * L * L * n, (5 * L * 64 * 4 + 2 * L * 4) * B * H,
+                                                       PEAK_FP32_FLOPS)
+        rows.append(row)
+        del qkv, q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    ok = all(r["finite"] and max(r["rel_l2"].values()) <= FP32_BWD_REL_L2 for r in rows)
+    sums = {key: sum(r[key] for r in rows) for key in ("dkv_ms", "dq_ms", "delta_ms", "plain_ms", "library_ms")}
+    emit({"phase": "fp32_flash_bwd", "ok": ok, "bar": {"rel_l2": FP32_BWD_REL_L2}, "sums": sums, "shapes": rows,
+          "library": "the backward of F.scaled_dot_product_attention with SDPBackend.EFFICIENT_ATTENTION, fp32"})
+    if not ok:
+        raise AssertionError("the fp32 backward kernels disagree with the plain backward")
+    common = {"plain_ms": sums["plain_ms"], "library_ms": sums["library_ms"], "delta_ms": sums["delta_ms"],
+              "plain_and_library_cover": "K1-dKV and K1-dQ together with the plain D reduction (the plain "
+                                         "backward and SDPA's each compute dq, dk and dv)"}
+    out = {}
+    for name, part in (("flash_attention_bwd_dkv_fp32", "dkv"), ("flash_attention_bwd_dq_fp32", "dq")):
+        bound_ms, bound_by = sum_bounds(rows, f"{part}_")
+        out[name] = {"max_abs_err": max(r["max_abs_err"][part] for r in rows), "ms": sums[f"{part}_ms"],
+                     "bound_ms": bound_ms, "bound_by": bound_by, **common}
+    return out
+
+
+def k2_any_row(gen, S: int, H: int, D: int, num_frames: int, b: int, dtype) -> dict:
+    """K2's entry for any head dim and dtype (csrc/time_attention_any.cu)
+    against its plain version at one (S, H, D, T, b), on the UNet's views of
+    a (b*T, 3, H, D, S) projection, with SDPA on permuted views as the
+    one-call yardstick."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.ops.time_attention import time_attention_any_cuda, time_attention_plain
+
+    qkv = torch.randn((b * num_frames, 3, H, D, S), generator=gen, device=DEVICE).to(dtype)
+    q, k, v = qkv.unbind(1)
+    out = time_attention_any_cuda(q, k, v, num_frames).float()
+    ref = time_attention_plain(q, k, v, num_frames).float()
+    torch.cuda.synchronize()
+    row = {"S": S, "H": H, "D": D, "T": num_frames, "b": b, "dtype": str(dtype).replace("torch.", ""),
+           "rel_l2": ((out - ref).norm() / ref.norm()).item(), "max_abs_err": (out - ref).abs().max().item(),
+           "max_bf16_steps": bf16_steps(out, ref), "finite": bool(torch.isfinite(out).all()),
+           "ms": cuda_ms(lambda: time_attention_any_cuda(q, k, v, num_frames), K2_REPS),
+           "plain_ms": cuda_ms(lambda: time_attention_plain(q, k, v, num_frames), 3),
+           "library_ms": cuda_ms(lambda: time_sdpa(q, k, v, num_frames), K2_REPS)}
+    nbytes = 4 * b * num_frames * H * D * S * qkv.element_size()
+    row["bound_ms"], row["bound_by"] = bound(4.0 * num_frames * num_frames * D * b * S * H, nbytes, PEAK_FP32_FLOPS)
+    row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    del qkv, q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def k2_any_ok(row: dict) -> bool:
+    bar = row["rel_l2"] <= K2_ANY_REL_L2 if row["dtype"] == "float32" else row["max_bf16_steps"] <= K2_BF16_STEPS
+    return row["finite"] and bar
+
+
+def check_time_any(gen, tiny_shapes) -> dict:
+    """`k2_any_time_attention`: K2's entry for any head dim and dtype at the
+    fp32 render's time-mix shapes (576x576, T=21, b=2, head dim 64) and at
+    the tiny fp32 CLI's (`tiny_shapes`, noted in f1_fp32_routes: head dim
+    16), in fp32 at K2_ANY_REL_L2, and at the tiny CLI's in bf16 at one bf16
+    step; SDPA on permuted views as the yardstick, its backend named by its
+    kernels in one profiled call."""
+    import torch
+
+    render = [k2_any_row(gen, S, H, 64, T, 2, torch.float32) for S, H in K2_SHAPES]
+    tiny = [k2_any_row(gen, S, H, D, t, b, dt) for dt in (torch.float32, torch.bfloat16)
+            for S, H, D, t, b in sorted(tiny_shapes, reverse=True)]
+    ok = all(k2_any_ok(r) for r in render + tiny) and bool(tiny)
+    q = torch.randn((2 * T, 5, 64, 5184), generator=gen, device=DEVICE)
+    backend = list(device_time_by_class(lambda: (time_sdpa(q, q, q, T), torch.cuda.synchronize()),
+                                        top=3)["top_kernels_ms"])
+    del q
+    emit({"phase": "k2_any_time_attention", "ok": ok,
+          "bar": {"fp32_rel_l2": K2_ANY_REL_L2, "bf16_steps": K2_BF16_STEPS},
+          "render_fp32": rows_sum(render), "tiny_cli": rows_sum(tiny), "shapes": {"render": render, "tiny": tiny},
+          "library_kernels_at_5184": backend})
+    if not ok:
+        raise AssertionError("K2's entry for any head dim disagrees with its plain version")
+    return {**rows_sum(render), "tiny_cli": rows_sum(tiny),
+            "library": "scaled_dot_product_attention on (b, S, H, T, D) permuted views (their head dim is "
+                       f"strided); kernels at (5184, 5, 64): {backend}"}
+
+
+def rows_sum(rows: list[dict]) -> dict:
+    return fp32_sums(rows) if rows else {}
+
+
+def check_fp32_routes(bundle, upstream: dict, gen, tiny_shapes: set) -> dict:
+    """`f1_fp32_routes`: fp32 models on the card run the kernels' fp32
+    entries, as JAX's fp32 models run its Pallas kernels. (a) The demo CLI
+    with --random_model True (the tiny fp32 bundle, head dim 16) renders
+    the golden scene in two passes, launching K2's other entry
+    (time_attention_any) and no bf16 kernel, its frames within one uint8
+    step of the same render with attention="plain"; its K2 shapes go into
+    `tiny_shapes`. (b) The full-width SevaSpec() bundle in fp32 runs one
+    forward on one 21-frame scene at 576x576: FP32_FORWARD_LAUNCHES (fp32
+    K1 at its 14 sites, K2's other entry at its 16), within FP32_REL_L2 of
+    the bf16 network through the kernels and FP32_PLAIN_REL_L2 of the same
+    forward with attention="plain"; (c) the same forward with "flash" (K3's
+    fp32 entry) and "packed" (K4's), each within FP32_PLAIN_REL_L2 of
+    "plain"; (d) one fp32 loss and backward (T=21, per-block remat) through
+    the kernels against the plain forward and backward of K1 and K2: loss
+    within FP32_TRAIN_LOSS_REL, gradient within FP32_TRAIN_GRAD_REL_L2.
+    Returns the launch counts by path."""
     import cv2
     import numpy as np
     import torch
@@ -770,49 +1026,133 @@ def check_fp32_routes(bundle, upstream: dict) -> None:
     from stable_virtual_camera_tpu_torch import _kernels
     from stable_virtual_camera_tpu_torch.apps import cli
     from stable_virtual_camera_tpu_torch.config import SevaSpec
+    from stable_virtual_camera_tpu_torch.models import unet as unet_mod
     from stable_virtual_camera_tpu_torch.models.clip import ClipVisionSpec
     from stable_virtual_camera_tpu_torch.models.io import random_bundle
+    from stable_virtual_camera_tpu_torch.training.train_step import make_loss_fn
 
+    bf16_kernels = ("flash_attention", "time_attention", "flash_attention_blhd", "flash_attention_packed")
+    frames, tiny = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        _kernels.reset_counts()
-        t0 = time.perf_counter()
-        (out_dir,) = cli.main(GOLDEN, task="img2trajvid", use_traj_prior=True, random_model=True,
-                              device=DEVICE, work_dir=tmp, num_steps=2, guider_types=[1, 2],
-                              cfg=[2.0, 2.0], sampler_verbose=False)
-        torch.cuda.synchronize()
-        tiny_s = time.perf_counter() - t0
-        tiny_counts = _kernels.counts()
-        frames_dir = os.path.join(out_dir, "samples-rgb")
-        frames = [cv2.imread(os.path.join(frames_dir, f)) for f in sorted(os.listdir(frames_dir))
-                  if f.endswith(".png")]
-    tiny_ok = bool(frames) and all(f is not None and f.shape == (64, 64, 3) for f in frames)
+        for attention in (None, "plain"):
+            _kernels.reset_counts()
+            t0 = time.perf_counter()
+            shapes: dict = {}
+            with recording_shapes(shapes):
+                (out_dir,) = cli.main(GOLDEN, task="img2trajvid", use_traj_prior=True, random_model=True,
+                                      device=DEVICE, work_dir=os.path.join(tmp, str(attention)), num_steps=2,
+                                      guider_types=[1, 2], cfg=[2.0, 2.0], sampler_verbose=False,
+                                      attention=attention)
+            torch.cuda.synchronize()
+            tiny[str(attention)] = {"seconds": time.perf_counter() - t0, "launches": _kernels.counts()}
+            if attention is None:
+                tiny_shapes.update(shapes.get("time_attention_dims", ()))
+            frames_dir = os.path.join(out_dir, "samples-rgb")
+            frames[str(attention)] = [cv2.imread(os.path.join(frames_dir, f)) for f in sorted(os.listdir(frames_dir))
+                                      if f.endswith(".png")]
+    kern, plain = frames["None"], frames["plain"]
+    steps = max((int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()) for a, b in zip(kern, plain)),
+                default=-1)
+    tiny_launches = tiny["None"]["launches"]
+    tiny_ok = (bool(kern) and len(kern) == len(plain) and all(f is not None and f.shape == (64, 64, 3) for f in kern)
+               and 0 <= steps <= 1 and tiny_launches["time_attention_any"] > 0
+               and not any(tiny_launches[k] for k in bf16_kernels)
+               and not any(tiny["plain"]["launches"].values()) and bool(tiny_shapes))
 
     fp32 = random_bundle(SevaSpec(), ClipVisionSpec(), device=DEVICE,
                          generator=torch.Generator(device=DEVICE).manual_seed(SEED))
     x, t_idx, ctx, dense = (t[:T] for t in upstream["inputs"])
+    forwards, launches = {}, {}
     with torch.inference_mode():
-        _kernels.reset_counts()
-        t0 = time.perf_counter()
-        out32 = fp32.unet(x, t_idx, ctx, dense, T)
-        torch.cuda.synchronize()
-        fp32_s = time.perf_counter() - t0
-        fp32_counts = _kernels.counts()
+        for attention in ("upstream", "plain", "flash", "packed"):
+            set_attention(fp32.unet, attention)
+            torch.cuda.synchronize()
+            _kernels.reset_counts()
+            t0 = time.perf_counter()
+            forwards[attention] = fp32.unet(x, t_idx, ctx, dense, T)
+            torch.cuda.synchronize()
+            launches[attention] = {"seconds": time.perf_counter() - t0, **_kernels.counts()}
         out16 = bundle.unet(x, t_idx, ctx, dense, T).float()
-    dtype, backend = next(fp32.unet.parameters()).dtype, fp32.unet.attention
-    rel = ((out16 - out32).norm() / out32.norm()).item()
-    finite = bool(torch.isfinite(out32).all())
-    del fp32, out32, out16
+    set_attention(fp32.unet, "upstream")
+    dtype = next(fp32.unet.parameters()).dtype
+    ref = forwards["plain"]
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    fwd = {name: {"rel_l2_vs_plain": rel(out, ref), "finite": bool(torch.isfinite(out).all()),
+                  "seconds": launches[name].pop("seconds"), "launches": launches[name]}
+           for name, out in forwards.items()}
+    rel16 = rel(out16, forwards["upstream"])
+    del forwards, out16, ref
     torch.cuda.empty_cache()
-    launched = {k: c for k, c in (*tiny_counts.items(), *fp32_counts.items()) if c}
-    ok = (tiny_ok and finite and dtype == torch.float32 and backend == "plain" and not launched
-          and rel <= FP32_REL_L2)
+    up = fwd["upstream"]["launches"]
+    fwd_ok = (dtype == torch.float32 and rel16 <= FP32_REL_L2 and fwd["plain"]["finite"]
+              and all(up[k] == n for k, n in FP32_FORWARD_LAUNCHES.items())
+              and not any(up[k] for k in bf16_kernels) and not any(fwd["plain"]["launches"].values())
+              and all(fwd[n]["finite"] and fwd[n]["rel_l2_vs_plain"] <= FP32_PLAIN_REL_L2
+                      and fwd[n]["launches"]["flash_attention_fp32"] > 0
+                      and not any(fwd[n]["launches"][k] for k in bf16_kernels)
+                      for n in ("upstream", "flash", "packed")))
+
+    # (d) the fp32 loss and backward, per-block remat
+    unet = fp32.unet
+    batch, draw = train_inputs(fp32, gen)
+    loss_fn = make_loss_fn(unet, TRAIN_T, remat=True)
+
+    def run():
+        unet.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = loss_fn(batch, draw)
+        loss.backward()
+        torch.cuda.synchronize()
+        out = {"loss": loss.item(), "s": time.perf_counter() - t0,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        grads = {n: p.grad for n, p in unet.named_parameters() if p.grad is not None}
+        unet.zero_grad(set_to_none=True)
+        return out, grads
+
+    _kernels.reset_counts()
+    train_k, g_k = run()
+    train_k["launches"] = _kernels.counts()
+    saved = unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds
+    unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds = plain_attention_functions()
+    try:
+        _kernels.reset_counts()
+        train_p, g_p = run()
+        train_p["launches"] = _kernels.counts()
+    finally:
+        unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds = saved
+    norm = torch.stack([g.norm() for g in g_p.values()]).norm()
+    grad_rel = (torch.stack([(g_k[n] - g_p[n]).norm() for n in g_p]).norm() / norm).item()
+    loss_rel = abs(train_k["loss"] - train_p["loss"]) / abs(train_p["loss"])
+    train_launches = train_k["launches"]
+    train_ok = (loss_rel <= FP32_TRAIN_LOSS_REL and grad_rel <= FP32_TRAIN_GRAD_REL_L2 and set(g_k) == set(g_p)
+                and all(torch.isfinite(g).all() for g in g_k.values())
+                and all(train_launches[k] > 0 for k in FP32_TRAIN_KERNELS)
+                and not any(train_launches[k] for k in TRAIN_KERNELS)
+                and not any(train_p["launches"].values()))
+    del fp32, unet, batch, g_k, g_p, loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = tiny_ok and fwd_ok and train_ok
     emit({"phase": "f1_fp32_routes", "ok": ok,
-          "tiny_cli": {"ok": tiny_ok, "frames": len(frames), "seconds": tiny_s, "launches": tiny_counts},
-          "full_width_fp32_forward": {"dtype": str(dtype), "attention": backend, "frames": T, "finite": finite,
-                                      "seconds": fp32_s, "launches": fp32_counts,
-                                      "rel_l2_bf16_kernels_vs_fp32_plain": rel, "bar": FP32_REL_L2}})
+          "tiny_cli": {"ok": tiny_ok, "frames": len(kern), "max_uint8_steps_vs_plain": steps, "bar_uint8_steps": 1,
+                       "k2_shapes": sorted(map(list, tiny_shapes)), **tiny},
+          "full_width_fp32_forward": {"ok": fwd_ok, "dtype": str(dtype), "frames": T,
+                                      "rel_l2_bf16_kernels_vs_fp32_kernels": rel16, "bar_bf16": FP32_REL_L2,
+                                      "bar_vs_plain": FP32_PLAIN_REL_L2,
+                                      "launches_expected": FP32_FORWARD_LAUNCHES, "backends": fwd},
+          "fp32_loss_backward": {"ok": train_ok, "frames": TRAIN_T, "remat": "per block", "loss_rel": loss_rel,
+                                 "grad_rel_l2": grad_rel,
+                                 "bar": {"loss_rel": FP32_TRAIN_LOSS_REL, "grad_rel_l2": FP32_TRAIN_GRAD_REL_L2},
+                                 "kernels": train_k, "plain": train_p}})
     if not ok:
-        raise AssertionError("an fp32 path launched a kernel, failed or left its bar")
+        raise AssertionError("an fp32 path missed its kernels, failed or left its bar")
+    return {"fp32_tiny_cli": tiny_launches, "fp32_forward": up, "fp32_flash": fwd["flash"]["launches"],
+            "fp32_packed": fwd["packed"]["launches"], "fp32_train": train_launches}
 
 
 def set_attention(unet, name: str) -> None:
@@ -886,7 +1226,8 @@ def check_unet_backends(bundle, upstream: dict) -> None:
 @contextlib.contextmanager
 def recording_shapes(shapes: dict):
     """Note the shape of every call the UNet makes to K1, as (L, B, H), and
-    to K2, as (S, H, T, b), in `shapes`; the calls go on to the kernels."""
+    to K2, as (S, H, T, b) and with its head dim as (S, H, D, T, b), in
+    `shapes`; the calls go on to the kernels."""
     from stable_virtual_camera_tpu_torch.models import unet as unet_mod
 
     k1, k2 = unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds
@@ -897,8 +1238,9 @@ def recording_shapes(shapes: dict):
         return k1(q, k, v)
 
     def k2_noted(q, k, v, num_frames):
-        BT, H, _, S = q.shape
+        BT, H, D, S = q.shape
         shapes.setdefault("time_attention", set()).add((S, H, num_frames, BT // num_frames))
+        shapes.setdefault("time_attention_dims", set()).add((S, H, D, num_frames, BT // num_frames))
         return k2(q, k, v, num_frames)
 
     unet_mod.flash_attention_upstream_bhld, unet_mod.time_attention_bhds = k1_noted, k2_noted
@@ -2610,13 +2952,21 @@ def run_stream_path() -> dict:
     """`stream_path`: parallel_path's CLI render (img2trajvid_s-prob from
     one seeded 576x576 PNG, the orbit prior, PARALLEL_TARGETS targets: 3
     second-pass chunks) through apps.cli.main with attention="flash" and
-    --random_model full, twice, with the engine's `stream_save` on (PNGs
-    written by writer threads while the render goes on, each second-pass
-    chunk flushed by one ordered worker while the next one samples) and off
-    (every PNG written by the final save), each with --engine_timing: every
-    PNG byte-equal between the two runs; both runs' per-pass seconds and
-    the engine's `final_save`, `first_pass_save`, `second_pass_flush` and
-    `second_pass_flush_join` stage seconds and calls. Returns the streamed
+    --random_model full, four times: with the engine's `stream_save` on
+    (PNGs written by writer threads while the render goes on, each
+    second-pass chunk flushed by one ordered worker while the next one
+    samples) and the conditioning prefetch window of 3 chunks (the
+    default), and with `stream_save` off and a window of 1, each with
+    --engine_timing; then streamed without the timer (whose stages end in a
+    device synchronize) with windows of 3 and 1, where CUDA events around
+    each second-pass chunk's dispatch give the device's idle gap between
+    consecutive chunks (from the event after chunk k's decode to the one
+    before chunk k + 1's first step: 0 when the host dispatched chunk k + 1
+    before the device finished chunk k). Every PNG byte-equal across the
+    four runs; the timed runs' per-pass seconds and the engine's
+    `final_save`, `first_pass_save`, `second_pass_flush`,
+    `second_pass_flush_join`, `second_pass_conditioning` and
+    `second_pass_sample` stage seconds and calls. Returns the streamed
     run's launch counts."""
     import cv2
     import numpy as np
@@ -2624,11 +2974,13 @@ def run_stream_path() -> dict:
 
     from stable_virtual_camera_tpu_torch import _kernels
     from stable_virtual_camera_tpu_torch.apps import cli
+    from stable_virtual_camera_tpu_torch.engine import runner
     from stable_virtual_camera_tpu_torch.engine.runner import SceneEngine
     from stable_virtual_camera_tpu_torch.utils.profiling import StageTimer
 
     marks: list[float] = []
     timers: list = []
+    chunk_events: list = []
 
     class TimedEngine(SceneEngine):
         """SceneEngine that notes the wall time at each pass's end."""
@@ -2646,6 +2998,19 @@ def run_stream_path() -> dict:
             super().__init__()
             timers.append(self)
 
+    sample_chunk = runner.sample_chunk
+
+    def evented_chunk(*args, **kwargs):
+        """A second-pass chunk between two CUDA events on its stream."""
+        if kwargs.get("pass_id") != 2:
+            return sample_chunk(*args, **kwargs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = sample_chunk(*args, **kwargs)
+        end.record()
+        chunk_events.append((start, end))
+        return out
+
     def files(root):
         out = {}
         for d, _, names in os.walk(root):
@@ -2655,49 +3020,60 @@ def run_stream_path() -> dict:
                         out[os.path.relpath(os.path.join(d, n), root)] = f.read()
         return out
 
+    stages = ("final_save", "first_pass_save", "second_pass_flush", "second_pass_flush_join",
+              "second_pass_conditioning", "second_pass_sample")
     runs = {}
-    saved = cli.SceneEngine, cli.StageTimer
-    cli.SceneEngine, cli.StageTimer = TimedEngine, KeptTimer
+    saved = cli.SceneEngine, cli.StageTimer, runner.sample_chunk
+    cli.SceneEngine, cli.StageTimer, runner.sample_chunk = TimedEngine, KeptTimer, evented_chunk
     try:
         with tempfile.TemporaryDirectory() as tmp:
             png_dir = os.path.join(tmp, "scene")
             os.makedirs(png_dir)
             img = np.random.default_rng(SEED).integers(0, 256, (RES, RES, 3), dtype=np.uint8)
             cv2.imwrite(os.path.join(png_dir, "seeded.png"), img)
-            for name, stream in (("streamed", True), ("synchronous", False)):
+            for name, stream, window, timing in (("streamed", True, 3, True), ("synchronous", False, 1, True),
+                                                 ("window_3", True, 3, False), ("window_1", True, 1, False)):
                 marks.clear()
                 timers.clear()
+                chunk_events.clear()
                 torch.cuda.empty_cache()
                 torch.cuda.synchronize()
                 _kernels.reset_counts()
                 (out_dir,) = cli.main(png_dir, task="img2trajvid_s-prob", random_model="full",
                                       use_traj_prior=True, traj_prior="orbit", num_targets=PARALLEL_TARGETS,
                                       attention="flash", work_dir=os.path.join(tmp, name), num_steps=NUM_STEPS,
-                                      device=DEVICE, sampler_verbose=False, engine_timing=True,
-                                      stream_save=stream)
-                timer = timers[0]
-                runs[name] = {"files": files(out_dir), "launches": _kernels.counts(),
-                              "first_pass_s": marks[0], "second_pass_s": marks[1] - marks[0],
-                              "stages_s": {k: [timer.totals.get(k, 0.0), timer.counts.get(k, 0)] for k in (
-                                  "final_save", "first_pass_save", "second_pass_flush",
-                                  "second_pass_flush_join", "second_pass_sample")}}
+                                      device=DEVICE, sampler_verbose=False, engine_timing=timing,
+                                      stream_save=stream, prefetch_chunks=window)
+                torch.cuda.synchronize()
+                run = {"files": files(out_dir), "launches": _kernels.counts(), "prefetch_chunks": window,
+                       "stream_save": stream, "first_pass_s": marks[0], "second_pass_s": marks[1] - marks[0]}
+                if timing:
+                    timer = timers[0]
+                    run["stages_s"] = {k: [timer.totals.get(k, 0.0), timer.counts.get(k, 0)] for k in stages}
+                else:
+                    run["chunk_device_ms"] = [s.elapsed_time(e) for s, e in chunk_events]
+                    run["idle_gap_ms"] = [max(0.0, a[1].elapsed_time(b[0]))
+                                          for a, b in zip(chunk_events, chunk_events[1:])]
+                runs[name] = run
     finally:
-        cli.SceneEngine, cli.StageTimer = saved
-    on, off = runs["streamed"], runs["synchronous"]
-    same = on["files"] == off["files"]
+        cli.SceneEngine, cli.StageTimer, runner.sample_chunk = saved
+    on = runs["streamed"]
+    same = all(r["files"] == on["files"] for r in runs.values())
     n_final = len([k for k in on["files"] if k.startswith("samples-rgb" + os.sep)])
     chunks = on["stages_s"]["second_pass_flush"][1]
     ok = (same and n_final == PARALLEL_TARGETS and chunks > 1
+          and all(len(r["idle_gap_ms"]) == chunks - 1 for r in runs.values() if "idle_gap_ms" in r)
           and all(on["launches"][k] > 0 for k in ("flash_attention_blhd", "time_attention")))
     emit({"phase": "stream_path", "ok": ok, "pngs_byte_equal": same, "pngs": len(on["files"]),
           "final_pngs": n_final, "second_pass_flushes": chunks,
           "runs": {k: {kk: v for kk, v in r.items() if kk != "files"} for k, r in runs.items()},
           "cuts": {"num_steps": f"{NUM_STEPS} (CLI default 50)",
                    "scene": f"one seeded 576x576 PNG, the orbit prior, {PARALLEL_TARGETS} targets",
-                   "timing": "--engine_timing synchronizes the device at each stage's end on the main thread; "
-                             "stages_s holds [seconds, calls]"}})
+                   "timing": "--engine_timing synchronizes the device at each stage's end on the main thread "
+                             "(the window's builds inside the loop excepted); stages_s holds [seconds, calls]; "
+                             "idle_gap_ms is read without the timer"}})
     if not ok:
-        raise AssertionError("the streamed render's PNGs differ from the synchronous render's")
+        raise AssertionError("the stream or window renders' PNGs differ, or a chunk gap went unread")
     return on["launches"]
 
 
@@ -2792,15 +3168,135 @@ def run_tp_path(bundle) -> dict:
             bundle._shards.clear()
             gc.collect()
             torch.cuda.empty_cache()
+    quant, quant_counts = tp_w8a8(bundle, cond, plan, draw, timed, x_u)
+    ok = ok and all(r["ok"] for r in quant.values())
+    counts.update(quant_counts)
     emit({"phase": "tp_path", "ok": ok, "meshes": results,
           "unsharded": {"chunk_s": s_u, "launches": {k: launches_u[k] for k in k1_k2}},
-          "unet_bytes": unet_bytes,
+          "unet_bytes": unet_bytes, "w8a8": quant,
           "cuts": {"num_steps": f"{NUM_STEPS} (released default 50)",
                    "weights": "random bf16 (flax-default init, seed 0), full width",
                    "devices": "every rank on cuda:0 (one card), each on its own stream"}})
     if not ok:
         raise AssertionError("the tensor-parallel chunk disagrees with the unsharded chunk, or its ranks differ")
     return counts
+
+
+def input_sharded_layers(unet) -> dict:
+    """The first QuantLinear and the first QuantConv whose input dimension
+    the sharding rule cuts at n = 2, by name."""
+    from stable_virtual_camera_tpu_torch.models.unet import QuantConv, QuantLinear
+    from stable_virtual_camera_tpu_torch.parallel.param_sharding import tree_shardings
+
+    cuts = tree_shardings(unet, 2)
+    found = {}
+    for name, m in unet.named_modules():
+        for kind in (QuantLinear, QuantConv):
+            if type(m) is kind and kind not in found and (cuts.get(name + ".weight") or (None,))[0] == 1:
+                found[kind] = name
+    return {kind.__name__: name for kind, name in found.items()}
+
+
+def tp_w8a8(bundle, cond, plan, draw, timed, x_exact) -> tuple[dict, dict]:
+    """tp_path's W8A8 part: under "w8a8" and "w8a8-static" (calibrated on
+    the unsharded UNet, as the engine does), the seeded chunk on
+    TP_MESHES[0] against the unsharded chunk in the same mode, with the
+    model ranks bit-equal; one input-sharded QuantLinear and one
+    input-sharded QuantConv at full width, each bit-equal on both ranks to
+    the unsharded layer on the input it saw in the unsharded chunk; a
+    rank's share of the int8 weights the quantized layers multiply with;
+    the chunk's seconds against the unsharded one's.
+
+    The latents' bar: every W8A8 layer is bit-equal under the model axis,
+    but the exact layers round otherwise on shards than whole (partial
+    sums where the rule cuts the input; cuBLAS and cuDNN choices at
+    another output width), as in mode "0", where the chunk moves by ~1e-2
+    (PARALLEL_REL_L2 above); W8A8's rounding to int8 is discontinuous, so
+    those last-bit differences grow through the quantized layers over the
+    steps to the size of W8A8's own error. So the sharded W8A8 chunk is
+    held to that error: its distance to `x_exact` (the unsharded exact
+    chunk) within TP_W8A8_GAP_RATIO of the unsharded W8A8 chunk's; its
+    distance to the unsharded W8A8 chunk is printed beside
+    PARALLEL_REL_L2. Returns (results by mode, launch counts
+    by path)."""
+    import torch
+
+    from stable_virtual_camera_tpu_torch.engine.runner import ensure_quant_calibrated
+    from stable_virtual_camera_tpu_torch.parallel import tensor_parallel as tp
+    from stable_virtual_camera_tpu_torch.parallel.comm import run_ranks
+    from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh_tp
+    from stable_virtual_camera_tpu_torch.parallel.sharding import sample_shard
+    from stable_virtual_camera_tpu_torch.sampling.sampler import euler_edm_sample
+
+    unet = bundle.unet
+    layers = input_sharded_layers(unet)
+    n_model = TP_MESHES[0][2]
+    results, counts = {}, {}
+    for mode in ("w8a8", "w8a8-static"):
+        name = f"tp_{mode}_" + "x".join(map(str, TP_MESHES[0]))
+        saved = {}
+        hooks = [unet.get_submodule(path).register_forward_pre_hook(
+            lambda m, args, _k=kind: saved.setdefault(_k, args[0].detach().clone())) for kind, path in layers.items()]
+        try:
+            unet.set_quant(mode)
+            t0 = time.perf_counter()
+            ensure_quant_calibrated(bundle, (T, RES // 8, RES // 8, 4), plan, cond)
+            calib_s = time.perf_counter() - t0
+            x_u, s_u, _ = timed(lambda: euler_edm_sample(bundle.network, draw(None), plan, cond, T, step_noise=draw))
+            for h in hooks:
+                h.remove()
+            hooks = []
+            mesh = make_mesh_tp(*TP_MESHES[0], devices=[DEVICE] * n_model)
+            bundle.mesh = mesh
+            bundle.replicate()
+            outs, s, launches = timed(lambda: run_ranks(mesh, lambda ctx: sample_shard(
+                bundle.network, [draw(None)], plan, [cond], T, [draw], None, device=ctx.device,
+                model_comm=ctx.model_comm), rows=[0]))
+            same = all(torch.equal(o, outs[0]) for o in outs[1:])
+            rel = ((outs[0][0] - x_u).float().norm() / x_u.float().norm()).item()
+            gap = ((x_u - x_exact).float().norm() / x_exact.float().norm()).item()
+            gap_tp = ((outs[0][0] - x_exact).float().norm() / x_exact.float().norm()).item()
+            shards = [bundle.unet_shard(DEVICE, m, n_model) for m in range(n_model)]
+            with torch.inference_mode():
+                ref = {kind: unet.get_submodule(path)(saved[kind]) for kind, path in layers.items()}
+
+                def rank(ctx):
+                    with tp.model_group(ctx.model_comm):
+                        return {kind: shards[ctx.model].get_submodule(path)(saved[kind])
+                                for kind, path in layers.items()}
+
+                per_rank = run_ranks(mesh, rank)
+            layer_equal = {kind: all(torch.equal(r[kind], ref[kind]) for r in per_rank) for kind in layers}
+            whole = sum(m.quant_weight().numel() for m in unet.modules() if hasattr(m, "quant_weight"))
+            share = max(sum(m.quant_weight().numel() for m in sh.modules() if hasattr(m, "quant_weight")) / whole
+                        for sh in shards)
+            mode_ok = (same and gap_tp <= TP_W8A8_GAP_RATIO * gap and all(layer_equal.values()) and len(layer_equal) == 2
+                       and bool(torch.isfinite(outs[0]).all())
+                       and all(launches[k] > 0 for k in ("flash_attention", "time_attention")))
+            counts[name] = launches
+            results[mode] = {"ok": mode_ok, "mesh": list(TP_MESHES[0]), "rel_l2": rel,
+                             "within_parallel_rel_l2": rel <= PARALLEL_REL_L2,
+                             "unsharded_vs_exact_rel_l2": gap, "sharded_vs_exact_rel_l2": gap_tp,
+                             "sharded_vs_exact_bar": TP_W8A8_GAP_RATIO * gap,
+                             "model_ranks_bit_equal": same, "input_sharded_layers": layers,
+                             "layers_bit_equal": layer_equal,
+                             "layer_inputs": {k: list(v.shape) for k, v in saved.items()},
+                             "rank_int8_weight_share": share, "int8_weights_whole": whole,
+                             "chunk_s": s, "unsharded_chunk_s": s_u, "vs_unsharded": s / s_u,
+                             "calibration_s": calib_s if mode == "w8a8-static" else None,
+                             "launches": {k: launches[k] for k in ("flash_attention", "time_attention")}}
+            del outs, x_u, ref, per_rank, shards
+        finally:
+            for h in hooks:
+                h.remove()
+            bundle.mesh = None
+            bundle._shards.clear()
+            unet.set_quant("0")
+            unet.clear_quant_state()
+            saved.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+    return results, counts
 
 
 def run_film_cache(bundle) -> dict:
@@ -3946,7 +4442,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _kernels.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted({k.library().name for k in _kernels.KERNELS.values()})})
@@ -3958,10 +4454,11 @@ def main() -> int:
     for key, fn in (("flash_attention", check_k1), ("time_attention", check_k2),
                     ("k1_bwd", check_k1_bwd), ("ring_bwd", check_ring_backward),
                     ("flash_attention_blhd", lambda g: check_layout_kernel(g, "blhd")),
-                    ("flash_attention_packed", lambda g: check_layout_kernel(g, "packed"))):
+                    ("flash_attention_packed", lambda g: check_layout_kernel(g, "packed")),
+                    ("flash_attention_fp32", check_fp32_flash), ("fp32_flash_bwd", check_fp32_flash_bwd)):
         try:
             out = fn(gen)
-            if key == "k1_bwd":
+            if key in ("k1_bwd", "fp32_flash_bwd"):
                 results.update(out)
             elif key == "ring_bwd":
                 ring_counts = out
@@ -3977,8 +4474,10 @@ def main() -> int:
                                "parallel_view1": {}, f"parallel_view{PARALLEL_VIEW}": {}, "parallel_cli": {},
                                "parallel_chunk_batch": {}, "stream": {}, "film_cache": {},
                                "ring_bwd": ring_counts, "sharded_train": {}, "fsdp_train": {},
-                               "train_cli_mesh": {},
-                               **{"tp_" + "x".join(map(str, m)): {} for m in TP_MESHES}}
+                               "train_cli_mesh": {}, "fp32_tiny_cli": {}, "fp32_forward": {}, "fp32_flash": {},
+                               "fp32_packed": {}, "fp32_train": {},
+                               **{"tp_" + "x".join(map(str, m)): {} for m in TP_MESHES},
+                               **{f"tp_{q}_" + "x".join(map(str, TP_MESHES[0])): {} for q in ("w8a8", "w8a8-static")}}
     try:
         k5 = check_k5_layer_norm(gen)
         results["layer_norm"] = k5["result"]
@@ -4007,6 +4506,7 @@ def main() -> int:
     cli_frames: dict = {}
     main_frames: dict = {}
     gui_frames: dict = {}
+    tiny_shapes: set = set()
     try:
         t0 = time.perf_counter()
         bundle = random_bundle(SevaSpec(), ClipVisionSpec(), dtype=torch.bfloat16, device=DEVICE,
@@ -4016,7 +4516,9 @@ def main() -> int:
               "unet_params": sum(p.numel() for p in bundle.unet.parameters())})
         for key, fn in (("unet_forward", lambda: upstream.update(check_unet(bundle, gen))),
                         ("unet_forward_backends", lambda: check_unet_backends(bundle, upstream)),
-                        ("f1_fp32_routes", lambda: check_fp32_routes(bundle, upstream)),
+                        ("f1_fp32_routes", lambda: counts.update(check_fp32_routes(bundle, upstream, gen, tiny_shapes))),
+                        ("k2_any_time_attention",
+                         lambda: results.__setitem__("time_attention_any", check_time_any(gen, tiny_shapes))),
                         ("main_path", lambda: run_main_path(bundle, recorded["render"], main_frames)),
                         ("advanced_path", lambda: run_advanced_path(bundle, pipe, recorded["advanced"])),
                         ("gui_path", lambda: run_gui_path(bundle, pipe, main_frames, gui_frames)),
@@ -4087,6 +4589,14 @@ def main() -> int:
         "flash_attention_blhd": "stable_virtual_camera_tpu/ops/flash_attention.py:122",
         "flash_attention_packed": "stable_virtual_camera_tpu/ops/flash_attention_packed.py:156",
         "layer_norm": "benchmark/ln_probe.py:50",
+        "flash_attention_fp32": "stable_virtual_camera_tpu/ops/flash_upstream.py:74, ops/flash_attention.py:122 "
+                                "and ops/flash_attention_packed.py:156 on fp32 inputs",
+        "flash_attention_bwd_dkv_fp32": "stable_virtual_camera_tpu/ops/flash_upstream.py:74 under grad on fp32 "
+                                        f"inputs: {upstream}:1121 (_flash_attention_bwd_dkv)",
+        "flash_attention_bwd_dq_fp32": "stable_virtual_camera_tpu/ops/flash_upstream.py:74 under grad on fp32 "
+                                       f"inputs: {upstream}:1456 (_flash_attention_bwd_dq)",
+        "time_attention_any": "stable_virtual_camera_tpu/ops/time_attention.py:134 at any head dim and dtype "
+                              "(the Hopper K2 takes bf16 at head dim 64)",
     }
     # the render paths (Basic and Advanced) launch K1 and K2, the training
     # path K1, K1-dKV, K1-dQ and K2, the CLI path K1 to K4, the probe's loop
@@ -4098,13 +4608,19 @@ def main() -> int:
     # `max_abs_err` the worst over both
     home = {"flash_attention": "render", "time_attention": "render",
             "flash_attention_bwd_dkv": "train", "flash_attention_bwd_dq": "train",
-            "flash_attention_blhd": "cli", "flash_attention_packed": "cli", "layer_norm": "k5"}
+            "flash_attention_blhd": "cli", "flash_attention_packed": "cli", "layer_norm": "k5",
+            "flash_attention_fp32": "fp32_forward", "flash_attention_bwd_dkv_fp32": "fp32_train",
+            "flash_attention_bwd_dq_fp32": "fp32_train", "time_attention_any": "fp32_forward"}
     # the torch.library custom op each kernel launches from (K5 is called
     # directly: no model path runs it)
     custom_op = {"flash_attention": "svc::flash_attention", "flash_attention_bwd_dkv": "svc::flash_attention_bwd",
                  "flash_attention_bwd_dq": "svc::flash_attention_bwd", "time_attention": "svc::time_attention",
                  "flash_attention_blhd": "svc::flash_attention_blhd",
-                 "flash_attention_packed": "svc::flash_attention_packed", "layer_norm": None}
+                 "flash_attention_packed": "svc::flash_attention_packed", "layer_norm": None,
+                 "flash_attention_fp32": "svc::flash_attention, svc::flash_attention_blhd, "
+                                         "svc::flash_attention_packed",
+                 "flash_attention_bwd_dkv_fp32": "svc::flash_attention_bwd",
+                 "flash_attention_bwd_dq_fp32": "svc::flash_attention_bwd", "time_attention_any": "svc::time_attention"}
     rows = []
     for k in _kernels.KERNELS.values():
         r = results.get(k.name, {})
@@ -4120,8 +4636,9 @@ def main() -> int:
                                            "bound_by", "library_ms")},
             **{key: r[key] for key in ("library", "plain_and_library_cover", "delta_ms", "path_shapes",
                                        "cold_ms", "library_cold_ms", "device_us", "library_device_us",
-                                       "bound_share") if key in r},
+                                       "bound_share", "by_layout", "tiny_cli") if key in r},
         })
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start, "limit_s": 1200})
     emit({"kernels": rows})
     missing = [f"{k}@{path}" for path, ks in (
                    ("render", ("flash_attention", "time_attention")),
@@ -4148,7 +4665,14 @@ def main() -> int:
                    ("ring_bwd", ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")),
                    ("sharded_train", TRAIN_KERNELS),
                    ("fsdp_train", TRAIN_KERNELS),
-                   ("train_cli_mesh", TRAIN_KERNELS))
+                   ("train_cli_mesh", TRAIN_KERNELS),
+                   ("fp32_tiny_cli", ("time_attention_any",)),
+                   ("fp32_forward", ("flash_attention_fp32", "time_attention_any")),
+                   ("fp32_flash", ("flash_attention_fp32",)),
+                   ("fp32_packed", ("flash_attention_fp32",)),
+                   ("fp32_train", FP32_TRAIN_KERNELS),
+                   *((f"tp_{q}_" + "x".join(map(str, TP_MESHES[0])), ("flash_attention", "time_attention"))
+                     for q in ("w8a8", "w8a8-static")))
                for k in ks if counts[path].get(k, 0) == 0]
     if missing and not failures:
         failures.append(f"kernels not launched on their path: {missing}")

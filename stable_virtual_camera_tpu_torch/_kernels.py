@@ -18,7 +18,9 @@ The wrappers in ops/ register their kernels as `torch.library` custom ops
 in the `svc` namespace (`OPS`), each with a fake implementation, so that
 `torch.export` can trace a model through them (models/export.py); the
 op's implementation picks the kernel or the plain version by
-`device_route`.
+`device_route`, and on the card the kernel by dtype and head dim (the
+Hopper kernels take bf16, the fp32 entries fp32, K2's other entry every
+head dim and dtype the Hopper K2 does not).
 """
 
 from __future__ import annotations
@@ -136,6 +138,35 @@ TIME_ATTENTION = Kernel(
 )
 FLASH_ATTENTION_BLHD = Kernel("flash_attention_blhd", "svc_flash_attention_blhd_fwd", _FWD_ARGS)
 FLASH_ATTENTION_PACKED = Kernel("flash_attention_packed", "svc_flash_attention_packed_fwd", _FWD_ARGS)
+# the fp32 entry of K1, K3 and K4 (csrc/flash_attention_fp32.cu): q, k, v, o,
+# lse (fp32 (B, H, L) or null), B, H, L, the (batch, head, row, dim)
+# element strides of q, k, v and o, scale*log2(e), stream
+FLASH_ATTENTION_FP32 = Kernel(
+    "flash_attention_fp32", "svc_flash_attention_fp32_fwd",
+    [_P, _P, _P, _P, _P, _I, _I, _I] + [_LL] * 16 + [ctypes.c_float, _P],
+)
+# the fp32 entries of K1-dKV and K1-dQ (csrc/flash_attention_bwd_fp32.cu):
+# q, k, v, do, lse, delta, the outputs, B, H, L, the (batch, head, row, dim)
+# element strides of q, k, v and do, the outputs' (batch, head, row)
+# element strides, scale, stream
+FLASH_ATTENTION_BWD_DKV_FP32 = Kernel(
+    "flash_attention_bwd_dkv_fp32", "svc_flash_attention_bwd_dkv_fp32",
+    [_P] * 8 + [_I, _I, _I] + [_LL] * 16 + [_LL] * 6 + [ctypes.c_float, _P],
+    source="flash_attention_bwd_fp32",
+)
+FLASH_ATTENTION_BWD_DQ_FP32 = Kernel(
+    "flash_attention_bwd_dq_fp32", "svc_flash_attention_bwd_dq_fp32",
+    [_P] * 7 + [_I, _I, _I] + [_LL] * 16 + [_LL] * 3 + [ctypes.c_float, _P],
+    source="flash_attention_bwd_fp32",
+)
+# K2's entry for what the Hopper K2 does not take (csrc/time_attention_any.cu):
+# q, k, v, o, b, T, H, D, S, the (frame, head, channel, position) element
+# strides of q, k, v and o, scale*log2(e), dtype (0 fp32, 1 bf16, 2 fp16),
+# stream
+TIME_ATTENTION_ANY = Kernel(
+    "time_attention_any", "svc_time_attention_any_fwd",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 16 + [ctypes.c_float, _I, _P],
+)
 LAYER_NORM = Kernel(
     "layer_norm",
     "svc_layer_norm_fwd",
@@ -146,7 +177,8 @@ LAYER_NORM = Kernel(
 KERNELS = {
     k.name: k
     for k in (FLASH_ATTENTION, FLASH_ATTENTION_BWD_DKV, FLASH_ATTENTION_BWD_DQ, TIME_ATTENTION,
-              FLASH_ATTENTION_BLHD, FLASH_ATTENTION_PACKED, LAYER_NORM)
+              FLASH_ATTENTION_BLHD, FLASH_ATTENTION_PACKED, LAYER_NORM, FLASH_ATTENTION_FP32,
+              FLASH_ATTENTION_BWD_DKV_FP32, FLASH_ATTENTION_BWD_DQ_FP32, TIME_ATTENTION_ANY)
 }
 
 

@@ -29,9 +29,9 @@ The port's own flags: --device (default cuda) and --attention, the
 self-attention backend ("upstream", kernel K1; "flash", kernel K3;
 "packed", kernel K4 where W % 128 == 0, else K3; "plain", no kernel),
 which takes the place of the JAX package's SVC_UPSTREAM_FLASH /
-SVC_PACKED_ATTENTION environment knobs. Left unset it is "upstream",
-except for the tiny fp32 bundle on the card: the kernels take bf16 only,
-so that one runs "plain" (models/io.attention_backend). --engine_timing
+SVC_PACKED_ATTENTION environment knobs. Left unset it is "upstream"; the
+kernels take bf16 and fp32, so the tiny fp32 bundle runs them on the card
+too. --engine_timing
 True prints each scene's engine stages (utils/profiling.StageTimer, each
 stage closed by a device synchronize), which takes the place of the JAX
 package's SVC_ENGINE_TIMING.

@@ -15,7 +15,23 @@ Differences by design: VAE/CLIP en/decode chunk with a Python loop over
 unless a mesh or `chunk_batch` groups the second pass's; files are written
 only when a `save_path` is given. Without one, `run_one_scene` yields each
 pass's uint8 frames instead of file paths. Initial and churn noise come from
-`noise_fn` (sampling/sampler.py).
+`noise_fn` (sampling/sampler.py). JAX's `SVC_FUSED_DECODE` (the VAE decode
+traced into the jitted sampling scan, to save a TPU program switch) has no
+counterpart: eager PyTorch has no program to fuse into, and a chunk's decode
+already queues on the device behind its last step.
+
+The second pass's conditioning prefetch window (the `prefetch_chunks`
+option, JAX's default of 3, where JAX reads SVC_PREFETCH_CHUNKS): the serial
+loop builds the first `prefetch_chunks` chunks' conditioning before it
+dispatches any, and after dispatching chunk `pos` builds chunk
+`pos + prefetch_chunks`, dropping each slot once used, as JAX does. A build
+that synchronized the device would make the loop wait for the chunk in
+flight, so the window's builds do not: before the loop, every chunk's VAE
+encode and CLIP embed run in chunk order (`prime_chunk_conditioning`: the
+same calls the builds make, so the same batches and bits), which leaves the
+builds in the loop cache hits, and the uploads go through pinned host
+buffers with `non_blocking=True`. The one synchronization left in a build
+is the priming's own `.cpu()`, before the loop.
 
 Streamed writes (the `stream_save` option, on by default and off under
 `replace_or_include_input`, as in JAX): a two-pass render with a
@@ -346,7 +362,12 @@ def build_chunk_conditioning(
     )
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(bundle.device)
+        # pinned and non-blocking on a card, so a build queued behind a
+        # chunk in flight does not wait for it
+        t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        if bundle.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(bundle.device, non_blocking=True)
 
     cond = ChunkConditioning(
         crossattn=dev(np.concatenate([np.zeros_like(crossattn_c), crossattn_c], 0)),
@@ -356,6 +377,17 @@ def build_chunk_conditioning(
         scale=dev(scale_vec),
     )
     return cond, (T, h, w, C)
+
+
+def prime_chunk_conditioning(bundle: ModelBundle, values: ChunkValues,
+                             encoding_t: int | None = None) -> None:
+    """The VAE encode and CLIP embed of one chunk's input frames, into the
+    scene's caches: the calls `build_chunk_conditioning` makes, so a later
+    build of the same chunk only reads the caches (and, primed in chunk
+    order, the encodes run in the same batches as the builds would)."""
+    mask = values.input_frame_mask
+    bundle.vae.encode_cached(values.imgs[mask], encoding_t)
+    bundle.clip.embed_cached(values.imgs_clip[mask])
 
 
 def calibration_points(num_steps: int, num_points: int = 6) -> np.ndarray:
@@ -474,17 +506,23 @@ def sample_chunk(
     abort_event=None,
     output_uint8: bool = False,
     defer: bool = False,
+    prebuilt=None,
 ):
     """One chunk: conditioning, denoising loop (`sample_latents`), decode.
     `noise_fn(pass_id, chunk_id, step, shape, device)` supplies the noise.
-    Returns the decoded frames (uint8 with `output_uint8`; with `defer` the
-    device tensor, not yet copied to the host), or None when aborted. Under
-    static W8A8 the bundle's first chunk calibrates first
+    `prebuilt`, an already built `(cond, shape)` of this chunk
+    (`build_chunk_conditioning`), takes the place of the build. Returns the
+    decoded frames (uint8 with `output_uint8`; with `defer` the device
+    tensor, not yet copied to the host), or None when aborted. Under static
+    W8A8 the bundle's first chunk calibrates first
     (`ensure_quant_calibrated`)."""
-    cond, shape = build_chunk_conditioning(
-        bundle, values, cfg=cfg, guider_type=guider_type, cfg_min=cfg_min,
-        encoding_t=encoding_t, latent_downsample=latent_downsample,
-    )
+    if prebuilt is not None:
+        cond, shape = prebuilt
+    else:
+        cond, shape = build_chunk_conditioning(
+            bundle, values, cfg=cfg, guider_type=guider_type, cfg_min=cfg_min,
+            encoding_t=encoding_t, latent_downsample=latent_downsample,
+        )
     dev = bundle.device
     ensure_quant_calibrated(bundle, shape, bundle.plan(num_steps), cond)
 
@@ -1064,18 +1102,43 @@ class SceneEngine:
                     xs = sample_many(bundle, [d(None) for d in draws], bundle.plan(num_steps), conds, draws)
                 for item, x in zip(group, xs):
                     submit_flush(bundle.vae.decode(x, dec_t, uint8=True, host=False), *item[:4])
-            for i, c_test_sels, c_test_inds, curr, values in work[n_grouped:]:
+            # the rest run one by one behind a window of prebuilt
+            # conditioning (see the module docstring): the encodes first, in
+            # chunk order, then `prefetch` builds, then one build after each
+            # dispatch; a slot is dropped once its chunk is dispatched
+            serial = work[n_grouped:]
+            prefetch = max(1, int(options.get("prefetch_chunks", 3) or 1))
+            # the builds in the loop are host work and non-blocking uploads:
+            # their stage closes without a device synchronize
+            build_stage = _stages(timer, torch.device("cpu"))
+
+            def build(values):
+                return build_chunk_conditioning(
+                    bundle, values, cfg=cfg2, guider_type=guider2, cfg_min=cfg_min,
+                    encoding_t=enc_t, latent_downsample=F,
+                )
+
+            with stage("second_pass_conditioning"):
+                for item in serial:
+                    prime_chunk_conditioning(bundle, item[4], enc_t)
+                staged = [build(item[4]) for item in serial[:prefetch]]
+            for pos, (i, c_test_sels, c_test_inds, curr, values) in enumerate(serial):
+                prebuilt, staged[pos] = staged[pos], None
                 with stage("second_pass_sample"):
                     samples = sample_chunk(
                         bundle, values, num_steps=num_steps, cfg=cfg2, guider_type=guider2,
                         cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
                         encoding_t=enc_t, decoding_t=dec_t, latent_downsample=F,
                         abort_event=abort_event, progress_cb=second_pass_pbar, output_uint8=True,
-                        defer=True,
+                        defer=True, prebuilt=prebuilt,
                     )
+                del prebuilt
                 if samples is None:
                     return
                 submit_flush(samples, i, c_test_sels, c_test_inds, curr)
+                if pos + prefetch < len(serial):
+                    with build_stage("second_pass_conditioning"):
+                        staged.append(build(serial[pos + prefetch][4]))
             with stage("second_pass_flush_join"):
                 for f in flush_futs:
                     f.result()  # in order; re-raises a flush's error

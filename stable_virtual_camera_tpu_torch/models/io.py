@@ -75,20 +75,10 @@ def _finish(module: nn.Module, dtype: torch.dtype, device) -> nn.Module:
 
 def attention_backend(attention: str | None, dtype: torch.dtype, device) -> str:
     """The UNet's self-attention backend (models/unet.py) for a model in
-    `dtype` on `device`. The kernels have bf16 entries only (JAX's Pallas
-    kernels also take fp32: ROADMAP lists the gap), so an fp32 model on the
-    card runs "plain", the same routes through each kernel's plain version.
-    None picks "plain" there and "upstream" elsewhere; a kernel backend for
-    an fp32 model on the card raises."""
-    plain_only = torch.device(device).type == "cuda" and dtype != torch.bfloat16
-    if attention is None:
-        return "plain" if plain_only else "upstream"
-    if plain_only and attention != "plain":
-        raise ValueError(
-            f"attention={attention!r} launches bf16 kernels; a {dtype} model on the card "
-            "takes attention='plain' (or None)"
-        )
-    return attention
+    `dtype` on `device`: `attention`, or "upstream" where None. The kernels
+    take bf16 and fp32 on the card (as JAX's Pallas kernels do), so every
+    model there runs the kernel routes unless "plain" is asked for."""
+    return "upstream" if attention is None else attention
 
 
 def _modules(spec: SevaSpec, clip_spec: ClipVisionSpec, device, attention: str):

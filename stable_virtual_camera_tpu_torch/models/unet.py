@@ -16,12 +16,12 @@ SVC_PACKED_ATTENTION knobs:
     kernel K3 (ops/flash_attention) or, under "packed" with W % 128 == 0,
     kernel K4 (ops/flash_attention_packed);
   * temporal attention over T <= 32 frames -> kernel K2
-    (ops/time_attention.time_attention_bhds) on the (b*T, H, 64, S) layout
-    the projection writes directly, whatever the backend, where dim_head
-    is 64 (K2 has no entry for other head dims; ROADMAP lists the gap);
+    (ops/time_attention.time_attention_bhds) on the (b*T, H, D, S) layout
+    the projection writes directly, whatever the backend and the head dim
+    (K2's Hopper kernel takes bf16 at head dim 64, its other entry the
+    rest, as JAX's kernel takes any);
   * "plain": the routes of "upstream" with each kernel's plain version, no
-    kernel at all (an fp32 model on the card: the kernels take bf16 only,
-    models/io.attention_backend);
+    kernel at all;
   * everything else -> the plain routes of ops/attention.sdpa_packed.
 A block's routes follow from its backend and head dim, and per call from L
 and T, as in JAX; never from a tensor's dtype, strides or address, so a
@@ -73,13 +73,7 @@ from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
     flash_attention_upstream_bhld,
 )
 from stable_virtual_camera_tpu_torch.ops.norms import group_norm_nhwc, layer_norm_fp32
-from stable_virtual_camera_tpu_torch.ops.quant import (
-    check_mode,
-    quantized_conv,
-    quantized_conv_static,
-    quantized_dense,
-    quantized_dense_static,
-)
+from stable_virtual_camera_tpu_torch.ops.quant import check_mode
 from stable_virtual_camera_tpu_torch.ops.resize import (
     conv_nhwc,
     pixel_shuffle_2x,
@@ -88,7 +82,6 @@ from stable_virtual_camera_tpu_torch.ops.resize import (
     upsample_2x_conv3x3,
 )
 from stable_virtual_camera_tpu_torch.ops.time_attention import (
-    HEAD_DIM as TIME_HEAD_DIM,
     MAX_FRAMES as TIME_MAX_FRAMES,
     time_attention_bhds,
     time_attention_plain,
@@ -206,6 +199,15 @@ class _Quantizable:
     def _site_shape(self) -> tuple[int, ...]:
         return tuple(self.weight.shape)
 
+    def quant_weight(self) -> torch.Tensor:
+        """The weight the site quantizes (out first)."""
+        return self.weight
+
+    @property
+    def sharded_layer(self) -> nn.Module:
+        """The module whose weight tensor parallelism shards (its `tp_dim`)."""
+        return self
+
     def site(self) -> QuantSite | None:
         return self._modules.get("qsite")
 
@@ -223,10 +225,8 @@ class QuantLinear(_Quantizable, nn.Linear):
 
     def forward(self, x):
         mode = self.quant
-        if mode == "w8a8":
-            return quantized_dense(x, self.weight, self.bias)
-        if mode == "w8a8-static":
-            return quantized_dense_static(x, *self.qsite.frozen(), bias=self.bias)
+        if mode in ("w8a8", "w8a8-static"):
+            return tp.w8a8_linear(self, x)
         if mode == "w8a8-calib":
             self.qsite.record(self.weight, x)
         return tp.linear(self, x)
@@ -237,11 +237,8 @@ class QuantConv(_Quantizable, Conv):
 
     def forward(self, x):
         mode, stride, pad = self.quant, self.stride[0], self.padding[0]
-        if mode == "w8a8":
-            return quantized_conv(x, self.weight, self.bias, stride, pad)
-        if mode == "w8a8-static":
-            return quantized_conv_static(x, *self.qsite.frozen(), bias=self.bias,
-                                         stride=stride, padding=pad)
+        if mode in ("w8a8", "w8a8-static"):
+            return tp.w8a8_conv(self, x, stride, pad)
         if mode == "w8a8-calib":
             self.qsite.record(self.weight, x)
         return tp.conv(self, x, self._conv)
@@ -306,7 +303,7 @@ class SelfAttention(nn.Module):
                 qkv = frames_to_positions(qkv, frames, group, axis=2)
             BT, _, S = qkv.shape
             q, k, v = qkv.view(BT, 3, H, D, S).unbind(1)
-            kernel = self.attention != "plain" and D == TIME_HEAD_DIM  # K2's one head dim
+            kernel = self.attention != "plain"
             o = (time_attention_bhds if kernel else time_attention_plain)(q, k, v, T).reshape(BT, inner, S)
             if n > 1:
                 o = positions_to_frames(o, frames, group, axis=2)
@@ -515,16 +512,24 @@ class Upsample(_Quantizable, nn.Module):
         c_out, c_in = self.conv.weight.shape[:2]
         return (4 * c_out, c_in, 3, 3)
 
+    def quant_weight(self) -> torch.Tensor:
+        return rearranged_upsample_weight(self.conv.weight)
+
+    @property
+    def sharded_layer(self) -> nn.Module:
+        return self.conv
+
     def forward(self, x):
-        mode, w, b = self.quant, self.conv.weight, self.conv.bias
-        if mode == "w8a8":
-            y = quantized_conv(x, rearranged_upsample_weight(w), None, 1, 1)
-            return pixel_shuffle_2x(y + b.to(y.dtype).repeat(4))
-        if mode == "w8a8-static":
-            y = quantized_conv_static(x, *self.qsite.frozen(), stride=1, padding=1)
-            return pixel_shuffle_2x(y + b.to(y.dtype).repeat(4))
+        mode = self.quant
+        if mode in ("w8a8", "w8a8-static"):
+            # on a model group: this rank's output channels (or all of them
+            # after the int32 all-reduce), gathered after the shuffle
+            weight = self.quant_weight() if mode == "w8a8" else None  # static: the site's
+            y = tp.w8a8_conv(self.conv, x, 1, 1, site=self, weight=weight, bias=False, gather=False)
+            b = tp.local_bias(self.conv, self.conv.bias)
+            return tp.gather_channels(self.conv, pixel_shuffle_2x(y + b.to(y.dtype).repeat(4)))
         if mode == "w8a8-calib":
-            self.qsite.record(rearranged_upsample_weight(w), x)
+            self.qsite.record(self.quant_weight(), x)
         return tp.conv(self.conv, x, upsample_2x_conv3x3)
 
 
@@ -535,9 +540,8 @@ class SevaUNet(nn.Module):
     dense_emb (B, h, w, 6), num_frames) -> (B, h, w, 4) fp32, B = b * T.
     Computes in the dtype of its parameters. `attention` ("upstream",
     "flash", "packed" or "plain") is the attention backend of every
-    transformer block; it changes no parameter. The kernels take bf16
-    only, so an fp32 model on the card takes "plain"
-    (models/io.attention_backend picks it).
+    transformer block; it changes no parameter. The kernels take bf16 and
+    fp32, so a model on the card runs them in either dtype.
     """
 
     def __init__(self, spec: SevaSpec, attention: str = "upstream"):

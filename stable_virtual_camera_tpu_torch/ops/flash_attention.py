@@ -7,7 +7,9 @@ in stable_virtual_camera_tpu/ops/attention.py, whose custom VJP runs the
 kernel forward and differentiates the backward through the O(L)-memory
 chunked attention instead of a backward kernel. The forward is the custom
 op `svc::flash_attention_blhd`: on CUDA tensors it launches the hand-written
-Hopper kernel in csrc/flash_attention_blhd.cu, on CPU tensors it runs
+Hopper kernel in csrc/flash_attention_blhd.cu for bf16 and the fp32 entry
+of csrc/flash_attention_fp32.cu for fp32 (the JAX kernel takes both), on
+CPU tensors it runs
 `flash_attention_plain`, and on both it returns a contiguous (B, L, H, 64)
 (the layout of its fake implementation). Its backward, registered with
 `register_autograd`, recomputes through `attention_chunked`; there is no
@@ -27,7 +29,7 @@ MIN_LEN = 1024
 
 def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """The JAX kernel's predicate: self-attention, head dim 64, L >= 1024,
-    bf16 or fp32 (on the card, fp32 then raises in `flash_attention_cuda`)."""
+    bf16 or fp32."""
     B, L, H, D = q.shape
     S = k.shape[1]
     return D == fu.HEAD_DIM and L == S and S >= MIN_LEN and q.dtype in (torch.bfloat16, torch.float32)
@@ -40,17 +42,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch K3. q, k, v: (B, L, H, 64) bf16 views with a contiguous head dim
-    (any batch/row/head strides that keep 16-byte rows, e.g. chunks of one
-    packed projection). Returns a contiguous (B, L, H, 64)."""
+    """Launch K3. q, k, v: (B, L, H, 64) views of one dtype, bf16 with a
+    contiguous head dim (any batch/row/head strides that keep 16-byte rows,
+    e.g. chunks of one packed projection) or fp32 through any strides (the
+    fp32 entry). Returns a contiguous (B, L, H, 64) of q's dtype."""
     B, L, H, D = q.shape
     if D != fu.HEAD_DIM:
         raise ValueError(f"flash attention (K3) needs head dim {fu.HEAD_DIM}, got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        fu._check(name, t, (B, L, H, D))
+        fu._check(name, t, (B, L, H, D), q.dtype)
         if t.device != q.device:
             raise ValueError("flash attention (K3): all operands must be on one device")
-    o = torch.empty((B, L, H, D), dtype=torch.bfloat16, device=q.device)
+    o = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     fu.launch_fwd(_kernels.FLASH_ATTENTION_BLHD, *(t.transpose(1, 2) for t in (q, k, v, o)))
     return o
 

@@ -4,8 +4,10 @@ plain twin.
 Counterpart of stable_virtual_camera_tpu/ops/flash_attention_packed.py: q, k
 and v come in as the (B, L, W) views of the fused qkv projection and the
 output leaves as the (B, L, W) layout to_out consumes. The custom op
-`svc::flash_attention_packed` launches the hand-written Hopper kernel in
-csrc/flash_attention_packed.cu on CUDA tensors and runs
+`svc::flash_attention_packed` launches, on CUDA tensors, the hand-written
+Hopper kernel in csrc/flash_attention_packed.cu for bf16 and the fp32 entry
+of csrc/flash_attention_fp32.cu for fp32 (the JAX kernel takes both), and
+runs
 `flash_attention_packed_plain` on CPU tensors, a contiguous (B, L, W) on
 both (the layout of its fake implementation). Forward only: the JAX kernel
 has no VJP, so a gradient through it raises.
@@ -29,8 +31,7 @@ def _bhld(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 def supported(q: torch.Tensor, k: torch.Tensor, heads: int) -> bool:
     """The JAX kernel's predicate on (B, L, W) self-attention shapes: W =
-    heads * 64 with W % 128 == 0, L >= 1024, bf16 or fp32 (on the card,
-    fp32 then raises in `flash_attention_packed_cuda`)."""
+    heads * 64 with W % 128 == 0, L >= 1024, bf16 or fp32."""
     B, L, W = q.shape
     return (
         W == heads * HEAD_DIM
@@ -55,9 +56,10 @@ def flash_attention_packed_plain(
     return out.transpose(1, 2).reshape(B, L, W)
 
 
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"packed flash attention (K4) takes bfloat16, got {name}.dtype={t.dtype}")
+def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
+    if t.dtype not in fu.DTYPES or t.dtype != dtype:
+        raise TypeError(f"packed flash attention (K4) takes bfloat16 or float32 operands of one dtype, "
+                        f"got {name}.dtype={t.dtype}")
     if t.dim() != 3 or tuple(t.shape) != tuple(shape):
         raise ValueError(
             f"packed flash attention (K4): {name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
@@ -67,17 +69,18 @@ def _check(name: str, t: torch.Tensor, shape) -> None:
 def flash_attention_packed_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int
 ) -> torch.Tensor:
-    """Launch K4. q, k, v: (B, L, heads * 64) bf16 views with contiguous
-    columns (any batch/row strides that keep 16-byte rows, e.g. chunks of
-    one packed projection). Returns a contiguous (B, L, heads * 64)."""
+    """Launch K4. q, k, v: (B, L, heads * 64) views of one dtype, bf16 with
+    contiguous columns (any batch/row strides that keep 16-byte rows, e.g.
+    chunks of one packed projection) or fp32 through any strides (the fp32
+    entry). Returns a contiguous (B, L, heads * 64) of q's dtype."""
     B, L, W = q.shape
     if W != heads * HEAD_DIM:
         raise ValueError(f"packed flash attention (K4) needs W = heads * {HEAD_DIM}, got W={W}, heads={heads}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, (B, L, W))
+        _check(name, t, (B, L, W), q.dtype)
         if t.device != q.device:
             raise ValueError("packed flash attention (K4): all operands must be on one device")
-    o = torch.empty((B, L, W), dtype=torch.bfloat16, device=q.device)
+    o = torch.empty((B, L, W), dtype=q.dtype, device=q.device)
     fu.launch_fwd(_kernels.FLASH_ATTENTION_PACKED, *(_bhld(t, heads) for t in (q, k, v, o)))
     return o
 

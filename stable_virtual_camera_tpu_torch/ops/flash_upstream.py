@@ -6,13 +6,16 @@ flash_attention_upstream_bhld, whose upstream Pallas kernel is a custom VJP
 with a forward kernel and two backward kernels (dK/dV and dQ). Here the
 forward is the custom op `svc::flash_attention` (o and, when asked, the
 log-sum-exp) and the backward the custom op `svc::flash_attention_bwd`,
-linked by `register_autograd`: on CUDA tensors they launch the hand-written
-Hopper kernel in csrc/flash_attention.cu and the two kernels of
-csrc/flash_attention_bwd.cu; on CPU tensors they run `flash_attention_plain`
-and `flash_attention_bwd_plain`, chunked fp32 forms of the same math (a
-materialised fp32 score tensor at L=27216, B=2, H=10 would take 59 GB). On
-both devices o and the gradients are (B, H, L, 64) views of (B, L, H, 64)
-buffers, the layout the fake implementations give `torch.export`.
+linked by `register_autograd`: on CUDA tensors they launch, for bf16, the
+hand-written Hopper kernel in csrc/flash_attention.cu and the two kernels of
+csrc/flash_attention_bwd.cu, and for fp32 (which the JAX kernels take too)
+their fp32 entries in csrc/flash_attention_fp32.cu and
+csrc/flash_attention_bwd_fp32.cu, picked by dtype inside the op; on CPU
+tensors they run `flash_attention_plain` and `flash_attention_bwd_plain`,
+chunked fp32 forms of the same math (a materialised fp32 score tensor at
+L=27216, B=2, H=10 would take 59 GB). On both devices o and the gradients
+are (B, H, L, 64) views of (B, L, H, 64) buffers in q's dtype, the layout
+the fake implementations give `torch.export`.
 
 The log-sum-exp `lse` is stored in natural-log units, ln sum_j exp(s_j)
 with s = q.k / sqrt(D), in both paths; the kernels convert it to their base-2
@@ -34,6 +37,9 @@ from stable_virtual_camera_tpu_torch import _kernels
 from stable_virtual_camera_tpu_torch.ops.attention import online_softmax_attention
 
 HEAD_DIM = 64
+# what K1, K3 and K4 take, as the JAX kernels do: bf16 (the Hopper tile) and
+# fp32 (the fp32 entry)
+DTYPES = (torch.bfloat16, torch.float32)
 _SCALE = HEAD_DIM**-0.5
 _SCALE_LOG2 = _SCALE * math.log2(math.e)
 _BWD_CHUNK = 1024
@@ -120,11 +126,13 @@ def tma_dims_strides(t: torch.Tensor) -> tuple[tuple[int, int, int, int], tuple[
     return (D, L, H, B), (t.stride(2) * es, t.stride(1) * es, t.stride(0) * es)
 
 
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    """dtype and shape; the layout of what the kernels read through tensor
-    maps is checked by `tma_dims_strides`."""
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"flash attention takes bfloat16, got {name}.dtype={t.dtype}")
+def _check(name: str, t: torch.Tensor, shape, dtype=None) -> None:
+    """dtype (bf16 or fp32, and `dtype` where given) and shape; the layout of
+    what the bf16 kernels read through tensor maps is checked by
+    `tma_dims_strides` (the fp32 entries take any strides)."""
+    if t.dtype not in DTYPES or (dtype is not None and t.dtype != dtype):
+        raise TypeError(f"flash attention takes bfloat16 or float32 operands of one dtype, "
+                        f"got {name}.dtype={t.dtype}")
     if t.dim() != len(shape) or tuple(t.shape) != tuple(shape):
         raise ValueError(f"flash attention: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
@@ -134,7 +142,7 @@ def _check_inputs(q: torch.Tensor, *named) -> tuple[int, int, int, int]:
     if D != HEAD_DIM:
         raise ValueError(f"flash attention needs head dim {HEAD_DIM}, got {D}")
     for name, t in (("q", q), *named):
-        _check(name, t, (B, H, L, D))
+        _check(name, t, (B, H, L, D), q.dtype)
         if t.device != q.device:
             raise ValueError("flash attention: all operands must be on one device")
     return B, H, L, D
@@ -166,17 +174,42 @@ def _strides(*ts: torch.Tensor) -> list[int]:
     return [s for t in ts for s in t.stride()[:3]]
 
 
+def _all_strides(*ts: torch.Tensor) -> list[int]:
+    """The (batch, head, row, dim) element strides of each (B, H, L, 64)
+    view, as the fp32 entries read them."""
+    return [s for t in ts for s in t.stride()]
+
+
+def fwd_kernel(q: torch.Tensor, kernel: _kernels.Kernel) -> _kernels.Kernel:
+    """The kernel a forward launch on q's dtype takes: `kernel` (K1's, K3's
+    or K4's Hopper tile) for bf16, the fp32 entry for fp32. Needs no card."""
+    return _kernels.FLASH_ATTENTION_FP32 if q.dtype == torch.float32 else kernel
+
+
+def bwd_kernels(q: torch.Tensor) -> tuple[_kernels.Kernel, _kernels.Kernel]:
+    """(K1-dKV, K1-dQ) for q's dtype: the Hopper pair for bf16, the fp32
+    entries for fp32. Needs no card."""
+    if q.dtype == torch.float32:
+        return _kernels.FLASH_ATTENTION_BWD_DKV_FP32, _kernels.FLASH_ATTENTION_BWD_DQ_FP32
+    return _kernels.FLASH_ATTENTION_BWD_DKV, _kernels.FLASH_ATTENTION_BWD_DQ
+
+
 def launch_fwd(kernel: _kernels.Kernel, q, k, v, o, lse=None) -> None:
-    """Launch one of K1, K3, K4 (one tile, csrc/flash_fwd_sm90.cuh) on
-    (B, H, L, 64) views: q, k, v through their tensor maps, o through its
-    element strides, and the fp32 (B, H, L) log-sum-exp when `lse` is given."""
+    """Launch one of K1, K3, K4 on (B, H, L, 64) views: for bf16 `kernel`
+    (the Hopper tile, csrc/flash_fwd_sm90.cuh) with q, k, v through their
+    tensor maps, for fp32 the fp32 entry (csrc/flash_attention_fp32.cu) with
+    q, k, v through their element strides; o through its element strides,
+    and the fp32 (B, H, L) log-sum-exp when `lse` is given."""
     B, H, L, _ = q.shape
-    maps = [s for t in (q, k, v) for s in tma_dims_strides(t)[1]]
+    if q.dtype == torch.float32:
+        strides = _all_strides(q, k, v, o)
+    else:
+        strides = [s for t in (q, k, v) for s in tma_dims_strides(t)[1]] + _strides(o)
     with torch.cuda.device(q.device):
-        kernel.launch(
+        fwd_kernel(q, kernel).launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            B, H, L, *maps, *_strides(o), _SCALE_LOG2,
+            B, H, L, *strides, _SCALE_LOG2,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
 
@@ -184,9 +217,10 @@ def launch_fwd(kernel: _kernels.Kernel, q, k, v, o, lse=None) -> None:
 def flash_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool = False
 ):
-    """Launch K1. q, k, v: (B, H, L, 64) bf16 views with a contiguous head
-    dim (any batch/head/row strides that keep 16-byte rows). Returns a
-    (B, H, L, 64) view of a (B, L, H, 64) buffer, so `o.transpose(1, 2)`
+    """Launch K1. q, k, v: (B, H, L, 64) views of one dtype: bf16 with a
+    contiguous head dim (any batch/head/row strides that keep 16-byte rows),
+    or fp32 through any strides (the fp32 entry). Returns a (B, H, L, 64)
+    view of a (B, L, H, 64) buffer of q's dtype, so `o.transpose(1, 2)`
     is the packed (B, L, H*64) layout for free; with `return_lse` also the
     fp32 (B, H, L) log-sum-exp, which the kernel writes in its epilogue."""
     B, H, L, D = _check_inputs(q, ("k", k), ("v", v))
@@ -198,12 +232,16 @@ def flash_attention_cuda(
 
 def _check_bwd(q, k, v, do, lse, delta) -> tuple[int, int, int, list[int]]:
     """dtype, shape and device of the backward's operands; returns B, H, L
-    and the tensor-map byte strides of q, k, v and do, in that order, from
-    `tma_dims_strides` (which raises ValueError for a view TMA cannot take).
-    lse and delta are read with ordinary loads, so they only need to be
-    contiguous fp32 (B, H, L)."""
+    and how the kernels read q, k, v and do, in that order: for bf16 their
+    tensor-map byte strides from `tma_dims_strides` (which raises ValueError
+    for a view TMA cannot take), for fp32 their element strides. lse and
+    delta are read with ordinary loads, so they only need to be contiguous
+    fp32 (B, H, L)."""
     B, H, L, _ = _check_inputs(q, ("k", k), ("v", v), ("do", do))
-    maps = [s for t in (q, k, v, do) for s in tma_dims_strides(t)[1]]
+    if q.dtype == torch.float32:
+        maps = _all_strides(q, k, v, do)
+    else:
+        maps = [s for t in (q, k, v, do) for s in tma_dims_strides(t)[1]]
     _check_rows("lse", lse, B, H, L, q.device)
     _check_rows("delta", delta, B, H, L, q.device)
     return B, H, L, maps
@@ -213,14 +251,15 @@ def flash_attention_bwd_dkv_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1-dKV: (dk, dv) as (B, H, L, 64) bf16 views of (B, L, H, 64)
-    buffers. q, k, v, do: (B, H, L, 64) bf16 views that a tensor map can
-    take (`tma_dims_strides`); lse: K1's fp32 (B, H, L) log-sum-exp; delta:
-    fp32 (B, H, L) rowsum(o do)."""
+    """Launch K1-dKV (its fp32 entry for fp32 operands): (dk, dv) as
+    (B, H, L, 64) views of (B, L, H, 64) buffers of q's dtype. q, k, v, do:
+    (B, H, L, 64) views of one dtype, bf16 ones that a tensor map can take
+    (`tma_dims_strides`) or fp32 ones through any strides; lse: K1's fp32
+    (B, H, L) log-sum-exp; delta: fp32 (B, H, L) rowsum(o do)."""
     B, H, L, maps = _check_bwd(q, k, v, do, lse, delta)
     dk, dv = _empty_like_bhld(q), _empty_like_bhld(q)
     with torch.cuda.device(q.device):
-        _kernels.FLASH_ATTENTION_BWD_DKV.launch(
+        bwd_kernels(q)[0].launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, H, L, *maps, *_strides(dk, dv), _SCALE,
@@ -233,12 +272,13 @@ def flash_attention_bwd_dq_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor,
 ) -> torch.Tensor:
-    """Launch K1-dQ: dq as a (B, H, L, 64) bf16 view of a (B, L, H, 64)
-    buffer; operands as for `flash_attention_bwd_dkv_cuda`."""
+    """Launch K1-dQ (its fp32 entry for fp32 operands): dq as a
+    (B, H, L, 64) view of a (B, L, H, 64) buffer of q's dtype; operands as
+    for `flash_attention_bwd_dkv_cuda`."""
     B, H, L, maps = _check_bwd(q, k, v, do, lse, delta)
     dq = _empty_like_bhld(q)
     with torch.cuda.device(q.device):
-        _kernels.FLASH_ATTENTION_BWD_DQ.launch(
+        bwd_kernels(q)[1].launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             B, H, L, *maps, *_strides(dq), _SCALE,
@@ -255,16 +295,17 @@ def flash_attention_bwd_cuda(
     fp32 reduction (the upstream TPU kernel computes it outside its kernels
     too, from the same bf16 o the forward wrote), then K1-dKV and K1-dQ.
     Returns (dq, dk, dv)."""
-    _check("o", o, q.shape)
+    _check("o", o, q.shape, q.dtype)
     delta = attention_delta(o, do, dlse)
     dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
     return flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), dk, dv
 
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
-    """The incoming gradient in a layout a tensor map can take (a copy only
-    when autograd hands over another layout)."""
-    if _tma_view_ok(t):
+    """The incoming gradient in a layout the kernels can take: bf16 in one a
+    tensor map can take (a copy only when autograd hands over another
+    layout), fp32 as it is."""
+    if t.dtype == torch.float32 or _tma_view_ok(t):
         return t
     return t.contiguous()
 
@@ -273,8 +314,9 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 def flash_attention_op(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Non-causal attention with scale 1/sqrt(D): K1 on CUDA tensors, the
-    plain version on CPU tensors. Returns o, a (B, H, L, 64) view of a
+    """Non-causal attention with scale 1/sqrt(D): K1 on CUDA tensors (its
+    fp32 entry for fp32 ones), the plain version on CPU tensors. Returns o,
+    a (B, H, L, 64) view of a
     (B, L, H, 64) buffer, and the fp32 (B, H, L) log-sum-exp, or an empty
     one without `return_lse`."""
     if _kernels.device_route("flash attention", q) == "cuda":
@@ -298,7 +340,8 @@ def flash_attention_bwd_op(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of `flash_attention_op` from its o and log-sum-exp, with
     `dlse` the gradient on the log-sum-exp where it has one: K1-dKV and
-    K1-dQ on CUDA tensors, the plain backward on CPU tensors; each a
+    K1-dQ on CUDA tensors (their fp32 entries for fp32 ones), the plain
+    backward on CPU tensors; each a
     (B, H, L, 64) view of a (B, L, H, 64) buffer."""
     if dlse is not None:
         _check_rows("dlse", dlse, *lse.shape, q.device)

@@ -2,20 +2,26 @@
 
 Counterpart of stable_virtual_camera_tpu/ops/time_attention.py::
 time_attention_bhds. Every spatial position attends over its scene's T
-frames, all in fp32. The forward is the custom op `svc::time_attention`: it
-launches the hand-written kernel in csrc/time_attention.cu on a CUDA tensor
-and runs `time_attention_plain` on a CPU tensor, and returns a contiguous
-tensor on both (the layout its fake implementation gives `torch.export`).
+frames, all in fp32. The forward is the custom op `svc::time_attention`: on
+a CUDA tensor it launches one of K2's two hand-written kernels, picked by
+`k2_route` inside the op (the Hopper kernel in csrc/time_attention.cu for
+bf16 at head dim 64 with S contiguous, the model's case; the entry in
+csrc/time_attention_any.cu for every other head dim, for fp32 and fp16, and
+for any strides, as the JAX kernel takes them); on a CPU tensor it runs
+`time_attention_plain`. It returns a contiguous tensor in q's dtype on both
+(the layout its fake implementation gives `torch.export`).
 Its backward, registered with `register_autograd`, is
 `time_attention_bwd_plain` on both devices, an fp32 recompute of the tiny
 T x T attentions, exactly as the JAX package's custom VJP has it
 (time_attention.py:156-178): the JAX package has no backward kernel here, so
 there is none to port.
 
-The kernel streams channel chunks of q, k and v through a ring of
+The Hopper kernel streams channel chunks of q, k and v through a ring of
 shared-memory stages, filled by TMA boxes where every row is 16-byte aligned
 and by cp.async or plain copies where it is not; `_k2_plan` checks what it
 takes and plans the launch (key-frame ceiling, tile, ring, copy granule).
+The other entry takes a block of 32 positions and one warp a query frame,
+and reads every operand through its four element strides.
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ from stable_virtual_camera_tpu_torch import _kernels
 
 HEAD_DIM = 64
 MAX_FRAMES = 32
+# the dtypes K2 takes (fp32, bf16 and fp16 in time_attention_any.cu's
+# order); the Hopper kernel takes bf16 at head dim 64
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # the kernel's key-frame ceilings (one instantiation each; 21 is the model's
 # chunk length); a launch takes the smallest that holds T
 CEILINGS = (4, 8, 16, 21, 24, 32)
@@ -134,6 +143,34 @@ def _k2_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int,
     return _launch_plan(T, S, BT // T * H, _copy_mode(q, k, v, out, S))
 
 
+def k2_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int,
+             out: torch.Tensor | None = None) -> str:
+    """Which of K2's kernels a launch takes: "hopper" (csrc/time_attention.cu)
+    for bf16 at head dim 64 with S contiguous in q, k and v (and a
+    contiguous bf16 `out` where given), else "any"
+    (csrc/time_attention_any.cu). Raises only on what the JAX kernel
+    refuses too: T outside 1..32 or not dividing b*T, operands of other
+    shapes, dtypes or devices, or a dtype that is not a float. Needs no
+    card: it reads shapes, dtypes and strides only."""
+    BT, H, D, S = q.shape
+    T = num_frames
+    if not 1 <= T <= MAX_FRAMES or BT % T:
+        raise ValueError(f"time attention takes 1..{MAX_FRAMES} frames dividing {BT}, got {T}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"time attention takes float32, bfloat16 or float16, got q.dtype={q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"time attention: {name} must match q (shape {tuple(q.shape)}, {q.dtype}, {q.device}), "
+                f"got {tuple(t.shape)}, {t.dtype}, {t.device}")
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype or out.device != q.device
+                            or not out.is_contiguous()):
+        raise ValueError("time attention: out must be a contiguous tensor of q's shape, dtype and device")
+    hopper = (q.dtype == torch.bfloat16 and D == HEAD_DIM
+              and all(t.stride(3) == 1 for t in (q, k, v)))
+    return "hopper" if hopper else "any"
+
+
 def time_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int
 ) -> torch.Tensor:
@@ -155,11 +192,12 @@ def time_attention_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Launch K2. q, k, v: (b*T, H, 64, S) bf16 with S contiguous (any
-    frame/head/channel strides). Writes into `out` (a contiguous
-    (b*T, H, 64, S) bf16 tensor) when given, else into a new one, and
-    returns it."""
+    """Launch K2: the kernel `k2_route` picks. q, k, v: (b*T, H, D, S) of one
+    dtype. Writes into `out` (a contiguous tensor of q's shape and dtype)
+    when given, else into a new one, and returns it."""
     BT, H, D, S = q.shape
+    if k2_route(q, k, v, num_frames, out) == "any":
+        return time_attention_any_cuda(q, k, v, num_frames, out)
     o = torch.empty((BT, H, D, S), dtype=torch.bfloat16, device=q.device) if out is None else out
     plan = _k2_plan(q, k, v, num_frames, o)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
@@ -169,6 +207,27 @@ def time_attention_cuda(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             BT // num_frames, num_frames, H, S, *strides, D**-0.5 * math.log2(math.e),
             plan.ceiling, plan.stages, COPIES[plan.copy], stream,
+        )
+    return o
+
+
+def time_attention_any_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Launch K2's entry for any head dim, dtype and strides
+    (csrc/time_attention_any.cu). q, k, v: (b*T, H, D, S) of one dtype of
+    DTYPES; writes into `out` (contiguous, q's shape and dtype) when given,
+    else into a new contiguous tensor, and returns it."""
+    BT, H, D, S = q.shape
+    k2_route(q, k, v, num_frames, out)
+    o = torch.empty((BT, H, D, S), dtype=q.dtype, device=q.device) if out is None else out
+    with torch.cuda.device(q.device):
+        _kernels.TIME_ATTENTION_ANY.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            BT // num_frames, num_frames, H, D, S, *(s for t in (q, k, v, o) for s in t.stride()),
+            D**-0.5 * math.log2(math.e), DTYPES.index(q.dtype),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     return o
 
@@ -201,9 +260,10 @@ def time_attention_bwd_plain(
 
 @torch.library.custom_op(f"{_kernels.OPS}::time_attention", mutates_args=())
 def time_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int) -> torch.Tensor:
-    """Temporal attention over (b*T, H, D, S): K2 on CUDA tensors (which
-    plans its copy mode from the views' strides and addresses at run time),
-    the plain version on CPU tensors; a contiguous result."""
+    """Temporal attention over (b*T, H, D, S): K2 on CUDA tensors (one of its
+    two kernels by `k2_route`; the Hopper one plans its copy mode from the
+    views' strides and addresses at run time), the plain version on CPU
+    tensors; a contiguous result."""
     if _kernels.device_route("time attention", q) == "cuda":
         return time_attention_cuda(q, k, v, num_frames)
     return time_attention_plain(q, k, v, num_frames).contiguous()

@@ -8,9 +8,10 @@ runs the ranks of a mesh (parallel/mesh.py) as threads of one process, so
 it writes those exchanges out here: `all_gather`, `all_reduce`,
 `all_to_all`, `ring_shift` (JAX's ppermute to the next rank), `broadcast`,
 `broadcast_object` and `barrier`, each a method of a rank's `Comm`.
-`all_reduce` sums every rank's copy in rank order, in fp32, on every rank,
-so that all ranks hold the same bits (the model group's ranks must stay
-bit-equal over a whole sampling loop).
+`all_reduce` sums every rank's copy in rank order, in fp32 (an integer
+tensor in its own dtype, exactly), on every rank, so that all ranks hold
+the same bits (the model group's ranks must stay bit-equal over a whole
+sampling loop).
 
 An exchange posts the rank's value in its group's slot, waits for the
 whole group, takes what it needs from the other slots, and waits once more
@@ -317,12 +318,14 @@ class Comm:
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's `t`, the same bits on every rank: the
-        ranks' copies added in rank order in fp32, cast back once."""
+        ranks' copies added in rank order in fp32, cast back once; an
+        integer `t` (W8A8's int32 partial products) summed in its own dtype,
+        which is exact in any order."""
         if self.size == 1:
             return t
         parts = self._exchange(t, "all_reduce", lambda slots: [
             t if j == self.rank else self._copy(s) for j, s in enumerate(slots)])
-        acc = parts[0].to(torch.float32, copy=True)
+        acc = parts[0].to(torch.float32 if t.is_floating_point() else t.dtype, copy=True)
         for p in parts[1:]:
             acc += p
         return acc.to(t.dtype)

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (K1 flash attention with its log-sum-exp,
 K1-dKV and K1-dQ, K2 temporal attention, K3 flash attention on (B, L, H, 64),
-K4 flash attention on packed (B, L, W), K5 LayerNorm) against their plain
-versions on the card, the wrappers' refusals, a backward through SevaUNet on
+K4 flash attention on packed (B, L, W), K5 LayerNorm, and the fp32 entries
+of K1/K3/K4 and of K1-dKV/K1-dQ and K2's entry for any head dim and dtype)
+against their plain versions on the card, the routes that reach them from
+an fp32 UNet, the wrappers' refusals, a backward through SevaUNet on
 the card that reaches the attention weights, K3's recompute backward against
 K1's kernel backward, a UNet exported through torch.export against its eager
 forward, a DUSt3R forward on the card against the CPU, and the view-sharded
@@ -21,7 +23,12 @@ or one bf16 step at the output's magnitude where outputs exceed 2);
 K3 and K4 are K1's tile on other layouts (K1's bars);
 K1's LSE is fp32 (1e-2); K1-dKV/K1-dQ round P and dS to bf16 for their
 products and their outputs to bf16 (relative L2 2e-2); K5 rounds only its
-output (one bf16 step; fp32 within 1e-5 of a unit output).
+output (one bf16 step; fp32 within 1e-5 of a unit output). The fp32 entries
+compute every product in fp32 FFMA and differ from the plain fp32 versions
+only in the order of their sums: the forward within relative L2 1e-5 and max
+abs 1e-4 (TF32 products would give about 1e-3), the backward pair within
+relative L2 1e-4, K2's other entry within relative L2 1e-5 in fp32 and one
+step of the output dtype in bf16 and fp16.
 """
 
 import numpy as np
@@ -43,6 +50,7 @@ from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
 )
 from stable_virtual_camera_tpu_torch.ops.layer_norm import ln_fused, ln_reduce
 from stable_virtual_camera_tpu_torch.ops.time_attention import (
+    time_attention_any_cuda,
     time_attention_bhds,
     time_attention_plain,
 )
@@ -102,6 +110,128 @@ def test_flash_kernel_lse_matches_plain(cuda, B, H, L):
 
 def _rel(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _fp32(rng, shape, device):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
+
+
+def _fp32_views(rng, layout, B, H, L, device):
+    """q, k, v as each fp32 route passes them: K1's (B, H, L, 64) views of a
+    packed (B, L, 3, H, 64) projection, K3's (B, L, H, 64) chunks of a
+    (B, L, 3 H 64) one, K4's packed (B, L, H 64) chunks of it."""
+    if layout == "k1":
+        return _fp32(rng, (B, L, 3, H, 64), device).permute(2, 0, 3, 1, 4).unbind(0)
+    qkv = _fp32(rng, (B, L, 3 * H * 64), device).chunk(3, dim=-1)
+    if layout == "k3":
+        return tuple(t.view(B, L, H, 64) for t in qkv)
+    return qkv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (2, 2, 1296)])
+@pytest.mark.parametrize("layout", ["k1", "k3", "k4"])
+def test_flash_fp32_kernel_matches_plain(cuda, B, H, L, layout):
+    """The fp32 entry of K1, K3 and K4 (csrc/flash_attention_fp32.cu) on
+    each route's views, ragged L included, with K1's log-sum-exp: relative
+    L2 1e-5 and max abs 1e-4 against the plain fp32 version, one launch of
+    the fp32 kernel and none of the bf16 ones."""
+    rng = np.random.default_rng(L + 3 * H)
+    q, k, v = _fp32_views(rng, layout, B, H, L, cuda)
+    before = _kernels.counts()
+    if layout == "k1":
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        ref, lse_ref = flash_attention_plain(q, k, v, return_lse=True)
+        assert (lse - lse_ref).abs().max().item() <= 1e-5
+    elif layout == "k3":
+        out, ref = fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v)
+    else:
+        out, ref = fap.flash_attention_packed(q, k, v, H), fap.flash_attention_packed_plain(q, k, v, H)
+    after = _kernels.counts()
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert after["flash_attention_fp32"] == before["flash_attention_fp32"] + 1
+    assert all(after[n] == before[n] for n in ("flash_attention", "flash_attention_blhd",
+                                               "flash_attention_packed"))
+    assert _rel(out, ref) <= 1e-5 and (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (1, 2, 1701)])
+def test_flash_fp32_backward_kernels_match_plain(cuda, B, H, L):
+    """The fp32 entries of K1-dKV and K1-dQ (csrc/flash_attention_bwd_fp32.cu)
+    through K1's autograd on the UNet's packed-qkv views, a gradient on the
+    log-sum-exp included: relative L2 1e-4 against autograd of the plain
+    fp32 math, one launch of each fp32 kernel."""
+    rng = np.random.default_rng(L + 5 * H)
+    base = _fp32(rng, (B, L, 3, H, 64), cuda)
+    do = _fp32(rng, (B, H, L, 64), cuda)
+    dl = _fp32(rng, (B, H, L), cuda)
+
+    def grads(attend):
+        leaf = base.clone().requires_grad_()
+        q, k, v = leaf.permute(2, 0, 3, 1, 4).unbind(0)
+        o, lse = attend(q, k, v)
+        (g,) = torch.autograd.grad((o * do).sum() + (lse * dl).sum(), leaf)
+        return g
+
+    from stable_virtual_camera_tpu_torch.ops.flash_upstream import flash_attention_op
+
+    before = _kernels.counts()
+    got = grads(lambda q, k, v: flash_attention_op(q, k, v, True))
+    after = _kernels.counts()
+    ref = grads(lambda q, k, v: flash_attention_plain(q, k, v, return_lse=True))
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dkv_fp32", "flash_attention_bwd_dq_fp32"):
+        assert after[name] == before[name] + 1
+    assert after["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"]
+    for part in range(3):
+        assert _rel(got[:, :, part], ref[:, :, part]) <= 1e-4
+
+
+_ANY_CASES = [
+    # the tiny spec's head dim, a ragged channel chunk, the model's head dim
+    # in fp32, a strided S, and every dtype
+    (torch.float32, 16, 21, 2, 3, 81, False), (torch.float32, 20, 3, 1, 2, 100, False),
+    (torch.float32, 64, 21, 2, 5, 1296, False), (torch.float32, 64, 32, 1, 2, 64, True),
+    (torch.bfloat16, 16, 21, 2, 3, 81, False), (torch.bfloat16, 64, 5, 2, 2, 70, True),
+    (torch.float16, 32, 8, 1, 2, 40, False), (torch.float32, 8, 1, 3, 1, 5, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,T,b,H,S,strided", _ANY_CASES)
+def test_time_any_kernel_matches_plain(cuda, dtype, D, T, b, H, S, strided):
+    """K2's entry for any head dim and dtype (csrc/time_attention_any.cu),
+    through the op: relative L2 1e-5 in fp32, one step of the output dtype
+    otherwise; S strided (positions every other element) where asked."""
+    rng = np.random.default_rng(D * T + S)
+    full = _fp32(rng, (b * T, 3, H, D, 2 * S if strided else S), cuda).to(dtype)
+    q, k, v = (full[..., ::2] if strided else full).unbind(1)
+    before = _kernels.counts()
+    out = time_attention_bhds(q, k, v, T)
+    after = _kernels.counts()
+    ref = time_attention_plain(q, k, v, T).float()
+    torch.cuda.synchronize()
+    assert after["time_attention_any"] == before["time_attention_any"] + 1
+    assert after["time_attention"] == before["time_attention"]
+    assert out.dtype == dtype and out.shape == (b * T, H, D, S)
+    if dtype == torch.float32:
+        assert _rel(out, ref) <= 1e-5
+    else:
+        mant = 7 if dtype == torch.bfloat16 else 10
+        step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp(min=2.0**-10))) - mant)
+        assert ((out.float() - ref).abs() / step).max().item() <= 1.0
+
+
+@pytest.mark.cuda
+def test_time_any_kernel_is_deterministic(cuda):
+    rng = np.random.default_rng(4)
+    q, k, v = _fp32(rng, (42, 3, 20, 16, 81), cuda).unbind(1)
+    first = time_attention_any_cuda(q, k, v, 21)
+    second = time_attention_any_cuda(q, k, v, 21)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -189,7 +319,9 @@ def test_flash_function_takes_the_kernels_both_ways(cuda):
     after = _kernels.counts()
     assert {n: after[n] - before[n] for n in after} == {
         "flash_attention": 1, "flash_attention_bwd_dkv": 1, "flash_attention_bwd_dq": 1,
-        "time_attention": 0, "flash_attention_blhd": 0, "flash_attention_packed": 0, "layer_norm": 0}
+        "time_attention": 0, "flash_attention_blhd": 0, "flash_attention_packed": 0, "layer_norm": 0,
+        "flash_attention_fp32": 0, "flash_attention_bwd_dkv_fp32": 0, "flash_attention_bwd_dq_fp32": 0,
+        "time_attention_any": 0}
     assert all(torch.isfinite(t.grad).all() and t.grad.abs().max() > 0 for t in (q, k, v))
     with torch.inference_mode():
         flash_attention_upstream_bhld(q, k, v)
@@ -290,7 +422,9 @@ def test_time_kernel_is_deterministic(cuda, S):
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 1, 64, 64), device=cuda)
     with pytest.raises(TypeError):
-        flash_attention_upstream_bhld(q, q, q)  # fp32
+        flash_attention_upstream_bhld(q.half(), q.half(), q.half())  # fp16
+    with pytest.raises(TypeError):
+        flash_attention_upstream_bhld(q, q.bfloat16(), q)  # mixed dtypes
     h = q.to(torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention_upstream_bhld(h[..., :32], h[..., :32], h[..., :32])  # D != 64
@@ -299,7 +433,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         time_attention_bhds(t, t, t, 33)  # T > 32
     lse = torch.zeros((1, 1, 64), device=cuda)
     with pytest.raises(TypeError):
-        flash_attention_bwd_cuda(q, q, q, q, lse, q)  # fp32
+        flash_attention_bwd_cuda(q.half(), q.half(), q.half(), q.half(), lse, q.half())  # fp16
     with pytest.raises(ValueError):
         flash_attention_bwd_cuda(h, h, h, h, lse.double(), h)  # lse not fp32
 
@@ -395,18 +529,18 @@ def test_packed_gradient_raises(cuda):
 
 @pytest.mark.cuda
 def test_k3_k4_refuse_what_they_do_not_take(cuda):
-    """fp32 and a head dim other than 64 raise; neither runs the plain
+    """fp16 and a head dim other than 64 raise; neither runs the plain
     version on the card."""
     before = _kernels.counts()
-    q = torch.zeros((1, 64, 2, 64), device=cuda)
+    q = torch.zeros((1, 64, 2, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
-        fa.flash_attention(q, q, q)  # fp32
+        fa.flash_attention(q, q, q)  # fp16
     h = torch.zeros((1, 64, 2, 32), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(h, h, h)  # D != 64
     p = torch.zeros((1, 64, 128), device=cuda)
     with pytest.raises(TypeError):
-        fap.flash_attention_packed(p, p, p, 2)  # fp32
+        fap.flash_attention_packed(p.half(), p.half(), p.half(), 2)  # fp16
     with pytest.raises(ValueError):
         fap.flash_attention_packed(p.bfloat16(), p.bfloat16(), p.bfloat16(), 4)  # D = 32
     assert _kernels.counts() == before
@@ -542,9 +676,9 @@ def test_dust3r_forward_on_the_card_matches_the_cpu(cuda, monkeypatch):
 @pytest.mark.cuda
 def test_tiny_cli_render_on_the_card(cuda, tmp_path):
     """`apps/cli.py --random_model True` builds the tiny fp32 bundle on the
-    card: the kernels take bf16 only, so the bundle gets the "plain"
-    attention backend (models/io.attention_backend), no kernel launches,
-    and the render writes finite frames."""
+    card with the "upstream" backend: its temporal attention (head dim 16)
+    launches K2's other entry and no bf16 kernel, and the render writes
+    64 x 64 frames."""
     import cv2
 
     from stable_virtual_camera_tpu_torch.apps import cli
@@ -554,7 +688,10 @@ def test_tiny_cli_render_on_the_card(cuda, tmp_path):
     (out_dir,) = cli.main(golden, task="img2trajvid", use_traj_prior=True, random_model=True, device="cuda",
                           work_dir=str(tmp_path), num_steps=2, guider_types=[1, 2], cfg=[2.0, 2.0],
                           sampler_verbose=False)
-    assert _kernels.counts() == before
+    after = _kernels.counts()
+    assert after["time_attention_any"] > before["time_attention_any"]
+    assert all(after[n] == before[n] for n in ("flash_attention", "time_attention", "flash_attention_blhd",
+                                               "flash_attention_packed"))
     frames_dir = __import__("pathlib").Path(out_dir) / "samples-rgb"
     frames = [cv2.imread(str(p)) for p in sorted(frames_dir.glob("*.png"))]
     assert frames and all(f is not None and f.shape == (64, 64, 3) for f in frames)
@@ -563,10 +700,11 @@ def test_tiny_cli_render_on_the_card(cuda, tmp_path):
 @pytest.mark.cuda
 def test_fp32_unet_forward_takes_the_plain_routes(cuda, monkeypatch):
     """An fp32 SevaUNet on the card at 32 x 32 = 1024 tokens a frame (head
-    dim 64, T = 2) with the "plain" backend, which `attention_backend`
-    gives an fp32 model there (K1 and K2 take bf16 only): the blocks K1
-    and K2 would get run their plain versions, with no launch, and the
-    output matches the same network on the CPU (fp32, TF32 off)."""
+    dim 64, T = 2) with the backend `attention_backend` gives it there
+    ("upstream"): the blocks routed to K1 and K2 launch their fp32 entries
+    (csrc/flash_attention_fp32.cu, csrc/time_attention_any.cu) and no bf16
+    kernel, and the output matches the same network on the CPU (fp32, TF32
+    off)."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     spec = SevaSpec(model_channels=64, num_frames=2, num_head_channels=64, context_dim=64,
                     channel_mult=(1, 1), transformer_depth=(1, 1), attention_resolutions=(1,))
@@ -582,7 +720,10 @@ def test_fp32_unet_forward_takes_the_plain_routes(cuda, monkeypatch):
         before = _kernels.counts()
         out = gpu(args[0].to(cuda), torch.full((n,), 500, device=cuda), args[1].to(cuda), args[2].to(cuda), n)
         torch.cuda.synchronize()
-    assert _kernels.counts() == before
+    after = _kernels.counts()
+    assert after["flash_attention_fp32"] > before["flash_attention_fp32"]
+    assert after["time_attention_any"] > before["time_attention_any"]
+    assert all(after[n] == before[n] for n in ("flash_attention", "time_attention"))
     assert torch.isfinite(out).all() and _rel(out.cpu(), ref) <= 1e-4
 
 

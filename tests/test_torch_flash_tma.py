@@ -1,8 +1,7 @@
 """What the CPU can check of the Hopper forward tile and of the attention
 dispatch: the tensor maps that K1, K3 and K4 hand the tile, the views TMA
-cannot take, and the routes that keep the UNet from launching a kernel on
-operands it refuses (an fp32 model on the card takes the "plain" backend,
-chosen when it is built; K2 takes head dim 64 only).
+cannot take, and the attention routes (every model on the card takes the
+kernel backends, bf16 and fp32 alike; K2 takes every head dim).
 
 `tma_dims_strides` turns a (B, H, L, 64) view into dims (64, L, H, B) and
 byte strides (row, head, batch); the backward kernels K1-dKV and K1-dQ
@@ -152,31 +151,33 @@ def test_attention_delta_is_the_fp32_row_sum():
 
 
 def test_flash_predicates_take_bf16_head_dim_64_only():
-    """The kernels take bf16 only. `attention_backend` gives an fp32 model on
-    the card the "plain" backend, refuses a kernel backend there, and leaves
-    bf16 models and the CPU on the kernel routes."""
+    """The kernels take bf16 and fp32 (the fp32 entries), as the JAX kernels
+    do: `attention_backend` gives every model "upstream" unless a backend
+    is asked for, an fp32 model on the card included, and takes every
+    backend asked for in either dtype on either device."""
     assert attention_backend(None, torch.bfloat16, "cuda") == "upstream"
-    assert attention_backend(None, torch.float32, "cuda") == "plain"
+    assert attention_backend(None, torch.float32, "cuda") == "upstream"
     assert attention_backend(None, torch.float32, "cpu") == "upstream"
     assert attention_backend("plain", torch.float32, torch.device("cuda", 0)) == "plain"
     for name in ("upstream", "flash", "packed"):
         assert attention_backend(name, torch.bfloat16, "cuda:0") == name
         assert attention_backend(name, torch.float32, "cpu") == name
-        with pytest.raises(ValueError):
-            attention_backend(name, torch.float32, "cuda")
+        assert attention_backend(name, torch.float32, "cuda") == name
 
 
 @pytest.mark.parametrize("backend,dim_head,T,route", [
     ("upstream", 64, 21, "k2"),
     ("flash", 64, 32, "k2"),
-    ("upstream", 16, 21, "plain"),   # K2 has no entry for head dim 16
+    # K2's other entry takes head dim 16 (the case's id names the route it
+    # had before that entry)
+    pytest.param("upstream", 16, 21, "k2", id="upstream-16-21-plain"),
     ("plain", 64, 21, "plain"),
     ("upstream", 64, 33, None),      # past the frame cap: the einsum path
 ])
 def test_time_predicate_takes_bf16_head_dim_64_and_up_to_32_frames(monkeypatch, backend, dim_head, T, route):
-    """Temporal attention's route follows the backend, the head dim and T,
-    never the tensors: K2 for head dim 64 and T <= 32 under a kernel
-    backend, its plain version under "plain" or another head dim."""
+    """Temporal attention's route follows the backend and T, never the
+    tensors: K2 for T <= 32 under a kernel backend, whatever the head dim,
+    its plain version under "plain"."""
     calls = []
     for name, attr in (("k2", "time_attention_bhds"), ("plain", "time_attention_plain")):
         fn = getattr(unet_mod, attr)

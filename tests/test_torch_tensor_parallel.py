@@ -15,9 +15,16 @@ output's scale) and JAX's (2e-4), with the model ranks bit-equal; the
 tensor-parallel sampler at (1, 2, 2) against JAX's unsharded
 `euler_edm_sample` at the bar of JAX's
 tests/test_parallel.py::test_tensor_parallel_sampler_matches_unsharded
-(atol 5e-4, rtol 1e-3); the refusal of W8A8 under tensor parallelism.
+(atol 5e-4, rtol 1e-3); W8A8 under tensor parallelism (both modes): every
+quantized layer kind, input- and output-sharded, bit-equal to the unsharded
+layer on thread ranks, the static sites' int8 weights and scales cut as the
+weights are, the tiny UNet's (1, 1, 2) forward against the unsharded W8A8
+forward at the TP bar with the model ranks bit-equal, and the CLI's
+--quant w8a8 with --mesh_model 2 on the tiny model.
 """
 
+import glob
+import os
 import threading
 import time
 
@@ -34,6 +41,7 @@ from stable_virtual_camera_tpu_torch.parallel import comm as pcomm
 from stable_virtual_camera_tpu_torch.parallel import param_sharding as ps
 from stable_virtual_camera_tpu_torch.parallel.mesh import make_mesh, make_mesh_tp
 from stable_virtual_camera_tpu_torch.parallel.sharding import frames_of, make_tensor_parallel_sampler
+from stable_virtual_camera_tpu_torch.parallel import tensor_parallel as tp
 from stable_virtual_camera_tpu_torch.parallel.tensor_parallel import shard_unet
 from stable_virtual_camera_tpu_torch.sampling import sampler as t_sampler
 from stable_virtual_camera_tpu_torch.sampling.discretization import DDPMDiscretization
@@ -168,19 +176,25 @@ def test_make_mesh_tp_grid_and_refusals():
     assert outs == [(1, v, m, 3, 2, m) for v in range(3) for m in range(2)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
 def test_all_reduce_gives_every_rank_the_rank_order_sum(dtype):
     """Three ranks that reach the reduction in reverse order: every rank
-    holds the same bits, the fp32 sum in rank order cast once."""
+    holds the same bits, the fp32 sum in rank order cast once; an int32
+    tensor (W8A8's partial products) the exact integer sum, at magnitudes
+    an fp32 sum would round."""
     g = torch.Generator().manual_seed(0)
-    vals = [torch.randn(64, 33, generator=g).mul(10 ** i).to(dtype) for i in range(3)]
+    if dtype.is_floating_point:
+        vals = [torch.randn(64, 33, generator=g).mul(10 ** i).to(dtype) for i in range(3)]
+        ref = ((vals[0].float() + vals[1].float()) + vals[2].float()).to(dtype)
+    else:
+        vals = [torch.randint(-2**28, 2**28, (64, 33), generator=g, dtype=dtype) for _ in range(3)]
+        ref = vals[0] + vals[1] + vals[2]
 
     def body(ctx):
         time.sleep(0.05 * (2 - ctx.view))
         return ctx.comm.all_reduce(vals[ctx.view].clone())
 
     outs = pcomm.run_ranks(make_mesh(1, 3, devices=[CPU] * 3), body)
-    ref = ((vals[0].float() + vals[1].float()) + vals[2].float()).to(dtype)
     for o in outs:
         assert o.dtype == dtype and torch.equal(o, ref)
 
@@ -277,7 +291,143 @@ def test_tensor_parallel_sampler_matches_jax_unsharded(tiny):
     np.testing.assert_allclose(out.numpy(), ref, atol=5e-4, rtol=1e-3)
 
 
-def test_w8a8_under_tensor_parallelism_is_refused(tiny):
-    bundle = tiny[0]
-    with bundle.unet.quant_mode("w8a8"), pytest.raises(NotImplementedError, match="item 9"):
-        bundle.unet_shard(CPU, 0, 2)
+class _QuantLayers(torch.nn.Module):
+    """One of each W8A8 layer kind, sized so the sharding rule cuts each
+    one's input (in > out) or output (out >= in; the Upsample's square
+    kernel goes to its output, as ties do)."""
+
+    def __init__(self):
+        from stable_virtual_camera_tpu_torch.models.unet import QuantConv, QuantLinear, Upsample
+
+        super().__init__()
+        self.linear_in = QuantLinear(64, 24)
+        self.linear_out = QuantLinear(24, 64)
+        self.conv_in = QuantConv(64, 24, 3)
+        self.conv_out = QuantConv(24, 64, 3, stride=2)
+        self.upsample = Upsample(32)
+
+
+_LAYER_INPUTS = {"linear_in": (7, 5, 64), "linear_out": (9, 24), "conv_in": (2, 6, 6, 64),
+                 "conv_out": (2, 8, 8, 24), "upsample": (2, 4, 4, 32)}
+_LAYER_CUTS = {"linear_in": 1, "linear_out": 0, "conv_in": 1, "conv_out": 0, "upsample": 0}
+
+
+def _quantized_layers(mode):
+    g = torch.Generator().manual_seed(1)
+    layers = _QuantLayers().to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        for p in layers.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+    xs = {name: torch.randn(shape, generator=g) for name, shape in _LAYER_INPUTS.items()}
+    for name, layer in layers.named_children():
+        if mode == "w8a8-static":  # each site calibrated on its own input
+            layer.set_quant("w8a8-calib")
+            with torch.no_grad():
+                layer(xs[name])
+        layer.set_quant(mode)
+    return layers, xs
+
+
+@pytest.mark.parametrize("mode", ["w8a8", "w8a8-static"])
+def test_w8a8_layers_under_tensor_parallelism_are_bit_equal(mode):
+    """Every W8A8 layer kind on its shards over (1, 1, 2) thread ranks:
+    output-sharded layers quantize x whole and gather their channels,
+    input-sharded ones multiply their slice with the whole weight's scales
+    and all-reduce the int32 partial products, so each rank's output is the
+    unsharded layer's, bit for bit."""
+    layers, xs = _quantized_layers(mode)
+    with torch.no_grad():
+        ref = {name: layer(xs[name]) for name, layer in layers.named_children()}
+    shards = [shard_unet(layers, r, 2, CPU) for r in range(2)]
+    assert {name: getattr(shards[0], name).sharded_layer.tp_dim for name in _LAYER_CUTS} == _LAYER_CUTS
+
+    def rank(ctx):
+        with tp.model_group(ctx.model_comm), torch.no_grad():
+            return {name: getattr(shards[ctx.model], name)(xs[name]) for name in ref}
+
+    for out in pcomm.run_ranks(cpu_mesh_tp(1, 1, 2), rank):
+        for name in ref:
+            assert torch.equal(out[name], ref[name]), name
+
+
+def test_static_sites_are_cut_as_their_weights_are():
+    """`shard_unet` cuts a static site's int8 weight along its layer's
+    sharded dimension and its scales along the output where the output is
+    sharded (per phase-major group of the Upsample's rearranged kernel);
+    the activation abs-max stays whole; input-sharded layers carry their
+    whole weight's abs-max."""
+    layers, _ = _quantized_layers("w8a8-static")
+    for r in range(2):
+        shard = shard_unet(layers, r, 2, CPU)
+        for name, cut in _LAYER_CUTS.items():
+            whole, part = getattr(layers, name).site(), getattr(shard, name).site()
+            assert torch.equal(part.ax, whole.ax)
+            if name == "upsample":
+                c = whole.wq.shape[0] // 4
+                idx = torch.cat([torch.arange(p * c + r * c // 2, p * c + (r + 1) * c // 2) for p in range(4)])
+                assert torch.equal(part.wq, whole.wq[idx]) and torch.equal(part.ws, whole.ws[idx])
+            elif cut == 0:
+                rows = whole.wq.shape[0] // 2
+                assert torch.equal(part.wq, whole.wq[r * rows:(r + 1) * rows])
+                assert torch.equal(part.ws, whole.ws[r * rows:(r + 1) * rows])
+            else:
+                cols = whole.wq.shape[1] // 2
+                assert torch.equal(part.wq, whole.wq[:, r * cols:(r + 1) * cols])
+                assert torch.equal(part.ws, whole.ws)
+                assert torch.equal(getattr(shard, name).tp_amax.flatten(),
+                                   getattr(layers, name).weight.abs().amax(dim=tuple(range(1, whole.wq.dim()))))
+    layers.quant = "w8a8-calib"  # a model in its calibration pass is not sharded
+    with pytest.raises(ValueError, match="calib"):
+        shard_unet(layers, 0, 2, CPU)
+
+
+@pytest.mark.parametrize("mode", ["w8a8", "w8a8-static"])
+def test_tensor_parallel_w8a8_forward_matches_unsharded(tiny, mode):
+    """The tiny UNet under W8A8 on (1, 1, 2) thread ranks against the same
+    W8A8 UNet unsharded (itself held to JAX by tests/test_torch_quant.py),
+    at this file's TP bar of 1e-5 of the output's scale, with the model
+    ranks bit-equal. Only the unquantized input-sharded layers (fp32
+    partial sums in rank order) round otherwise; every W8A8 layer computes
+    the unsharded layer's bits."""
+    bundle, _, _, inputs, _ = tiny
+    x, t, c, d = (torch.from_numpy(a) for a in inputs)
+    unet = bundle.unet
+    try:
+        if mode == "w8a8-static":
+            unet.set_quant("w8a8-calib")
+            with torch.inference_mode():
+                unet(x, t, c, d, T)
+        unet.set_quant(mode)
+        with torch.inference_mode():
+            ref = unet(x, t, c, d, T)
+        mesh = cpu_mesh_tp(1, 1, 2)
+        bundle.mesh = mesh
+        bundle.replicate()
+        with torch.inference_mode():
+            outs = pcomm.run_ranks(mesh, lambda ctx: bundle.module_for(ctx.device, ctx.model_comm)(
+                x, t, c, d, T, model_group=ctx.model_comm))
+    finally:
+        bundle.mesh = None
+        unet.set_quant("0")
+        unet.clear_quant_state()
+        bundle._shards.clear()
+    assert torch.equal(outs[0], outs[1])
+    assert_close_to_scale(outs[0].numpy(), ref.numpy(), 1e-5)
+
+
+def test_cli_renders_w8a8_under_tensor_parallelism(tmp_path):
+    """`cli.main(..., quant="w8a8", mesh_model=2)` on the tiny model: a
+    one-pass orbit render with its chunk on weight shards over 2 model
+    ranks under dynamic W8A8 writes its frames."""
+    import cv2
+
+    from stable_virtual_camera_tpu_torch.apps import cli
+
+    scene = tmp_path / "scenes" / "scene.png"
+    scene.parent.mkdir()
+    cv2.imwrite(str(scene), np.random.default_rng(4).integers(0, 256, (64, 64, 3), dtype=np.uint8))
+    (out,) = cli.main(str(scene.parent), device="cpu", mesh_model=2, quant="w8a8", work_dir=str(tmp_path / "tp"),
+                      task="img2trajvid_s-prob", random_model=True, num_steps=2, traj_prior="orbit",
+                      num_targets=3, sampler_verbose=False)
+    frames = sorted(glob.glob(os.path.join(out, "samples-rgb", "*.png")))
+    assert len(frames) == 3 and all(cv2.imread(f).shape == (64, 64, 3) for f in frames)

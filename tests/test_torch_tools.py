@@ -207,10 +207,11 @@ def _jax_stage_names() -> set[str]:
 def test_run_one_scene_timer_reports_jax_stage_names():
     """A two-pass tiny render with a StageTimer: every stage the port times
     carries the JAX engine's name for it. The JAX engine's cache priming
-    has no counterpart in the port, so `second_pass_prime` does not occur;
+    (`second_pass_prime`) is part of the port's `second_pass_conditioning`,
+    which times the serial second pass's prefetch window as JAX's does;
     the second pass's flushes run on a worker thread and are joined under
-    `second_pass_flush_join`, as in JAX; its grouped second pass (`second_pass_conditioning`,
-    `second_pass_sample_many`) runs only on a mesh's data axis or with
+    `second_pass_flush_join`, as in JAX; its grouped second pass
+    (`second_pass_sample_many`) runs only on a mesh's data axis or with
     `chunk_batch`, so not here."""
     from stable_virtual_camera_tpu_torch.apps.renderer import HeadlessRenderer, preprocess_basic
     from stable_virtual_camera_tpu_torch.config import VersionConfig
@@ -228,8 +229,8 @@ def test_run_one_scene_timer_reports_jax_stage_names():
 
     assert set(timer.totals) == {
         "prepare_images", "first_pass_build", "first_pass_sample", "first_pass_decode_extend",
-        "first_pass_save", "second_pass_plan", "second_pass_build", "second_pass_sample",
-        "second_pass_flush", "second_pass_flush_join", "final_save",
+        "first_pass_save", "second_pass_plan", "second_pass_build", "second_pass_conditioning",
+        "second_pass_sample", "second_pass_flush", "second_pass_flush_join", "final_save",
     }
     assert set(timer.totals) <= _jax_stage_names()
     assert timer.counts["first_pass_sample"] == plan["first_pass_chunks"]

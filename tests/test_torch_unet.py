@@ -110,8 +110,9 @@ def test_time_path_attention_matches_jax_kernel(monkeypatch):
 
 
 _ROUTES = [
-    # (backend, L, dim_head, time_frames, route); the upstream cases keep the
-    # ids they had before the backend option
+    # (backend, L, dim_head, time_frames, route[, id]); the upstream cases
+    # keep the ids they had before the backend option, and the head-dim-16
+    # temporal case the id it had before K2 took every head dim
     ("upstream", 1024, 64, None, "flash"),   # shortest flash sequence
     ("upstream", 1023, 64, None, "plain"),   # one token short
     ("upstream", 2048, 32, None, "plain"),   # head dim the kernel does not take
@@ -127,15 +128,16 @@ _ROUTES = [
     ("packed", 2048, 32, None, "plain"),     # W = 64: neither K4 nor K3
     ("packed", 16, 64, 4, "time"),
     ("packed", 16, 64, 33, "plain"),
-    ("plain", 1024, 64, None, "plain"),      # no kernel: an fp32 model on the card
+    ("plain", 1024, 64, None, "plain"),      # no kernel
     ("plain", 16, 64, 4, "plain"),
-    ("upstream", 16, 32, 4, "plain"),        # K2 takes head dim 64 only
+    ("upstream", 16, 32, 4, "time", "16-32-4-plain"),  # K2 takes every head dim
 ]
 
 
 @pytest.mark.parametrize(
     "backend,L,dim_head,time_frames,route",
-    [pytest.param(*case, id="-".join(map(str, case[1:] if case[0] == "upstream" else case)))
+    [pytest.param(*case[:5], id=case[5] if len(case) > 5
+                  else "-".join(map(str, case[1:] if case[0] == "upstream" else case)))
      for case in _ROUTES],
 )
 def test_attention_dispatch_follows_jax(monkeypatch, backend, L, dim_head, time_frames, route):
