@@ -25,9 +25,11 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      views the UNet's generic path passes; then `fp32_flash_attention`: the
      fp32 entry of K1, K3 and K4 (csrc/flash_attention_fp32.cu) in each
      layout at those shapes, and `fp32_flash_bwd`: the fp32 entries of
-     K1-dKV and K1-dQ at the training shapes, against the plain fp32
-     versions (relative L2 1e-5 and max abs 1e-4; 1e-4), with SDPA's
-     memory-efficient backend, forward and backward, as the yardstick;
+     K1-dKV and K1-dQ (3xTF32 on the tensor cores) at the training shapes,
+     against the plain fp32 versions (relative L2 1e-5 and max abs 1e-4;
+     1e-4), with SDPA's memory-efficient backend, forward and backward, as
+     the yardstick, the pair's FFMA and 3xTF32 bounds, a repeated launch
+     that must give the same bits, and ptxas's registers and spills;
   6. one full-width SevaUNet forward (bf16 random weights, 42 frames,
      576x576) through the kernels and through the plain versions, with a
      torch.profiler window over one forward (device time by kernel class,
@@ -218,6 +220,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -254,9 +257,11 @@ UNET_REL_L2 = 3e-2
 # 21-frame scene: 1.26e-2 read on an H100 (PERF.md), held to twice that
 FP32_REL_L2 = 2.5e-2
 # the fp32 entries of K1/K3/K4 and K1-dKV/K1-dQ and K2's entry for any head
-# dim and dtype, against their plain fp32 versions with TF32 off: every
-# product is an fp32 FFMA, so only the order of the sums differs (TF32
-# products would give ~1e-3); FP32_REPS launches an event reading averages
+# dim and dtype, against their plain fp32 versions with TF32 off: the
+# forward entries compute every product as an fp32 FFMA, the backward pair
+# as three TF32 products (3xTF32, ~2^-20 relative), so only the order and
+# rounding of the sums differs (one TF32 product would give ~1e-3);
+# FP32_REPS launches an event reading averages
 FP32_FWD_REL_L2, FP32_FWD_MAX_ABS, FP32_BWD_REL_L2, K2_ANY_REL_L2 = 1e-5, 1e-4, 1e-4, 1e-5
 FP32_REPS = 3
 # f1_fp32_routes: the full-width fp32 forward through the kernels against
@@ -356,6 +361,7 @@ GOLDEN = os.path.join(REPO, "assets", "golden_scene")
 # published dense peaks of one H100 SXM at 700 W (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # the tensor cores; an fp32-accurate product takes three (3xTF32)
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -863,12 +869,45 @@ def check_fp32_flash(gen) -> dict:
             "library": "SDPA, memory-efficient backend, fp32, on the same views"}
 
 
+def start_ptxas(source: str) -> subprocess.Popen:
+    """Start compiling csrc/<source>.cu with -Xptxas -v into build/ptxas/,
+    for `read_ptxas`."""
+    from stable_virtual_camera_tpu_torch import _kernels
+
+    out_dir = _kernels.BUILD_DIR.parent / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                             str(out_dir / f"{source}.so"), str(_kernels.CSRC / f"{source}.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc
+
+
+def read_ptxas(proc: subprocess.Popen, kernels: tuple[str, ...]) -> dict:
+    """The compiler's return code and each of `kernels`' registers, stack
+    and spill bytes from a `start_ptxas` run."""
+    text, _ = proc.communicate()
+    out: dict = {"rc": proc.returncode}
+    name = None
+    for ln in text.splitlines():
+        if "Compiling entry" in ln:
+            name = next((k for k in kernels if k in ln), None)
+        elif name and "spill stores" in ln:
+            nums = [int(n) for n in re.findall(r"(\d+) bytes", ln)]
+            out[name] = {"stack_bytes": nums[0], "spill_store_bytes": nums[1], "spill_load_bytes": nums[2]}
+        elif name and "Used" in ln and "registers" in ln:
+            out.setdefault(name, {})["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
 def check_fp32_flash_bwd(gen) -> dict:
     """`fp32_flash_bwd`: the fp32 entries of K1-dKV and K1-dQ
-    (csrc/flash_attention_bwd_fp32.cu) at the training shapes, on K1's
-    fp32 output and log-sum-exp, against the plain fp32 backward at
-    FP32_BWD_REL_L2, with SDPA's memory-efficient backward (dq, dk, dv) as
-    the one-call yardstick."""
+    (csrc/flash_attention_bwd_fp32.cu, 3xTF32 on the tensor cores) at the
+    training shapes, on K1's fp32 output and log-sum-exp, against the plain
+    fp32 backward at FP32_BWD_REL_L2, with SDPA's memory-efficient backward
+    (dq, dk, dv) as the one-call yardstick. Each kernel's bound is the
+    smaller of its FLOP at the FFMA rate and three times its FLOP at the
+    TF32 rate (or its bytes); a second launch of each must give the same
+    bits; ptxas's registers and spills of both kernels."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -883,6 +922,7 @@ def check_fp32_flash_bwd(gen) -> dict:
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
 
+    ptxas = start_ptxas("flash_attention_bwd_fp32")
     rows = []
     for L, B, H in K1_TRAIN_SHAPES:
         qkv = torch.randn((B, L, 3, H, 64), generator=gen, device=DEVICE)
@@ -892,9 +932,12 @@ def check_fp32_flash_bwd(gen) -> dict:
         delta = attention_delta(o, do)
         dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
         dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+        dk2, dv2 = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+        dq2 = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
         pq, pk, pv = flash_attention_bwd_plain(q, k, v, o, lse, do)
         torch.cuda.synchronize()
         row = {"L": L, "B": B, "H": H,
+               "repeat_bit_equal": all(torch.equal(a, b) for a, b in ((dk, dk2), (dv, dv2), (dq, dq2))),
                "rel_l2": {"dq": rel(dq, pq), "dk": rel(dk, pk), "dv": rel(dv, pv)},
                "max_abs_err": {"dq": (dq - pq).abs().max().item(),
                                "dkv": max((dk - pk).abs().max().item(), (dv - pv).abs().max().item())},
@@ -903,7 +946,7 @@ def check_fp32_flash_bwd(gen) -> dict:
                "dq_ms": cuda_ms(lambda: flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta), 2),
                "delta_ms": cuda_ms(lambda: attention_delta(o, do), 2),
                "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, o, lse, do), 1)}
-        del pq, pk, pv, dq, dk, dv
+        del pq, pk, pv, dq, dk, dv, dq2, dk2, dv2
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             out = torch.nn.functional.scaled_dot_product_attention(*leaves)
@@ -912,16 +955,24 @@ def check_fp32_flash_bwd(gen) -> dict:
         n = 64 * B * H
         row["dkv_tflops"] = 8.0 * L * L * n / (row["dkv_ms"] * 1e-3) / 1e12
         row["dq_tflops"] = 6.0 * L * L * n / (row["dq_ms"] * 1e-3) / 1e12
-        row["dkv_bound_ms"], row["dkv_bound_by"] = bound(8.0 * L * L * n, (6 * L * 64 * 4 + 2 * L * 4) * B * H,
-                                                         PEAK_FP32_FLOPS)
-        row["dq_bound_ms"], row["dq_bound_by"] = bound(6.0 * L * L * n, (5 * L * 64 * 4 + 2 * L * 4) * B * H,
-                                                       PEAK_FP32_FLOPS)
+        for part, flops, nbytes in (("dkv", 8.0 * L * L * n, (6 * L * 64 * 4 + 2 * L * 4) * B * H),
+                                    ("dq", 6.0 * L * L * n, (5 * L * 64 * 4 + 2 * L * 4) * B * H)):
+            ffma = bound(flops, nbytes, PEAK_FP32_FLOPS)
+            tf32x3 = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+            row[f"{part}_ffma_bound_ms"], row[f"{part}_tf32x3_bound_ms"] = ffma[0], tf32x3[0]
+            row[f"{part}_bound_ms"], row[f"{part}_bound_by"] = min(ffma, tf32x3)
+            row[f"{part}_bound_share"] = row[f"{part}_bound_ms"] / row[f"{part}_ms"]
         rows.append(row)
         del qkv, q, k, v, do, o, lse, delta
         torch.cuda.empty_cache()
-    ok = all(r["finite"] and max(r["rel_l2"].values()) <= FP32_BWD_REL_L2 for r in rows)
-    sums = {key: sum(r[key] for r in rows) for key in ("dkv_ms", "dq_ms", "delta_ms", "plain_ms", "library_ms")}
+    ok = all(r["finite"] and r["repeat_bit_equal"] and max(r["rel_l2"].values()) <= FP32_BWD_REL_L2 for r in rows)
+    sums = {key: sum(r[key] for r in rows)
+            for key in ("dkv_ms", "dq_ms", "delta_ms", "plain_ms", "library_ms", "dkv_ffma_bound_ms",
+                        "dkv_tf32x3_bound_ms", "dq_ffma_bound_ms", "dq_tf32x3_bound_ms")}
+    sums["pair_ms"] = sums["dkv_ms"] + sums["dq_ms"]
+    usage = read_ptxas(ptxas, ("flash_bwd_dkv_fp32_kernel", "flash_bwd_dq_fp32_kernel"))
     emit({"phase": "fp32_flash_bwd", "ok": ok, "bar": {"rel_l2": FP32_BWD_REL_L2}, "sums": sums, "shapes": rows,
+          "ptxas": usage,
           "library": "the backward of F.scaled_dot_product_attention with SDPBackend.EFFICIENT_ATTENTION, fp32"})
     if not ok:
         raise AssertionError("the fp32 backward kernels disagree with the plain backward")
@@ -932,7 +983,10 @@ def check_fp32_flash_bwd(gen) -> dict:
     for name, part in (("flash_attention_bwd_dkv_fp32", "dkv"), ("flash_attention_bwd_dq_fp32", "dq")):
         bound_ms, bound_by = sum_bounds(rows, f"{part}_")
         out[name] = {"max_abs_err": max(r["max_abs_err"][part] for r in rows), "ms": sums[f"{part}_ms"],
-                     "bound_ms": bound_ms, "bound_by": bound_by, **common}
+                     "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / sums[f"{part}_ms"],
+                     "bound_ffma_ms": sums[f"{part}_ffma_bound_ms"],
+                     "bound_tf32x3_ms": sums[f"{part}_tf32x3_bound_ms"],
+                     "ptxas": usage.get(f"flash_bwd_{part}_fp32_kernel"), **common}
     return out
 
 
@@ -4636,7 +4690,8 @@ def main() -> int:
                                            "bound_by", "library_ms")},
             **{key: r[key] for key in ("library", "plain_and_library_cover", "delta_ms", "path_shapes",
                                        "cold_ms", "library_cold_ms", "device_us", "library_device_us",
-                                       "bound_share", "by_layout", "tiny_cli") if key in r},
+                                       "bound_share", "bound_ffma_ms", "bound_tf32x3_ms", "ptxas", "by_layout",
+                                       "tiny_cli") if key in r},
         })
     emit({"phase": "total", "seconds": time.perf_counter() - t_start, "limit_s": 1200})
     emit({"kernels": rows})

@@ -234,9 +234,10 @@ def _check_bwd(q, k, v, do, lse, delta) -> tuple[int, int, int, list[int]]:
     """dtype, shape and device of the backward's operands; returns B, H, L
     and how the kernels read q, k, v and do, in that order: for bf16 their
     tensor-map byte strides from `tma_dims_strides` (which raises ValueError
-    for a view TMA cannot take), for fp32 their element strides. lse and
-    delta are read with ordinary loads, so they only need to be contiguous
-    fp32 (B, H, L)."""
+    for a view TMA cannot take), for fp32 their element strides (any view:
+    `_bwd_views` copies first what the fp32 entries' tensor maps cannot
+    take). lse and delta are read with ordinary loads, so they only need to
+    be contiguous fp32 (B, H, L)."""
     B, H, L, _ = _check_inputs(q, ("k", k), ("v", v), ("do", do))
     if q.dtype == torch.float32:
         maps = _all_strides(q, k, v, do)
@@ -247,6 +248,21 @@ def _check_bwd(q, k, v, do, lse, delta) -> tuple[int, int, int, list[int]]:
     return B, H, L, maps
 
 
+def _bwd_views(q, k, v, do, maps: list[int]):
+    """q, k, v, do as the backward kernels read them, and their strides for
+    the launch. The bf16 pair takes them as they are (`_check_bwd` has
+    refused what its tensor maps cannot take). The fp32 entries read them
+    through tensor maps as well but accept any fp32 view: one with a
+    non-contiguous head dim, strides that are not whole 16-byte units, a
+    base off a 16-byte boundary or a zero (broadcast) stride is copied into
+    the `_in_bhld` layout here first. The UNet's packed-qkv views and the
+    `_empty_like_bhld` buffers need no copy."""
+    if q.dtype != torch.float32:
+        return q, k, v, do, maps
+    ts = tuple(t if _tma_view_ok(t) and 0 not in t.stride()[:3] else _in_bhld(t) for t in (q, k, v, do))
+    return (*ts, _all_strides(*ts))
+
+
 def flash_attention_bwd_dkv_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor,
@@ -254,9 +270,12 @@ def flash_attention_bwd_dkv_cuda(
     """Launch K1-dKV (its fp32 entry for fp32 operands): (dk, dv) as
     (B, H, L, 64) views of (B, L, H, 64) buffers of q's dtype. q, k, v, do:
     (B, H, L, 64) views of one dtype, bf16 ones that a tensor map can take
-    (`tma_dims_strides`) or fp32 ones through any strides; lse: K1's fp32
+    (`tma_dims_strides`) or fp32 ones through any strides (the fp32 entries
+    read through tensor maps too: an fp32 view a map cannot take is first
+    copied into the `_in_bhld` layout, see `_bwd_views`); lse: K1's fp32
     (B, H, L) log-sum-exp; delta: fp32 (B, H, L) rowsum(o do)."""
     B, H, L, maps = _check_bwd(q, k, v, do, lse, delta)
+    q, k, v, do, maps = _bwd_views(q, k, v, do, maps)
     dk, dv = _empty_like_bhld(q), _empty_like_bhld(q)
     with torch.cuda.device(q.device):
         bwd_kernels(q)[0].launch(
@@ -274,8 +293,10 @@ def flash_attention_bwd_dq_cuda(
 ) -> torch.Tensor:
     """Launch K1-dQ (its fp32 entry for fp32 operands): dq as a
     (B, H, L, 64) view of a (B, L, H, 64) buffer of q's dtype; operands as
-    for `flash_attention_bwd_dkv_cuda`."""
+    for `flash_attention_bwd_dkv_cuda` (fp32 views a tensor map cannot take
+    are copied first)."""
     B, H, L, maps = _check_bwd(q, k, v, do, lse, delta)
+    q, k, v, do, maps = _bwd_views(q, k, v, do, maps)
     dq = _empty_like_bhld(q)
     with torch.cuda.device(q.device):
         bwd_kernels(q)[1].launch(

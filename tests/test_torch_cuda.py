@@ -23,12 +23,14 @@ or one bf16 step at the output's magnitude where outputs exceed 2);
 K3 and K4 are K1's tile on other layouts (K1's bars);
 K1's LSE is fp32 (1e-2); K1-dKV/K1-dQ round P and dS to bf16 for their
 products and their outputs to bf16 (relative L2 2e-2); K5 rounds only its
-output (one bf16 step; fp32 within 1e-5 of a unit output). The fp32 entries
-compute every product in fp32 FFMA and differ from the plain fp32 versions
-only in the order of their sums: the forward within relative L2 1e-5 and max
-abs 1e-4 (TF32 products would give about 1e-3), the backward pair within
-relative L2 1e-4, K2's other entry within relative L2 1e-5 in fp32 and one
-step of the output dtype in bf16 and fp16.
+output (one bf16 step; fp32 within 1e-5 of a unit output). The fp32 forward
+entries compute every product in fp32 FFMA, the fp32 backward pair every
+product as three TF32 products (3xTF32, ~2^-20 relative), and differ from
+the plain fp32 versions only in the order and rounding of their sums: the
+forward within relative L2 1e-5 and max abs 1e-4 (one TF32 product would
+give about 1e-3), the backward pair within relative L2 1e-4, two launches of
+it bit-equal, K2's other entry within relative L2 1e-5 in fp32 and one step
+of the output dtype in bf16 and fp16.
 """
 
 import numpy as np
@@ -156,24 +158,35 @@ def test_flash_fp32_kernel_matches_plain(cuda, B, H, L, layout):
     assert _rel(out, ref) <= 1e-5 and (out - ref).abs().max().item() <= 1e-4
 
 
+def _moved(before: dict, after: dict) -> dict:
+    return {n: after[n] - before[n] for n in after if after[n] != before[n]}
+
+
+_FP32_BWD = {"flash_attention_bwd_dkv_fp32": 1, "flash_attention_bwd_dq_fp32": 1}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (1, 2, 1701)])
-def test_flash_fp32_backward_kernels_match_plain(cuda, B, H, L):
+@pytest.mark.parametrize("B,H,L,head_stride", [(1, 1, 64, 1), (2, 3, 100, 1), (1, 2, 1100, 1), (1, 2, 1701, 1),
+                                               (2, 2, 300, 2)])
+def test_flash_fp32_backward_kernels_match_plain(cuda, B, H, L, head_stride):
     """The fp32 entries of K1-dKV and K1-dQ (csrc/flash_attention_bwd_fp32.cu)
     through K1's autograd on the UNet's packed-qkv views, a gradient on the
     log-sum-exp included: relative L2 1e-4 against autograd of the plain
-    fp32 math, one launch of each fp32 kernel."""
+    fp32 math; the counts of the fp32 forward and of each fp32 backward
+    kernel move by one and no other. With head_stride 2 the head dim is not
+    contiguous, a view no tensor map takes: the wrapper copies it first."""
     rng = np.random.default_rng(L + 5 * H)
-    base = _fp32(rng, (B, L, 3, H, 64), cuda)
+    base = _fp32(rng, (B, L, 3, H, 64 * head_stride), cuda)
     do = _fp32(rng, (B, H, L, 64), cuda)
     dl = _fp32(rng, (B, H, L), cuda)
 
     def grads(attend):
         leaf = base.clone().requires_grad_()
-        q, k, v = leaf.permute(2, 0, 3, 1, 4).unbind(0)
+        q, k, v = leaf[..., ::head_stride].permute(2, 0, 3, 1, 4).unbind(0)
+        assert q.stride(-1) == head_stride
         o, lse = attend(q, k, v)
         (g,) = torch.autograd.grad((o * do).sum() + (lse * dl).sum(), leaf)
-        return g
+        return g[..., ::head_stride]
 
     from stable_virtual_camera_tpu_torch.ops.flash_upstream import flash_attention_op
 
@@ -182,11 +195,43 @@ def test_flash_fp32_backward_kernels_match_plain(cuda, B, H, L):
     after = _kernels.counts()
     ref = grads(lambda q, k, v: flash_attention_plain(q, k, v, return_lse=True))
     torch.cuda.synchronize()
-    for name in ("flash_attention_bwd_dkv_fp32", "flash_attention_bwd_dq_fp32"):
-        assert after[name] == before[name] + 1
-    assert after["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"]
+    assert _moved(before, after) == {"flash_attention_fp32": 1, **_FP32_BWD}
     for part in range(3):
         assert _rel(got[:, :, part], ref[:, :, part]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L", [(1, 1, 27216), (1, 3, 1296)])
+def test_flash_fp32_backward_kernels_stream_and_repeat(cuda, B, H, L):
+    """The fp32 K1-dKV and K1-dQ on K1's fp32 output and log-sum-exp, at the
+    joint site's length with one head (426 streamed 64-row tiles a block)
+    and at a per-frame length: relative L2 1e-4 against the plain fp32
+    backward, finite, only the fp32 pair's counts moving; a second launch
+    on the same inputs gives the same bits."""
+    from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
+        attention_delta,
+        flash_attention_bwd_dkv_cuda,
+        flash_attention_bwd_dq_cuda,
+    )
+
+    rng = np.random.default_rng(L + 11 * H)
+    q, k, v = _fp32(rng, (B, L, 3, H, 64), cuda).permute(2, 0, 3, 1, 4).unbind(0)
+    do = _fp32(rng, (B, L, H, 64), cuda).transpose(1, 2)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True)
+    delta = attention_delta(o, do)
+    before = _kernels.counts()
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    dq = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+    after = _kernels.counts()
+    dk2, dv2 = flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    dq2 = flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+    refs = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert _moved(before, after) == _FP32_BWD
+    for g, g2, r in zip((dq, dk, dv), (dq2, dk2, dv2), refs):
+        assert g.dtype == torch.float32 and g.shape == (B, H, L, 64)
+        assert torch.isfinite(g).all() and _rel(g, r) <= 1e-4
+        assert torch.equal(g, g2)
 
 
 _ANY_CASES = [

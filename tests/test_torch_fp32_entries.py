@@ -8,7 +8,9 @@ the JAX kernel, so fp32 agrees to fp32 rounding (rtol 1e-5) and bf16, where
 both sides round only the output, to one bf16 step at the output's
 magnitude. K1's, K3's and K4's fp32 entries compute the plain versions'
 function, which tests/test_torch_ops.py and tests/test_torch_flash.py hold
-against the JAX kernels in fp32 already; here only their routes.
+against the JAX kernels in fp32 already; here only their routes, and the
+numerics the fp32 K1-dKV and K1-dQ rest on: three TF32 products (3xTF32)
+keep fp32's digits where one does not, emulated in plain PyTorch.
 """
 
 import numpy as np
@@ -122,3 +124,95 @@ def test_flash_wrappers_take_bf16_and_fp32_and_refuse_the_rest():
         fu._check_inputs(f, ("k", f.bfloat16()), ("v", f))
     with pytest.raises(ValueError):
         fu._check_inputs(f[..., :32], ("k", f[..., :32]), ("v", f[..., :32]))
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """fp32 to TF32 as `cvt.rna.tf32.f32` rounds: to nearest, ties away from
+    zero, keeping 10 of the 23 mantissa bits (adding half a TF32 step to
+    the magnitude's bits, then clearing the low 13)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_cut(x: torch.Tensor) -> torch.Tensor:
+    """fp32 to TF32 by clearing the low 13 mantissa bits: the kernels' x_hi,
+    and what the tensor cores read of an operand that is not TF32 (x_lo)."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("rounding", ["rna", "cut"])
+def test_three_tf32_products_keep_fp32_digits(rounding):
+    """What the fp32 K1-dKV and K1-dQ (csrc/flash_attention_bwd_fp32.cu)
+    rest on: with x_hi = tf32(x) and x_lo = tf32(x - x_hi), the 3-term
+    product a_hi b_hi + a_hi b_lo + a_lo b_hi of (64, 64) operands is within
+    1e-5 relative L2 of the fp64 product, and the 1-term TF32 product
+    a_hi b_hi is not (it keeps about three digits). "rna" rounds to nearest
+    as cvt.rna.tf32.f32 does; "cut" clears the low bits, the kernels' split
+    (x_hi cut by the kernel, x_lo cut by the tensor cores as they read it).
+    Products of TF32 values are exact in fp64, as in the tensor cores' fp32
+    accumulators."""
+    tf32 = _tf32_rna if rounding == "rna" else _tf32_cut
+    rng = np.random.default_rng(19)
+    a, b = (torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32)) for _ in range(2))
+
+    def split(x):
+        hi = tf32(x)
+        return hi, tf32(x - hi)
+
+    (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+    for part in (a_hi, a_lo, b_hi, b_lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((a - a_hi).abs() <= a.abs() * 2.0 ** (-11 if rounding == "rna" else -10)).all()
+    exact = a.double() @ b.double()
+
+    def rel(x: torch.Tensor) -> float:
+        return ((x.double() - exact).norm() / exact.norm()).item()
+
+    def mm(x, y):
+        return x.double() @ y.double()
+
+    three = (mm(a_lo, b_hi) + mm(a_hi, b_lo) + mm(a_hi, b_hi)).float()
+    one = mm(a_hi, b_hi).float()
+    assert rel(three) <= 1e-5 < rel(one)
+
+
+def test_tf32_rounding_emulations():
+    """`_tf32_rna` rounds to nearest with ties away from zero in both signs;
+    `_tf32_cut` truncates toward zero."""
+    x = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11), 1.0 + 2.0**-12, 1.0 + 3 * 2.0**-12])
+    assert _tf32_rna(x).tolist() == [1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0, 1.0 + 2.0**-10]
+    assert _tf32_cut(x).tolist() == [1.0, -1.0, 1.0, 1.0]
+
+
+def test_fp32_backward_copies_only_the_views_tma_cannot_take():
+    """The fp32 K1-dKV and K1-dQ read q, k, v and do through tensor maps:
+    `_check_bwd` still takes any fp32 view, and `_bwd_views` copies into the
+    `_in_bhld` layout exactly those a map cannot take (a non-contiguous head
+    dim, a row stride off 16 bytes, a base off a 16-byte boundary, a zero
+    stride). The UNet's packed-qkv views and `_empty_like_bhld` buffers
+    pass as they are, and bf16 operands are never copied."""
+    B, H, L = 1, 2, 6
+    lse = delta = torch.zeros((B, H, L))
+    q, k, v = torch.randn((B, L, 3, H, 64)).permute(2, 0, 3, 1, 4).unbind(0)
+    do = fu._empty_like_bhld(q).normal_()
+    odd = [
+        torch.randn((B, H, L, 128))[..., ::2],                     # head dim stride 2
+        torch.randn((B, H, L, 65))[..., :64],                      # rows 65 floats apart
+        torch.randn((B * H * L * 64 + 1,))[1:].view(B, H, L, 64),  # base 4 bytes off
+        torch.randn((B, 1, L, 64)).expand(B, H, L, 64),            # stride 0 over heads
+    ]
+    for t in (q, k, v, do):
+        assert fu._tma_view_ok(t)
+    ops = (q, k, v, do)
+    _, _, _, maps = fu._check_bwd(*ops, lse, delta)
+    got = fu._bwd_views(*ops, maps)
+    assert all(a is b for a, b in zip(got[:4], ops)) and got[4] == maps
+    for bad in odd:
+        ops = (q, bad, v, do)
+        _, _, _, maps = fu._check_bwd(*ops, lse, delta)  # any fp32 view is accepted
+        got = fu._bwd_views(*ops, maps)
+        copied = got[1]
+        assert copied is not bad and torch.equal(copied, bad) and fu._tma_view_ok(copied)
+        assert copied.stride() == fu._empty_like_bhld(q).stride()
+        assert got[0] is q and got[4] == fu._all_strides(*got[:4])
+    h = [t.bfloat16() for t in (q, k, v, do)]
+    assert fu._bwd_views(*h, [0])[:4] == tuple(h)
