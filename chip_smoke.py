@@ -25,11 +25,12 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      views the UNet's generic path passes; then `fp32_flash_attention`: the
      fp32 entry of K1, K3 and K4 (csrc/flash_attention_fp32.cu) in each
      layout at those shapes, and `fp32_flash_bwd`: the fp32 entries of
-     K1-dKV and K1-dQ (3xTF32 on the tensor cores) at the training shapes,
-     against the plain fp32 versions (relative L2 1e-5 and max abs 1e-4;
-     1e-4), with SDPA's memory-efficient backend, forward and backward, as
-     the yardstick, the pair's FFMA and 3xTF32 bounds, a repeated launch
-     that must give the same bits, and ptxas's registers and spills;
+     K1-dKV and K1-dQ at the training shapes, all in 3xTF32 on the tensor
+     cores, against the plain fp32 versions (relative L2 1e-5 and max abs
+     1e-4, K1's log-sum-exp 1e-5; 1e-4), with SDPA's memory-efficient
+     backend, forward and backward, as the yardstick, FFMA and 3xTF32
+     bounds, repeated launches that must give the same bits, and ptxas's
+     registers and spills;
   6. one full-width SevaUNet forward (bf16 random weights, 42 frames,
      576x576) through the kernels and through the plain versions, with a
      torch.profiler window over one forward (device time by kernel class,
@@ -258,11 +259,13 @@ UNET_REL_L2 = 3e-2
 FP32_REL_L2 = 2.5e-2
 # the fp32 entries of K1/K3/K4 and K1-dKV/K1-dQ and K2's entry for any head
 # dim and dtype, against their plain fp32 versions with TF32 off: the
-# forward entries compute every product as an fp32 FFMA, the backward pair
-# as three TF32 products (3xTF32, ~2^-20 relative), so only the order and
-# rounding of the sums differs (one TF32 product would give ~1e-3);
+# forward and the backward pair compute every product as three TF32
+# products (3xTF32, ~2^-20 relative), K2's other entry as an fp32 FFMA, so
+# only the order and rounding of the sums differs (one TF32 product would
+# give ~1e-3); K1's fp32 log-sum-exp as tests/test_torch_cuda.py holds it;
 # FP32_REPS launches an event reading averages
 FP32_FWD_REL_L2, FP32_FWD_MAX_ABS, FP32_BWD_REL_L2, K2_ANY_REL_L2 = 1e-5, 1e-4, 1e-4, 1e-5
+FP32_LSE_MAX_ABS = 1e-5
 FP32_REPS = 3
 # f1_fp32_routes: the full-width fp32 forward through the kernels against
 # its "plain" backend, and the fp32 loss and gradient likewise; the
@@ -795,11 +798,13 @@ def k1_event_ms(forward) -> float:
 
 def fp32_flash_row(gen, layout: str, L: int, B: int, H: int) -> dict:
     """The fp32 entry of K1 ("k1": (B, H, L, 64) views of a packed
-    (B, L, 3, H, 64) projection), K3 ("k3": (B, L, H, 64) chunks of a
-    (B, L, 3 H 64) one) or K4 ("k4": its packed (B, L, H 64) chunks) against
-    the plain fp32 version, with SDPA's memory-efficient backend (the one
-    that takes fp32) on (B, H, L, 64) views of the same tensors as the
-    one-call yardstick."""
+    (B, L, 3, H, 64) projection, with its log-sum-exp), K3 ("k3": (B, L, H,
+    64) chunks of a (B, L, 3 H 64) one) or K4 ("k4": its packed (B, L, H 64)
+    chunks) against the plain fp32 version, a second launch that must give
+    the same bits, and SDPA's memory-efficient backend (the one that takes
+    fp32) on (B, H, L, 64) views of the same tensors as the one-call
+    yardstick. The bound is the smaller of the FLOP at the FFMA rate and
+    three times the FLOP at the TF32 rate (3xTF32), or the bytes."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -826,18 +831,28 @@ def fp32_flash_row(gen, layout: str, L: int, B: int, H: int) -> dict:
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             return torch.nn.functional.scaled_dot_product_attention(*bhld)
 
-    out, ref = kernel(), plain()
+    if layout == "k1":
+        (out, lse), (out2, lse2) = (flash_attention_cuda(q, k, v, return_lse=True) for _ in range(2))
+        ref, lse_ref = flash_attention_plain(q, k, v, return_lse=True)
+        extra = {"lse_max_abs_err": (lse - lse_ref).abs().max().item()}
+        repeat = torch.equal(out, out2) and torch.equal(lse, lse2)
+        del lse, lse2, lse_ref
+    else:
+        out, out2, ref = kernel(), kernel(), plain()
+        extra, repeat = {}, torch.equal(out, out2)
     torch.cuda.synchronize()
     diff = (out - ref).abs()
     row = {"layout": layout, "L": L, "B": B, "H": H,
-           "rel_l2": ((out - ref).norm() / ref.norm()).item(), "max_abs_err": diff.max().item(),
-           "finite": bool(torch.isfinite(out).all()),
+           "rel_l2": ((out - ref).norm() / ref.norm()).item(), "max_abs_err": diff.max().item(), **extra,
+           "repeat_bit_equal": repeat, "finite": bool(torch.isfinite(out).all()),
            "ms": cuda_ms(kernel, FP32_REPS), "plain_ms": cuda_ms(plain, 1), "library_ms": cuda_ms(library, FP32_REPS)}
-    flops = 4.0 * L * L * 64 * H * B
+    flops, nbytes = 4.0 * L * L * 64 * H * B, 4 * B * H * L * 64 * 4
     row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-    row["bound_ms"], row["bound_by"] = bound(flops, 4 * B * H * L * 64 * 4, PEAK_FP32_FLOPS)
+    ffma, tf32x3 = bound(flops, nbytes, PEAK_FP32_FLOPS), bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    row["ffma_bound_ms"], row["tf32x3_bound_ms"] = ffma[0], tf32x3[0]
+    row["bound_ms"], row["bound_by"] = min(ffma, tf32x3)
     row["bound_share"] = row["bound_ms"] / row["ms"]
-    del qkv, q, k, v, bhld, out, ref, diff
+    del qkv, q, k, v, bhld, out, out2, ref, diff
     torch.cuda.empty_cache()
     return row
 
@@ -851,21 +866,33 @@ def fp32_sums(rows: list[dict]) -> dict:
 
 def check_fp32_flash(gen) -> dict:
     """`fp32_flash_attention`: the fp32 entry of K1, K3 and K4
-    (csrc/flash_attention_fp32.cu) in each route's layout at the 576x576
-    render's self-attention shapes (K4: the ones it takes), against the
-    plain fp32 versions at FP32_FWD_REL_L2 and FP32_FWD_MAX_ABS."""
+    (csrc/flash_attention_fp32.cu, 3xTF32 on the tensor cores) in each
+    route's layout at the 576x576 render's self-attention shapes (K4: the
+    ones it takes), against the plain fp32 versions at FP32_FWD_REL_L2 and
+    FP32_FWD_MAX_ABS (K1's log-sum-exp at FP32_LSE_MAX_ABS), each with a
+    second launch that must give the same bits; ptxas's registers and
+    spills of the kernel."""
+    ptxas = start_ptxas("flash_attention_fp32")
     rows = {layout: [fp32_flash_row(gen, layout, *shape) for shape in (K4_SHAPES if layout == "k4" else K1_SHAPES)]
             for layout in ("k1", "k3", "k4")}
-    ok = all(r["finite"] and r["rel_l2"] <= FP32_FWD_REL_L2 and r["max_abs_err"] <= FP32_FWD_MAX_ABS
+    ok = all(r["finite"] and r["repeat_bit_equal"] and r["rel_l2"] <= FP32_FWD_REL_L2
+             and r["max_abs_err"] <= FP32_FWD_MAX_ABS and r.get("lse_max_abs_err", 0.0) <= FP32_LSE_MAX_ABS
              for rs in rows.values() for r in rs)
-    sums = {layout: fp32_sums(rs) for layout, rs in rows.items()}
+    sums = {}
+    for layout, rs in rows.items():
+        sm = fp32_sums(rs) | {key: sum(r[key] for r in rs) for key in ("ffma_bound_ms", "tf32x3_bound_ms")}
+        sums[layout] = sm | {"bound_share": sm["bound_ms"] / sm["ms"]}
+    usage = read_ptxas(ptxas, ("flash_fwd_fp32_kernel",))
     emit({"phase": "fp32_flash_attention", "ok": ok,
-          "bar": {"rel_l2": FP32_FWD_REL_L2, "max_abs": FP32_FWD_MAX_ABS}, "sums": sums, "shapes": rows,
+          "bar": {"rel_l2": FP32_FWD_REL_L2, "max_abs": FP32_FWD_MAX_ABS, "lse_max_abs": FP32_LSE_MAX_ABS},
+          "sums": sums, "shapes": rows, "ptxas": usage,
           "library": "F.scaled_dot_product_attention with SDPBackend.EFFICIENT_ATTENTION (the flash "
                      "backend takes no fp32) on (B, H, L, 64) views of the same tensors"})
     if not ok:
         raise AssertionError("the fp32 flash forward disagrees with its plain version")
-    return {**sums["k1"], "by_layout": sums,
+    k1 = sums["k1"]
+    return {**k1, "by_layout": sums, "bound_ffma_ms": k1["ffma_bound_ms"], "bound_tf32x3_ms": k1["tf32x3_bound_ms"],
+            "ptxas": usage.get("flash_fwd_fp32_kernel"),
             "library": "SDPA, memory-efficient backend, fp32, on the same views"}
 
 

@@ -45,7 +45,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     """Launch K3. q, k, v: (B, L, H, 64) views of one dtype, bf16 with a
     contiguous head dim (any batch/row/head strides that keep 16-byte rows,
     e.g. chunks of one packed projection) or fp32 through any strides (the
-    fp32 entry). Returns a contiguous (B, L, H, 64) of q's dtype."""
+    fp32 entry, after `flash_upstream._map_views`). Returns a contiguous
+    (B, L, H, 64) of q's dtype."""
     B, L, H, D = q.shape
     if D != fu.HEAD_DIM:
         raise ValueError(f"flash attention (K3) needs head dim {fu.HEAD_DIM}, got {D}")

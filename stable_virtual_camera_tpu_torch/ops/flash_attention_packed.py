@@ -72,7 +72,8 @@ def flash_attention_packed_cuda(
     """Launch K4. q, k, v: (B, L, heads * 64) views of one dtype, bf16 with
     contiguous columns (any batch/row strides that keep 16-byte rows, e.g.
     chunks of one packed projection) or fp32 through any strides (the fp32
-    entry). Returns a contiguous (B, L, heads * 64) of q's dtype."""
+    entry, after `flash_upstream._map_views`). Returns a contiguous
+    (B, L, heads * 64) of q's dtype."""
     B, L, W = q.shape
     if W != heads * HEAD_DIM:
         raise ValueError(f"packed flash attention (K4) needs W = heads * {HEAD_DIM}, got W={W}, heads={heads}")

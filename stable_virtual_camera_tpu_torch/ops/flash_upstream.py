@@ -129,7 +129,8 @@ def tma_dims_strides(t: torch.Tensor) -> tuple[tuple[int, int, int, int], tuple[
 def _check(name: str, t: torch.Tensor, shape, dtype=None) -> None:
     """dtype (bf16 or fp32, and `dtype` where given) and shape; the layout of
     what the bf16 kernels read through tensor maps is checked by
-    `tma_dims_strides` (the fp32 entries take any strides)."""
+    `tma_dims_strides` (the fp32 entries take any strides: `_map_views` copies
+    what their tensor maps cannot take)."""
     if t.dtype not in DTYPES or (dtype is not None and t.dtype != dtype):
         raise TypeError(f"flash attention takes bfloat16 or float32 operands of one dtype, "
                         f"got {name}.dtype={t.dtype}")
@@ -194,14 +195,26 @@ def bwd_kernels(q: torch.Tensor) -> tuple[_kernels.Kernel, _kernels.Kernel]:
     return _kernels.FLASH_ATTENTION_BWD_DKV, _kernels.FLASH_ATTENTION_BWD_DQ
 
 
+def _map_views(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """fp32 (B, H, L, 64) views as the fp32 entries read them through tensor
+    maps: one with a non-contiguous head dim, strides that are not whole
+    16-byte units, a base off a 16-byte boundary or a zero (broadcast)
+    stride is copied into the `_in_bhld` layout; the others, the UNet's
+    packed-qkv views, K3's and K4's chunks of a packed projection and the
+    `_empty_like_bhld` buffers among them, pass as they are."""
+    return tuple(t if _tma_view_ok(t) and 0 not in t.stride()[:3] else _in_bhld(t) for t in ts)
+
+
 def launch_fwd(kernel: _kernels.Kernel, q, k, v, o, lse=None) -> None:
     """Launch one of K1, K3, K4 on (B, H, L, 64) views: for bf16 `kernel`
     (the Hopper tile, csrc/flash_fwd_sm90.cuh) with q, k, v through their
     tensor maps, for fp32 the fp32 entry (csrc/flash_attention_fp32.cu) with
-    q, k, v through their element strides; o through its element strides,
-    and the fp32 (B, H, L) log-sum-exp when `lse` is given."""
+    q, k, v through tensor maps as well, after `_map_views` has copied the
+    views a map cannot take; o through its element strides, and the fp32
+    (B, H, L) log-sum-exp when `lse` is given."""
     B, H, L, _ = q.shape
     if q.dtype == torch.float32:
+        q, k, v = _map_views(q, k, v)
         strides = _all_strides(q, k, v, o)
     else:
         strides = [s for t in (q, k, v) for s in tma_dims_strides(t)[1]] + _strides(o)
@@ -219,10 +232,11 @@ def flash_attention_cuda(
 ):
     """Launch K1. q, k, v: (B, H, L, 64) views of one dtype: bf16 with a
     contiguous head dim (any batch/head/row strides that keep 16-byte rows),
-    or fp32 through any strides (the fp32 entry). Returns a (B, H, L, 64)
-    view of a (B, L, H, 64) buffer of q's dtype, so `o.transpose(1, 2)`
-    is the packed (B, L, H*64) layout for free; with `return_lse` also the
-    fp32 (B, H, L) log-sum-exp, which the kernel writes in its epilogue."""
+    or fp32 through any strides (the fp32 entry, after `_map_views`).
+    Returns a (B, H, L, 64) view of a (B, L, H, 64) buffer of q's dtype, so
+    `o.transpose(1, 2)` is the packed (B, L, H*64) layout for free; with
+    `return_lse` also the fp32 (B, H, L) log-sum-exp, which the kernel
+    writes in its epilogue."""
     B, H, L, D = _check_inputs(q, ("k", k), ("v", v))
     o = _empty_like_bhld(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=q.device) if return_lse else None
@@ -256,10 +270,10 @@ def _bwd_views(q, k, v, do, maps: list[int]):
     non-contiguous head dim, strides that are not whole 16-byte units, a
     base off a 16-byte boundary or a zero (broadcast) stride is copied into
     the `_in_bhld` layout here first. The UNet's packed-qkv views and the
-    `_empty_like_bhld` buffers need no copy."""
+    `_empty_like_bhld` buffers need no copy (`_map_views`)."""
     if q.dtype != torch.float32:
         return q, k, v, do, maps
-    ts = tuple(t if _tma_view_ok(t) and 0 not in t.stride()[:3] else _in_bhld(t) for t in (q, k, v, do))
+    ts = _map_views(q, k, v, do)
     return (*ts, _all_strides(*ts))
 
 

@@ -24,12 +24,12 @@ K3 and K4 are K1's tile on other layouts (K1's bars);
 K1's LSE is fp32 (1e-2); K1-dKV/K1-dQ round P and dS to bf16 for their
 products and their outputs to bf16 (relative L2 2e-2); K5 rounds only its
 output (one bf16 step; fp32 within 1e-5 of a unit output). The fp32 forward
-entries compute every product in fp32 FFMA, the fp32 backward pair every
-product as three TF32 products (3xTF32, ~2^-20 relative), and differ from
+and backward entries compute every product as three TF32 products on the
+tensor cores (3xTF32, ~2^-20 relative), and differ from
 the plain fp32 versions only in the order and rounding of their sums: the
 forward within relative L2 1e-5 and max abs 1e-4 (one TF32 product would
 give about 1e-3), the backward pair within relative L2 1e-4, two launches of
-it bit-equal, K2's other entry within relative L2 1e-5 in fp32 and one step
+each bit-equal, K2's other entry within relative L2 1e-5 in fp32 and one step
 of the output dtype in bf16 and fp16.
 """
 
@@ -118,10 +118,21 @@ def _fp32(rng, shape, device):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(device)
 
 
-def _fp32_views(rng, layout, B, H, L, device):
+def _fp32_views(rng, layout, B, H, L, device, odd=None):
     """q, k, v as each fp32 route passes them: K1's (B, H, L, 64) views of a
     packed (B, L, 3, H, 64) projection, K3's (B, L, H, 64) chunks of a
-    (B, L, 3 H 64) one, K4's packed (B, L, H 64) chunks of it."""
+    (B, L, 3 H 64) one, K4's packed (B, L, H 64) chunks of it. With `odd`,
+    K1's operands are instead (B, H, L, 64) views no tensor map takes, which
+    the wrapper copies first: a head dim of stride 2 ("head_stride"), rows
+    65 floats apart ("row_pad"), a base 4 bytes past a 16-byte boundary
+    ("base_off") or a zero stride over heads ("broadcast")."""
+    if odd is not None:
+        n = B * H * L * 64
+        make = {"head_stride": lambda: _fp32(rng, (B, H, L, 128), device)[..., ::2],
+                "row_pad": lambda: _fp32(rng, (B, H, L, 65), device)[..., :64],
+                "base_off": lambda: _fp32(rng, (n + 1,), device)[1:].view(B, H, L, 64),
+                "broadcast": lambda: _fp32(rng, (B, 1, L, 64), device).expand(B, H, L, 64)}[odd]
+        return make(), make(), make()
     if layout == "k1":
         return _fp32(rng, (B, L, 3, H, 64), device).permute(2, 0, 3, 1, 4).unbind(0)
     qkv = _fp32(rng, (B, L, 3 * H * 64), device).chunk(3, dim=-1)
@@ -130,32 +141,49 @@ def _fp32_views(rng, layout, B, H, L, device):
     return qkv
 
 
+# each route's layout at one tile, ragged L and a per-frame length; the
+# joint site's length with one head (426 streamed 64-key tiles a block);
+# K1 on each kind of view a tensor map cannot take
+_FP32_FWD_CASES = [(layout, B, H, L, None) for layout in ("k1", "k3", "k4")
+                   for B, H, L in [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (2, 2, 1296)]]
+_FP32_FWD_CASES += [("k1", 1, 1, 27216, None)]
+_FP32_FWD_CASES += [("k1", 2, 2, 300, odd) for odd in ("head_stride", "row_pad", "base_off", "broadcast")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,L", [(1, 1, 64), (2, 3, 100), (1, 2, 1100), (2, 2, 1296)])
-@pytest.mark.parametrize("layout", ["k1", "k3", "k4"])
-def test_flash_fp32_kernel_matches_plain(cuda, B, H, L, layout):
-    """The fp32 entry of K1, K3 and K4 (csrc/flash_attention_fp32.cu) on
-    each route's views, ragged L included, with K1's log-sum-exp: relative
-    L2 1e-5 and max abs 1e-4 against the plain fp32 version, one launch of
-    the fp32 kernel and none of the bf16 ones."""
+@pytest.mark.parametrize("layout,B,H,L,odd", _FP32_FWD_CASES)
+def test_flash_fp32_kernel_matches_plain(cuda, layout, B, H, L, odd):
+    """The fp32 entry of K1, K3 and K4 (csrc/flash_attention_fp32.cu, 3xTF32
+    on the tensor cores) on each route's views, ragged L, a long streaming
+    row and views the wrapper copies included, with K1's log-sum-exp:
+    relative L2 1e-5 and max abs 1e-4 against the plain fp32 version, the
+    LSE within 1e-5, one launch of the fp32 kernel and no other; a second
+    launch on the same inputs gives the same bits."""
     rng = np.random.default_rng(L + 3 * H)
-    q, k, v = _fp32_views(rng, layout, B, H, L, cuda)
-    before = _kernels.counts()
+    q, k, v = _fp32_views(rng, layout, B, H, L, cuda, odd)
     if layout == "k1":
-        out, lse = flash_attention_cuda(q, k, v, return_lse=True)
+        def run():
+            return flash_attention_cuda(q, k, v, return_lse=True)
         ref, lse_ref = flash_attention_plain(q, k, v, return_lse=True)
-        assert (lse - lse_ref).abs().max().item() <= 1e-5
     elif layout == "k3":
-        out, ref = fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v)
+        def run():
+            return fa.flash_attention(q, k, v), None
+        ref = fa.flash_attention_plain(q, k, v)
     else:
-        out, ref = fap.flash_attention_packed(q, k, v, H), fap.flash_attention_packed_plain(q, k, v, H)
+        def run():
+            return fap.flash_attention_packed(q, k, v, H), None
+        ref = fap.flash_attention_packed_plain(q, k, v, H)
+    before = _kernels.counts()
+    out, lse = run()
     after = _kernels.counts()
+    out2, lse2 = run()
     torch.cuda.synchronize()
+    assert _moved(before, after) == {"flash_attention_fp32": 1}
     assert out.dtype == torch.float32 and out.shape == ref.shape
-    assert after["flash_attention_fp32"] == before["flash_attention_fp32"] + 1
-    assert all(after[n] == before[n] for n in ("flash_attention", "flash_attention_blhd",
-                                               "flash_attention_packed"))
     assert _rel(out, ref) <= 1e-5 and (out - ref).abs().max().item() <= 1e-4
+    assert torch.equal(out, out2)
+    if lse is not None:
+        assert (lse - lse_ref).abs().max().item() <= 1e-5 and torch.equal(lse, lse2)
 
 
 def _moved(before: dict, after: dict) -> dict:

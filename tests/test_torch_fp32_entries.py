@@ -8,10 +8,15 @@ the JAX kernel, so fp32 agrees to fp32 rounding (rtol 1e-5) and bf16, where
 both sides round only the output, to one bf16 step at the output's
 magnitude. K1's, K3's and K4's fp32 entries compute the plain versions'
 function, which tests/test_torch_ops.py and tests/test_torch_flash.py hold
-against the JAX kernels in fp32 already; here only their routes, and the
-numerics the fp32 K1-dKV and K1-dQ rest on: three TF32 products (3xTF32)
-keep fp32's digits where one does not, emulated in plain PyTorch.
+against the JAX kernels in fp32 already; here their routes, the numerics
+the fp32 kernels rest on (three TF32 products, 3xTF32, keep fp32's digits
+where one does not), the fp32 forward's whole arithmetic emulated in plain
+PyTorch against JAX's K1 in interpret mode, and the views the fp32
+kernels' wrappers copy for their tensor maps.
 """
+
+import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -216,3 +221,121 @@ def test_fp32_backward_copies_only_the_views_tma_cannot_take():
         assert got[0] is q and got[4] == fu._all_strides(*got[:4])
     h = [t.bfloat16() for t in (q, k, v, do)]
     assert fu._bwd_views(*h, [0])[:4] == tuple(h)
+
+
+def _emulate_fp32_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, products: int = 3):
+    """What the fp32 forward of K1, K3 and K4 (csrc/flash_attention_fp32.cu)
+    computes, in plain PyTorch on (B, H, L, 64) fp32: q scaled by log2(e) / 8
+    in fp32; keys in 64-row tiles, keys past L scoring -inf; every product
+    of S = q K^T and of P V as `products` TF32 products (3: the kernel's
+    a_lo b_hi + a_hi b_lo + a_hi b_hi with the cut split; 1: a_hi b_hi),
+    exact in fp64 as in the tensor cores' accumulators and summed to fp32;
+    the base-2 online softmax; each tile's P V summed from zero, then added
+    to the rescaled running O. Returns o and the natural-log LSE."""
+    B, H, L, D = q.shape
+    tile = 64
+    pad = -L % tile
+    k, v = (torch.cat([t, t.new_zeros((B, H, pad, D))], 2) for t in (k, v))
+
+    def split(x):
+        hi = _tf32_cut(x)
+        return hi, _tf32_cut(x - hi)
+
+    def mm(a, b):
+        (a_hi, a_lo), (b_hi, b_lo) = split(a), split(b)
+        out = a_hi.double() @ b_hi.double()
+        if products == 3:
+            out = a_lo.double() @ b_hi.double() + a_hi.double() @ b_lo.double() + out
+        return out.float()
+
+    qs = q * torch.tensor(fu._SCALE_LOG2, dtype=torch.float32)
+    m = torch.full((B, H, L), -torch.inf)
+    l = torch.zeros((B, H, L))
+    acc = torch.zeros((B, H, L, D))
+    for t0 in range(0, L, tile):
+        s = mm(qs, k[:, :, t0 : t0 + tile].transpose(-1, -2))
+        s[..., max(L - t0, 0) :] = -torch.inf
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + mm(p, v[:, :, t0 : t0 + tile])
+        m = m_new
+    return acc / l[..., None], m * np.float32(np.log(2.0)) + torch.log(l)
+
+
+@pytest.mark.parametrize("L", [200, 1100])
+def test_fp32_forward_arithmetic_matches_jax(L):
+    """The fp32 forward's arithmetic (`_emulate_fp32_forward`: 64-key tiles,
+    3xTF32 products, base-2 online softmax, per-tile sums) against the JAX
+    package's `flash_attention_upstream_bhld` at (1, 2, L, 64) in Pallas
+    interpret mode: relative L2 1e-5 and max abs 1e-4, the bars the kernel
+    is held to on the card; its LSE within 1e-5 of the port's plain one. The
+    same loop with one TF32 product misses the relative L2 bar, so the bar
+    tells 3xTF32 from TF32."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from stable_virtual_camera_tpu.ops.flash_upstream import flash_attention_upstream_bhld as jax_fa
+
+    rng = np.random.default_rng(L)
+    q, k, v = (rng.normal(size=(1, 2, L, 64)).astype(np.float32) for _ in range(3))
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jax_fa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    _, lse_plain = fu.flash_attention_plain(tq, tk, tv, return_lse=True)
+
+    def rel(out: torch.Tensor) -> float:
+        return float(np.linalg.norm(out.numpy() - ref) / np.linalg.norm(ref))
+
+    out, lse = _emulate_fp32_forward(tq, tk, tv)
+    assert rel(out) <= 1e-5 and np.abs(out.numpy() - ref).max() <= 1e-4
+    assert (lse - lse_plain).abs().max().item() <= 1e-5
+    one, _ = _emulate_fp32_forward(tq, tk, tv, products=1)
+    assert rel(one) > 1e-5
+
+
+def test_fp32_forward_copies_only_the_views_tma_cannot_take(monkeypatch):
+    """The fp32 forward reads q, k and v through tensor maps: `launch_fwd`
+    passes the kernel the views a map takes as they are (K1's packed-qkv
+    views, K3's and K4's chunks of a packed projection, as their wrappers
+    hand them over) and copies into the `_in_bhld` layout exactly those it
+    cannot take (`_map_views`, shared with the backward); o is written
+    through its strides, whatever they are. The launch is recorded, not
+    run, so no card is needed."""
+    B, H, L = 2, 3, 6
+    seen = []
+    monkeypatch.setattr(_kernels.FLASH_ATTENTION_FP32, "launch", lambda *args: seen.append(args))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: types.SimpleNamespace(cuda_stream=0))
+
+    def launched(q, k, v, o):
+        seen.clear()
+        fu.launch_fwd(_kernels.FLASH_ATTENTION, q, k, v, o)
+        (args,) = seen
+        strides = args[8:24]
+        return args[:3], [list(strides[4 * i : 4 * i + 4]) for i in range(4)]
+
+    packed = torch.randn((B, L, 3 * H * 64)).chunk(3, dim=-1)
+    unet = torch.randn((B, L, 3, H, 64)).permute(2, 0, 3, 1, 4).unbind(0)
+    k3 = [t.view(B, L, H, 64).transpose(1, 2) for t in packed]
+    k4 = [t.unflatten(-1, (H, 64)).transpose(1, 2) for t in packed]
+    for q, k, v in (unet, k3, k4):
+        o = fu._empty_like_bhld(q)
+        ptrs, strides = launched(q, k, v, o)
+        assert list(ptrs) == [t.data_ptr() for t in (q, k, v)]
+        assert strides == [list(t.stride()) for t in (q, k, v, o)]
+    odd = [
+        torch.randn((B, H, L, 128))[..., ::2],                     # head dim stride 2
+        torch.randn((B, H, L, 65))[..., :64],                      # rows 65 floats apart
+        torch.randn((B * H * L * 64 + 1,))[1:].view(B, H, L, 64),  # base 4 bytes off
+        torch.randn((B, 1, L, 64)).expand(B, H, L, 64),            # stride 0 over heads
+    ]
+    q, k, v = unet
+    o = torch.empty((B, H, L, 128))[..., ::2]
+    for bad in odd:
+        (copied,) = fu._map_views(bad)
+        assert copied is not bad and torch.equal(copied, bad) and fu._tma_view_ok(copied)
+        assert copied.stride() == fu._empty_like_bhld(q).stride()
+        ptrs, strides = launched(q, bad, v, o)
+        assert ptrs[0] == q.data_ptr() and ptrs[2] == v.data_ptr() and ptrs[1] != bad.data_ptr()
+        assert strides[1] == list(copied.stride()) and strides[3] == list(o.stride())
