@@ -45,7 +45,9 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      and backward (T=21, per-block remat) through the fp32 kernels against
      the plain attention (loss 1e-5, gradient 1e-4); then
      `k2_any_time_attention`: that K2 entry against its plain version at
-     the fp32 render's time-mix shapes and the tiny CLI's (fp32 and bf16);
+     the fp32 render's time-mix shapes (warm, cold and by device time) and
+     the tiny CLI's (fp32 and bf16), a bit-equal repeat, and ptxas's
+     registers and spills of each of its instantiations;
   7. the render path: HeadlessRenderer.render in Basic mode at full width
      (SevaSpec(), ClipVisionSpec(), SD2.1 VAE, bf16 random weights) on one
      seeded 576x576 image along the `orbit` preset, both passes, with the
@@ -1017,31 +1019,61 @@ def check_fp32_flash_bwd(gen) -> dict:
     return out
 
 
-def k2_any_row(gen, S: int, H: int, D: int, num_frames: int, b: int, dtype) -> dict:
+def k2_any_row(gen, S: int, H: int, D: int, num_frames: int, b: int, dtype, cold: bool = False) -> dict:
     """K2's entry for any head dim and dtype (csrc/time_attention_any.cu)
     against its plain version at one (S, H, D, T, b), on the UNet's views of
     a (b*T, 3, H, D, S) projection, with SDPA on permuted views as the
-    one-call yardstick."""
+    one-call yardstick, warm (`ms`, `library_ms`: back to back on one
+    projection) and, with `cold`, as `k2_row` reads K2: rotating over at
+    least K2_COLD_BYTES of projections (`cold_ms`, `library_cold_ms`) and by
+    torch.profiler's device time over that rotation (`device_us`,
+    `library_device_us`). `bound_share` and `gb_per_s` are from the cold
+    device time where it was read, else from the warm time; the copy mode
+    the plan took is `copy`."""
     import torch
 
-    from stable_virtual_camera_tpu_torch.ops.time_attention import time_attention_any_cuda, time_attention_plain
+    from stable_virtual_camera_tpu_torch.ops.time_attention import (
+        _any_plan,
+        time_attention_any_cuda,
+        time_attention_plain,
+    )
 
-    qkv = torch.randn((b * num_frames, 3, H, D, S), generator=gen, device=DEVICE).to(dtype)
-    q, k, v = qkv.unbind(1)
+    def projection():
+        return torch.randn((b * num_frames, 3, H, D, S), generator=gen, device=DEVICE).to(dtype).unbind(1)
+
+    q, k, v = projection()
     out = time_attention_any_cuda(q, k, v, num_frames).float()
     ref = time_attention_plain(q, k, v, num_frames).float()
     torch.cuda.synchronize()
     row = {"S": S, "H": H, "D": D, "T": num_frames, "b": b, "dtype": str(dtype).replace("torch.", ""),
+           "copy": _any_plan(q, k, v, num_frames).copy,
            "rel_l2": ((out - ref).norm() / ref.norm()).item(), "max_abs_err": (out - ref).abs().max().item(),
            "max_bf16_steps": bf16_steps(out, ref), "finite": bool(torch.isfinite(out).all()),
            "ms": cuda_ms(lambda: time_attention_any_cuda(q, k, v, num_frames), K2_REPS),
            "plain_ms": cuda_ms(lambda: time_attention_plain(q, k, v, num_frames), 3),
            "library_ms": cuda_ms(lambda: time_sdpa(q, k, v, num_frames), K2_REPS)}
-    nbytes = 4 * b * num_frames * H * D * S * qkv.element_size()
+    del out, ref
+    nbytes = 4 * b * num_frames * H * D * S * q.element_size()
     row["bound_ms"], row["bound_by"] = bound(4.0 * num_frames * num_frames * D * b * S * H, nbytes, PEAK_FP32_FLOPS)
-    row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
-    row["bound_share"] = row["bound_ms"] / row["ms"]
-    del qkv, q, k, v, out, ref
+    seconds = row["ms"] * 1e-3
+    if cold:
+        n = -(-int(K2_COLD_BYTES) // (nbytes * 3 // 4))
+        inputs = [(q, k, v)] + [projection() for _ in range(n - 1)]
+        any_cold = rotating(lambda qi, ki, vi, oi: time_attention_any_cuda(qi, ki, vi, num_frames, out=oi),
+                            [(*qkv, torch.empty_like(qkv[0], memory_format=torch.contiguous_format))
+                             for qkv in inputs])
+        lib_cold = rotating(lambda qi, ki, vi: time_sdpa(qi, ki, vi, num_frames), inputs)
+        row |= {"cold_inputs": n, "cold_ms": cuda_ms(any_cold, K2_REPS),
+                "library_cold_ms": cuda_ms(lib_cold, K2_REPS)}
+        row["device_us"], row["kernel_classes"] = device_us(any_cold, K2_PROFILED)
+        row["library_device_us"], row["library_kernel_classes"] = device_us(lib_cold, K2_PROFILED)
+        row["library_bound_share"] = row["bound_ms"] * 1e3 / row["library_device_us"]
+        row["host_bound"] = row["cold_ms"] * 1e3 > LN_HOST_BOUND * row["device_us"]
+        seconds = row["device_us"] * 1e-6
+        del inputs, any_cold, lib_cold
+    row["gb_per_s"] = nbytes / seconds / 1e9
+    row["bound_share"] = row["bound_ms"] * 1e-3 / seconds
+    del q, k, v
     torch.cuda.empty_cache()
     return row
 
@@ -1051,30 +1083,53 @@ def k2_any_ok(row: dict) -> bool:
     return row["finite"] and bar
 
 
+# csrc/time_attention_any.cu's instantiations as ptxas names them: the
+# element type's mangled name and the key-frame ceiling
+K2_ANY_INSTANCES = {f"time_any_kernelI{code}Li{tc}E": f"{name} Tc={tc}"
+                    for code, name in (("f", "float32"), ("13__nv_bfloat16", "bfloat16"), ("6__half", "float16"))
+                    for tc in (4, 8, 16, 21, 24, 32)}
+
+
 def check_time_any(gen, tiny_shapes) -> dict:
     """`k2_any_time_attention`: K2's entry for any head dim and dtype at the
-    fp32 render's time-mix shapes (576x576, T=21, b=2, head dim 64) and at
-    the tiny fp32 CLI's (`tiny_shapes`, noted in f1_fp32_routes: head dim
+    fp32 render's time-mix shapes (576x576, T=21, b=2, head dim 64; warm,
+    cold and by device time, the bound share from the cold device time) and
+    at the tiny fp32 CLI's (`tiny_shapes`, noted in f1_fp32_routes: head dim
     16), in fp32 at K2_ANY_REL_L2, and at the tiny CLI's in bf16 at one bf16
-    step; SDPA on permuted views as the yardstick, its backend named by its
-    kernels in one profiled call."""
+    step; a second launch at K2_REPEAT_SHAPE in fp32 must give the same
+    bits; SDPA on permuted views as the yardstick, its backend named by its
+    kernels in one profiled call; ptxas's registers and spills of each of
+    the kernel's instantiations."""
     import torch
 
-    render = [k2_any_row(gen, S, H, 64, T, 2, torch.float32) for S, H in K2_SHAPES]
+    from stable_virtual_camera_tpu_torch.ops.time_attention import time_attention_any_cuda
+
+    ptxas = start_ptxas("time_attention_any")
+    render = [k2_any_row(gen, S, H, 64, T, 2, torch.float32, cold=True) for S, H in K2_SHAPES]
     tiny = [k2_any_row(gen, S, H, D, t, b, dt) for dt in (torch.float32, torch.bfloat16)
             for S, H, D, t, b in sorted(tiny_shapes, reverse=True)]
-    ok = all(k2_any_ok(r) for r in render + tiny) and bool(tiny)
+    S, H, t, b = K2_REPEAT_SHAPE
+    q = torch.randn((b * t, 3, H, 64, S), generator=gen, device=DEVICE).unbind(1)
+    repeat_bit_equal = bool(torch.equal(time_attention_any_cuda(*q, t), time_attention_any_cuda(*q, t)))
+    del q
+    ok = all(k2_any_ok(r) for r in render + tiny) and bool(tiny) and repeat_bit_equal
     q = torch.randn((2 * T, 5, 64, 5184), generator=gen, device=DEVICE)
     backend = list(device_time_by_class(lambda: (time_sdpa(q, q, q, T), torch.cuda.synchronize()),
                                         top=3)["top_kernels_ms"])
     del q
+    found = read_ptxas(ptxas, tuple(K2_ANY_INSTANCES))
+    usage = {"rc": found["rc"], **{K2_ANY_INSTANCES[k]: found[k] for k in K2_ANY_INSTANCES if k in found}}
+    instances = [u for key, u in usage.items() if key != "rc"]
+    usage["max_registers"] = max((u.get("registers", 0) for u in instances), default=None)
+    usage["spill_bytes"] = sum(u.get("spill_store_bytes", 0) + u.get("spill_load_bytes", 0) for u in instances)
+    render_sum = summary(render)
     emit({"phase": "k2_any_time_attention", "ok": ok,
           "bar": {"fp32_rel_l2": K2_ANY_REL_L2, "bf16_steps": K2_BF16_STEPS},
-          "render_fp32": rows_sum(render), "tiny_cli": rows_sum(tiny), "shapes": {"render": render, "tiny": tiny},
-          "library_kernels_at_5184": backend})
+          "render_fp32": render_sum, "tiny_cli": rows_sum(tiny), "repeat_bit_equal": repeat_bit_equal,
+          "ptxas": usage, "shapes": {"render": render, "tiny": tiny}, "library_kernels_at_5184": backend})
     if not ok:
-        raise AssertionError("K2's entry for any head dim disagrees with its plain version")
-    return {**rows_sum(render), "tiny_cli": rows_sum(tiny),
+        raise AssertionError("K2's entry for any head dim disagrees with its plain version or a repeat differs")
+    return {**render_sum, "tiny_cli": rows_sum(tiny), "ptxas": usage,
             "library": "scaled_dot_product_attention on (b, S, H, T, D) permuted views (their head dim is "
                        f"strided); kernels at (5184, 5, 64): {backend}"}
 

@@ -162,10 +162,10 @@ FLASH_ATTENTION_BWD_DQ_FP32 = Kernel(
 # K2's entry for what the Hopper K2 does not take (csrc/time_attention_any.cu):
 # q, k, v, o, b, T, H, D, S, the (frame, head, channel, position) element
 # strides of q, k, v and o, scale*log2(e), dtype (0 fp32, 1 bf16, 2 fp16),
-# stream
+# key-frame ceiling, ring stages, copy mode, stream
 TIME_ATTENTION_ANY = Kernel(
     "time_attention_any", "svc_time_attention_any_fwd",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 16 + [ctypes.c_float, _I, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 16 + [ctypes.c_float, _I, _I, _I, _I, _P],
 )
 LAYER_NORM = Kernel(
     "layer_norm",

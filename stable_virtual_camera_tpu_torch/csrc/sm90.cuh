@@ -1,6 +1,7 @@
 // Hopper device primitives shared by the forward tile (flash_fwd_sm90.cuh:
 // K1, K3, K4), the backward kernels (flash_attention_bwd.cu: K1-dKV, K1-dQ),
-// the temporal attention (time_attention.cu: K2) and the LayerNorm
+// the temporal attention (time_attention.cu: K2; time_attention_any.cu: its
+// entry for any head dim and dtype) and the LayerNorm
 // (layer_norm.cu: K5): shared-memory addresses, mbarriers with a wait that
 // traps, 4-D TMA loads, 1-D bulk copies and cp.async copies that complete on
 // an mbarrier, 128-byte-swizzle wgmma descriptors, the wgmma products the
@@ -101,6 +102,15 @@ template <int N>
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src) {
   static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src), "n"(N) : "memory");
+}
+
+// cp_async that copies the first `src_bytes` (N or 0) and zero-fills the
+// rest: with 0 nothing is read from `src`.
+template <int N>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, uint32_t src_bytes) {
+  static_assert(N == 4 || N == 8 || N == 16, "cp.async copies 4, 8 or 16 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(N), "r"(src_bytes)
+               : "memory");
 }
 
 // An arrive on `bar` once every cp.async this thread issued before it has
@@ -284,12 +294,13 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The tensor map of a 4-D bf16 view: dims innermost first (the first
-// contiguous), byte strides of the other three (multiples of 16), box in
-// elements, zero fill out of bounds.
+// The tensor map of a 4-D view of `dtype` (bf16 unless named): dims
+// innermost first (the first contiguous), byte strides of the other three
+// (multiples of 16), box in elements, zero fill out of bounds.
 inline cudaError_t encode_4d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
                              const cuuint64_t (&bytes)[3], const cuuint32_t (&box)[4],
-                             CUtensorMapSwizzle swizzle) {
+                             CUtensorMapSwizzle swizzle,
+                             CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -301,7 +312,7 @@ inline cudaError_t encode_4d(CUtensorMap* map, const void* base, const cuuint64_
     encode = reinterpret_cast<EncodeTiledFn>(fn);
   }
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  const CUresult r = encode(map, dtype, 4, const_cast<void*>(base), dims,
                             bytes, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -20,8 +20,11 @@ The Hopper kernel streams channel chunks of q, k and v through a ring of
 shared-memory stages, filled by TMA boxes where every row is 16-byte aligned
 and by cp.async or plain copies where it is not; `_k2_plan` checks what it
 takes and plans the launch (key-frame ceiling, tile, ring, copy granule).
-The other entry takes a block of 32 positions and one warp a query frame,
-and reads every operand through its four element strides.
+The other entry has the same shape for any head dim, dtype and strides:
+persistent blocks, a ring of 16-channel units in the input dtype filled by
+TMA boxes, cp.async granules or element loads (`_any_plan` picks the mode
+from the views' row starts), and consumer warps of 32 positions and 4 or 5
+query frames with their fp32 scores in registers.
 """
 
 from __future__ import annotations
@@ -143,6 +146,80 @@ def _k2_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int,
     return _launch_plan(T, S, BT // T * H, _copy_mode(q, k, v, out, S))
 
 
+# how the other entry's producer fills its ring (csrc/time_attention_any.cu
+# `Copy`), its positions a tile (a warp's lanes), and its query frames a
+# warp by key-frame ceiling (5 at 32, which keeps a block at 8 warps)
+ANY_COPIES = {"tma": 0, "cp.async.8": 1, "cp.async.4": 2, "loads": 3}
+ANY_POSITIONS = 32
+ANY_FRAMES_PER_WARP = {c: 5 if c > 24 else 4 for c in CEILINGS}
+
+
+class AnyPlan(NamedTuple):
+    """The launch of K2's other entry: the key-frame `ceiling` (Tc), `chunks`
+    of CHUNK channels (the last zero-filled past D), `stages` ring units of
+    `unit_bytes` (Tc frames x CHUNK channels x ANY_POSITIONS positions in
+    the input dtype), the `copy` mode (a key of ANY_COPIES), `tiles` of
+    ANY_POSITIONS positions a (scene, head), `items` = b * H * tiles (item i
+    is tile i % tiles of (scene, head) = divmod(i // tiles, H)),
+    `frames_per_warp` (R), `threads` a block (ceil(T / R) consumer warps,
+    then the producer warps: one for "tma", else two where the block stays
+    at 8 warps) and `smem_bytes`."""
+
+    ceiling: int
+    frames_per_warp: int
+    chunks: int
+    stages: int
+    unit_bytes: int
+    copy: str
+    tiles: int
+    items: int
+    threads: int
+    smem_bytes: int
+
+
+def _any_copy_mode(q, k, v, S: int) -> str:
+    """How the other entry's producer copies q, k and v: "loads" unless
+    positions are contiguous in all three; else by the largest of 16, 8, 4
+    bytes that divides every row start (base address and frame, head and
+    channel strides, in bytes) and the row length S times the element size:
+    "tma" at 16 (where no stride is 0), "cp.async.8" or "cp.async.4" at 8 or
+    4, "loads" below."""
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        return "loads"
+    e = q.element_size()
+    g = 16
+    for t in (q, k, v):
+        st, sh, sd, _ = t.stride()
+        g = math.gcd(g, t.data_ptr(), e * st, e * sh, e * sd, e * S)
+        if 0 in (st, sh, sd):  # a tensor map takes no zero stride
+            g = math.gcd(g, 8)
+    return {16: "tma", 8: "cp.async.8", 4: "cp.async.4"}.get(g, "loads")
+
+
+@functools.lru_cache(maxsize=256)
+def _any_launch_plan(T: int, D: int, S: int, scene_heads: int, element_size: int, copy: str) -> AnyPlan:
+    """The other entry's launch geometry for T frames of D channels and S
+    positions, `scene_heads` (scene, head) pairs, the element size and the
+    copy mode."""
+    ceiling = next(c for c in CEILINGS if c >= T)
+    unit = ceiling * CHUNK * ANY_POSITIONS * element_size
+    stages = min(STAGES, (MAX_SMEM - _SMEM_HEAD) // unit)
+    tiles = -(-S // ANY_POSITIONS)
+    R = ANY_FRAMES_PER_WARP[ceiling]
+    producers = 1 if copy == "tma" or -(-ceiling // R) + 2 > 8 else 2
+    return AnyPlan(ceiling, R, -(-D // CHUNK), stages, unit, copy, tiles, scene_heads * tiles,
+                   32 * (-(-T // R) + producers), _SMEM_HEAD + stages * unit)
+
+
+def _any_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int) -> AnyPlan:
+    """The launch plan of K2's other entry for (b*T, H, D, S) operands that
+    `k2_route` took. Needs no card: it reads shapes, strides and addresses
+    only."""
+    BT, H, D, S = q.shape
+    return _any_launch_plan(num_frames, D, S, BT // num_frames * H, q.element_size(),
+                            _any_copy_mode(q, k, v, S))
+
+
 def k2_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_frames: int,
              out: torch.Tensor | None = None) -> str:
     """Which of K2's kernels a launch takes: "hopper" (csrc/time_attention.cu)
@@ -222,12 +299,13 @@ def time_attention_any_cuda(
     BT, H, D, S = q.shape
     k2_route(q, k, v, num_frames, out)
     o = torch.empty((BT, H, D, S), dtype=q.dtype, device=q.device) if out is None else out
+    plan = _any_plan(q, k, v, num_frames)
     with torch.cuda.device(q.device):
         _kernels.TIME_ATTENTION_ANY.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             BT // num_frames, num_frames, H, D, S, *(s for t in (q, k, v, o) for s in t.stride()),
-            D**-0.5 * math.log2(math.e), DTYPES.index(q.dtype),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            D**-0.5 * math.log2(math.e), DTYPES.index(q.dtype), plan.ceiling, plan.stages,
+            ANY_COPIES[plan.copy], torch.cuda.current_stream(q.device).cuda_stream,
         )
     return o
 

@@ -52,6 +52,7 @@ from stable_virtual_camera_tpu_torch.ops.flash_upstream import (
 )
 from stable_virtual_camera_tpu_torch.ops.layer_norm import ln_fused, ln_reduce
 from stable_virtual_camera_tpu_torch.ops.time_attention import (
+    _any_plan,
     time_attention_any_cuda,
     time_attention_bhds,
     time_attention_plain,
@@ -263,24 +264,34 @@ def test_flash_fp32_backward_kernels_stream_and_repeat(cuda, B, H, L):
 
 
 _ANY_CASES = [
-    # the tiny spec's head dim, a ragged channel chunk, the model's head dim
-    # in fp32, a strided S, and every dtype
-    (torch.float32, 16, 21, 2, 3, 81, False), (torch.float32, 20, 3, 1, 2, 100, False),
-    (torch.float32, 64, 21, 2, 5, 1296, False), (torch.float32, 64, 32, 1, 2, 64, True),
-    (torch.bfloat16, 16, 21, 2, 3, 81, False), (torch.bfloat16, 64, 5, 2, 2, 70, True),
-    (torch.float16, 32, 8, 1, 2, 40, False), (torch.float32, 8, 1, 3, 1, 5, False),
+    # (dtype, D, T, b, H, S, strided, the copy mode `_any_plan` picks): every
+    # copy mode in fp32 (TMA where S * 4 is a multiple of 16, cp.async of 8
+    # or 4 bytes, loads for a strided S), the tiny spec's head dim, ragged
+    # channel chunks (7, 20, 24, 80) and several (128), T on both sides of
+    # the key-frame ceilings (1, 4, 5, 8, 21, 22, 32), and every dtype
+    (torch.float32, 16, 21, 2, 3, 81, False, "cp.async.4"), (torch.float32, 20, 3, 1, 2, 100, False, "tma"),
+    (torch.float32, 64, 21, 2, 5, 1296, False, "tma"), (torch.float32, 64, 32, 1, 2, 64, True, "loads"),
+    (torch.bfloat16, 16, 21, 2, 3, 81, False, "loads"), (torch.bfloat16, 64, 5, 2, 2, 70, True, "loads"),
+    (torch.float16, 32, 8, 1, 2, 40, False, "tma"), (torch.float32, 8, 1, 3, 1, 5, False, "cp.async.4"),
+    (torch.float32, 24, 21, 2, 2, 82, False, "cp.async.8"), (torch.float32, 7, 4, 2, 3, 324, False, "tma"),
+    (torch.float32, 80, 5, 1, 2, 97, False, "cp.async.4"), (torch.float32, 128, 22, 1, 2, 64, False, "tma"),
+    (torch.float32, 8, 32, 1, 1, 130, False, "cp.async.8"), (torch.float32, 64, 1, 4, 2, 33, True, "loads"),
+    (torch.float32, 7, 5, 2, 2, 48, False, "tma"), (torch.bfloat16, 24, 4, 2, 2, 324, False, "cp.async.8"),
+    (torch.float16, 80, 22, 1, 2, 50, False, "cp.async.4"), (torch.bfloat16, 128, 32, 1, 1, 64, False, "tma"),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,T,b,H,S,strided", _ANY_CASES)
-def test_time_any_kernel_matches_plain(cuda, dtype, D, T, b, H, S, strided):
+@pytest.mark.parametrize("dtype,D,T,b,H,S,strided,copy", _ANY_CASES)
+def test_time_any_kernel_matches_plain(cuda, dtype, D, T, b, H, S, strided, copy):
     """K2's entry for any head dim and dtype (csrc/time_attention_any.cu),
-    through the op: relative L2 1e-5 in fp32, one step of the output dtype
-    otherwise; S strided (positions every other element) where asked."""
+    through the op, on views of a (b*T, 3, H, D, S) projection: relative L2
+    1e-5 in fp32, one step of the output dtype otherwise; S strided
+    (positions every other element) where asked."""
     rng = np.random.default_rng(D * T + S)
     full = _fp32(rng, (b * T, 3, H, D, 2 * S if strided else S), cuda).to(dtype)
     q, k, v = (full[..., ::2] if strided else full).unbind(1)
+    assert _any_plan(q, k, v, T).copy == copy
     before = _kernels.counts()
     out = time_attention_bhds(q, k, v, T)
     after = _kernels.counts()
@@ -298,9 +309,11 @@ def test_time_any_kernel_matches_plain(cuda, dtype, D, T, b, H, S, strided):
 
 
 @pytest.mark.cuda
-def test_time_any_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("H,D,S", [(20, 16, 81), (5, 64, 5184)])  # the tiny spec's head dim; the fp32 render's ds1
+def test_time_any_kernel_is_deterministic(cuda, H, D, S):
+    """Two launches on the same (42 frames, T = 21) views give the same bits."""
     rng = np.random.default_rng(4)
-    q, k, v = _fp32(rng, (42, 3, 20, 16, 81), cuda).unbind(1)
+    q, k, v = _fp32(rng, (42, 3, H, D, S), cuda).unbind(1)
     first = time_attention_any_cuda(q, k, v, 21)
     second = time_attention_any_cuda(q, k, v, 21)
     torch.cuda.synchronize()
