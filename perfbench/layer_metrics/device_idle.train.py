@@ -1,0 +1,8 @@
+"""device_idle.train (device; moves train_step_s): the share of the traced sub-
+window in which no kernel, copy or set ran on the card, in %."""
+
+from perfbench.layer_metrics.common import device_idle
+
+
+def read(run):
+    return device_idle(run)
