@@ -129,8 +129,8 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      DUSt3R preprocess, the scene view, the editor's orbit preset and "Set
      camera trajectory", the render's frame count that trajectory's and its
      PNGs bit-equal to HeadlessRenderer on it, which runs with the engine's
-     stage timer (JAX's stage names, each stage synchronized, the report
-     printed); (c) a Basic render in a thread aborted after its first
+     stage timer (JAX's stage names, host seconds with no synchronize, the
+     report printed); (c) a Basic render in a thread aborted after its first
      progress tick, ending within one step;
      K1/K2 launches over (a) and (b), and the host time the app adds to the
      renderer;
@@ -162,10 +162,11 @@ It builds the hand-written kernels from csrc/ with nvcc and then runs:
      chunks) through the CLI with the engine's streamed frame writes on and
      the conditioning prefetch window of 3, and with the writes off and a
      window of 1, each with --engine_timing (per-pass seconds, final_save,
-     the second pass's flush, conditioning and sample stages), then
-     streamed without the timer at windows 3 and 1 with the device's idle
-     gap between consecutive second-pass chunks from CUDA events; every
-     PNG byte-equal across the four renders;
+     the second pass's flush, conditioning and sample stages, host seconds
+     with no synchronize), then streamed without the timer at windows 3
+     and 1; the device's idle gap between consecutive second-pass chunks
+     from CUDA events in all four; every PNG byte-equal across the four
+     renders;
  27. `tp_path`: parallel_path's seeded chunk on (data, view, model) =
      (1, 1, 2) and, where memory allows, (1, 3, 2) meshes of thread ranks
      on cuda:0 (tensor parallelism): latents against the unsharded chunk,
@@ -3093,16 +3094,17 @@ def run_stream_path() -> dict:
     second-pass chunk flushed by one ordered worker while the next one
     samples) and the conditioning prefetch window of 3 chunks (the
     default), and with `stream_save` off and a window of 1, each with
-    --engine_timing; then streamed without the timer (whose stages end in a
-    device synchronize) with windows of 3 and 1, where CUDA events around
-    each second-pass chunk's dispatch give the device's idle gap between
+    --engine_timing (host seconds a stage: no stage synchronizes the device,
+    so the timed render is the untimed one); then streamed without the
+    timer with windows of 3 and 1. In all four, CUDA events around each
+    second-pass chunk's dispatch give the device's idle gap between
     consecutive chunks (from the event after chunk k's decode to the one
     before chunk k + 1's first step: 0 when the host dispatched chunk k + 1
     before the device finished chunk k). Every PNG byte-equal across the
     four runs; the timed runs' per-pass seconds and the engine's
     `final_save`, `first_pass_save`, `second_pass_flush`,
     `second_pass_flush_join`, `second_pass_conditioning` and
-    `second_pass_sample` stage seconds and calls. Returns the streamed
+    `second_pass_sample` host stage seconds and calls. Returns the streamed
     run's launch counts."""
     import cv2
     import numpy as np
@@ -3186,10 +3188,9 @@ def run_stream_path() -> dict:
                 if timing:
                     timer = timers[0]
                     run["stages_s"] = {k: [timer.totals.get(k, 0.0), timer.counts.get(k, 0)] for k in stages}
-                else:
-                    run["chunk_device_ms"] = [s.elapsed_time(e) for s, e in chunk_events]
-                    run["idle_gap_ms"] = [max(0.0, a[1].elapsed_time(b[0]))
-                                          for a, b in zip(chunk_events, chunk_events[1:])]
+                run["chunk_device_ms"] = [s.elapsed_time(e) for s, e in chunk_events]
+                run["idle_gap_ms"] = [max(0.0, a[1].elapsed_time(b[0]))
+                                      for a, b in zip(chunk_events, chunk_events[1:])]
                 runs[name] = run
     finally:
         cli.SceneEngine, cli.StageTimer, runner.sample_chunk = saved
@@ -3198,16 +3199,16 @@ def run_stream_path() -> dict:
     n_final = len([k for k in on["files"] if k.startswith("samples-rgb" + os.sep)])
     chunks = on["stages_s"]["second_pass_flush"][1]
     ok = (same and n_final == PARALLEL_TARGETS and chunks > 1
-          and all(len(r["idle_gap_ms"]) == chunks - 1 for r in runs.values() if "idle_gap_ms" in r)
+          and all(len(r["idle_gap_ms"]) == chunks - 1 for r in runs.values())
           and all(on["launches"][k] > 0 for k in ("flash_attention_blhd", "time_attention")))
     emit({"phase": "stream_path", "ok": ok, "pngs_byte_equal": same, "pngs": len(on["files"]),
           "final_pngs": n_final, "second_pass_flushes": chunks,
           "runs": {k: {kk: v for kk, v in r.items() if kk != "files"} for k, r in runs.items()},
           "cuts": {"num_steps": f"{NUM_STEPS} (CLI default 50)",
                    "scene": f"one seeded 576x576 PNG, the orbit prior, {PARALLEL_TARGETS} targets",
-                   "timing": "--engine_timing synchronizes the device at each stage's end on the main thread "
-                             "(the window's builds inside the loop excepted); stages_s holds [seconds, calls]; "
-                             "idle_gap_ms is read without the timer"}})
+                   "timing": "--engine_timing reports host seconds a stage with no device synchronize (a "
+                             "stage's device work shows in the stage that waits for it); stages_s holds "
+                             "[seconds, calls]; idle_gap_ms is read in every run"}})
     if not ok:
         raise AssertionError("the stream or window renders' PNGs differ, or a chunk gap went unread")
     return on["launches"]
@@ -3672,7 +3673,7 @@ def run_gui_path(bundle, pipe, main_frames: dict, out: dict) -> dict:
     main_path's frames; (b) Advanced: DUSt3R preprocess, scene view, the
     editor's orbit preset and "Set camera trajectory", the render's PNGs
     bit-equal to HeadlessRenderer on that trajectory, run with the engine's
-    stage timer (its stages synchronized, its report printed); (c) a Basic render in
+    stage timer (host seconds a stage, its report printed); (c) a Basic render in
     a thread aborted after its first progress tick. K1/K2 launches are
     counted over the app's renders (a) and (b); the app's host time is each
     handler's wall minus the renderer's (prepare + engine) wall."""
@@ -3804,8 +3805,8 @@ def run_gui_path(bundle, pipe, main_frames: dict, out: dict) -> dict:
         direct = HeadlessRenderer(bundle, work_dir=None)
         direct_plan = direct.prepare(pre_b, seed=SEED, chunk_strategy="interp-gt", cfg=4.0, camera_scale=2.0,
                                      num_steps=NUM_STEPS, camera_traj_list=traj)
-        # the reference render runs with the engine's stage timer: each stage
-        # ends in a device synchronize, and the frames must not change
+        # the reference render runs with the engine's stage timer (host
+        # seconds a stage, no device synchronize): the frames must not change
         timer = StageTimer()
         anchors_b, frames_b = list(direct.run(direct_plan, timer=timer))
         print("[engine timing] (the Advanced reference render)\n" + timer.report(), flush=True)
@@ -3910,7 +3911,7 @@ def check_profile_trace(bundle, upstream: dict) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         with profiling.trace(tmp) as prof:
-            with profiling.annotate("unet_forward"):
+            with profiling.span("unet_forward"):
                 forward()
         traced_s = time.perf_counter() - t0
         by_trace = trace_analysis.class_totals(tmp)

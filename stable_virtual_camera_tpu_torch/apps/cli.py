@@ -32,9 +32,9 @@ which takes the place of the JAX package's SVC_UPSTREAM_FLASH /
 SVC_PACKED_ATTENTION environment knobs. Left unset it is "upstream"; the
 kernels take bf16 and fp32, so the tiny fp32 bundle runs them on the card
 too. --engine_timing
-True prints each scene's engine stages (utils/profiling.StageTimer, each
-stage closed by a device synchronize), which takes the place of the JAX
-package's SVC_ENGINE_TIMING.
+True prints each scene's engine stages (utils/profiling.StageTimer: host
+seconds a stage, with no device synchronize, so the render is the one run
+untimed), which takes the place of the JAX package's SVC_ENGINE_TIMING.
 
 Invocation (fire-style `--key value` or `--key=value` flags):
   python -m stable_virtual_camera_tpu_torch.apps.cli --data_path ... --task img2img
@@ -405,7 +405,7 @@ def render_one_scene(
     """Render ONE scene end-to-end: parse_task -> SceneEngine.run_one_scene ->
     OpenCV -> OpenGL transforms.json export (reference demo.py:274-404 loop
     body). `noise_fn` is the engine's (sampling/sampler.py); `timer`
-    (utils/profiling.StageTimer) times the engine's stages. Returns
+    (utils/profiling.StageTimer) gets the engine's stages' host seconds. Returns
     save_path_scene, or None when aborted.
 
     The scene runs on its own deep copies of `version` and `options`:

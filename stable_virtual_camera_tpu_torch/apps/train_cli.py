@@ -56,6 +56,7 @@ from stable_virtual_camera_tpu_torch.training.train_step import (
     make_train_step,
     torch_draw,
 )
+from stable_virtual_camera_tpu_torch.utils import profiling
 from stable_virtual_camera_tpu_torch.utils.seeding import seed_everything
 
 
@@ -288,7 +289,8 @@ def train(
     t0 = time.perf_counter()
     for i, batch in zip(range(start_step, num_steps), batches):
         ts = time.perf_counter()
-        losses.append(float(step_fn(batch, draw)))
+        with profiling.request():  # the step's spans share one request id
+            losses.append(float(step_fn(batch, draw)))
         step_seconds.append(time.perf_counter() - ts)
         step = i + 1
         if step % log_every == 0 or step == num_steps:

@@ -73,7 +73,6 @@ on one device. Static W8A8 calibrates before a group runs.
 from __future__ import annotations
 
 import concurrent.futures
-import contextlib
 import copy
 import functools
 import hashlib
@@ -125,7 +124,7 @@ from stable_virtual_camera_tpu_torch.sampling.sampler import (
     make_sampling_plan,
     torch_noise,
 )
-from stable_virtual_camera_tpu_torch.utils.profiling import StageTimer
+from stable_virtual_camera_tpu_torch.utils import profiling
 
 
 # every chunk of at most this many frames samples on its FiLM cache
@@ -596,11 +595,21 @@ def _torn_down(render):
         try:
             yield from render(*args, cleanup=cleanup, **kwargs)
         except BaseException:
-            _close(cleanup, quiet=True)
+            with profiling.span("engine.teardown"):
+                _close(cleanup, quiet=True)
             raise
-        _close(cleanup)
+        with profiling.span("engine.teardown"):
+            _close(cleanup)
 
     return run
+
+
+# the engine's stages, under the JAX engine's names: what a `timer` gets
+STAGES = frozenset({
+    "prepare_images", "first_pass_build", "first_pass_sample", "first_pass_decode_extend", "first_pass_save",
+    "second_pass_plan", "second_pass_build", "second_pass_conditioning", "second_pass_sample",
+    "second_pass_sample_many", "second_pass_flush", "second_pass_flush_join", "final_save",
+})
 
 
 def _resolve_guiders(guider_types) -> list[int]:
@@ -613,23 +622,6 @@ def _cfg_at(cfg, i: int) -> float:
     if isinstance(cfg, (list, tuple)):
         return float(cfg[i]) if len(cfg) > i else float(cfg[0])
     return float(cfg)
-
-
-def _stages(timer: StageTimer | None, device: torch.device):
-    """`timer.stage`, each stage ending in a synchronize of `device` when it
-    is a card, so that its time holds its device work; without a timer, a
-    stage that does nothing."""
-    if timer is None:
-        return lambda name: contextlib.nullcontext()
-
-    @contextlib.contextmanager
-    def stage(name: str):
-        with timer.stage(name):
-            yield
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-
-    return stage
 
 
 class SceneEngine:
@@ -709,6 +701,10 @@ class SceneEngine:
                 Kj[0] /= W
                 Kj[1] /= H
                 camera_cond["K"][i] = Kj
+        if profiling.enabled():
+            profiling.count("engine.frames_transformed", len(imgs))
+            profiling.count("engine.frames_blank", sum(
+                img is None or (isinstance(img, np.ndarray) and not img.any()) for img in image_cond["img"]))
         out = np.concatenate(imgs, 0)
         return out, out.copy(), img_size
 
@@ -747,7 +743,7 @@ class SceneEngine:
         abort_event=None,
         first_pass_pbar: Callable | None = None,
         second_pass_pbar: Callable | None = None,
-        timer: StageTimer | None = None,
+        timer: profiling.StageTimer | None = None,
         cleanup: list | None = None,
     ) -> Iterator[str | np.ndarray]:
         """Render a scene. With `use_traj_prior`, two passes: anchors first,
@@ -756,13 +752,17 @@ class SceneEngine:
         conditioned on the inputs and the targets generated so far. Yields
         after a saved first pass and at the end: file paths with a
         `save_path`, else the uint8 frames (anchors, then all targets in
-        order). With a `timer` (utils/profiling.StageTimer), the render's
-        stages are timed under the JAX engine's stage names, each closed by
-        a device synchronize; without one nothing is added to the path.
-        `cleanup` is `_torn_down`'s list, filled here with the teardown of
-        the worker threads the render starts."""
+        order). The render's stages are spans (utils/profiling.span) under
+        the JAX engine's stage names (`STAGES`); with a `timer`
+        (utils/profiling.StageTimer) they are recorded, and the timer gets
+        their host seconds when the render ends, however it ends. No stage
+        synchronizes the device. `cleanup` is `_torn_down`'s list, filled
+        here with the teardown of the worker threads the render starts."""
         options, version, bundle = self.options, self.version, self.bundle
-        stage = _stages(timer, bundle.device)
+        if timer is not None:
+            # registered first, so it closes last: after the flush worker's stop
+            cleanup.append(profiling.recording(
+                lambda rec: timer.add(s for s in rec.spans if s.name in STAGES)).close)
         # PNGs on writer threads while the render goes on (engine/saving.py)
         stream_save = (save_path is not None and options.get("stream_save", True)
                        and not options.get("replace_or_include_input", False))
@@ -775,19 +775,22 @@ class SceneEngine:
 
         camera_cond = dict(camera_cond)
         camera_cond["K"] = [np.asarray(k) for k in camera_cond["K"]]
-        with stage("prepare_images"):
+        with profiling.span("prepare_images"):
             imgs, imgs_clip, img_size = self._prepare_images(image_cond, camera_cond)
-        camera_cond["K"] = np.stack(camera_cond["K"]).astype(np.float32)
-        all_c2ws = np.asarray(camera_cond["c2w"], np.float32)
-        if traj_prior_Ks is not None:
-            traj_prior_Ks = self._prepare_prior_Ks(traj_prior_Ks, img_size)
+        # the scene's frames and cameras split into inputs and targets: not a
+        # stage of the JAX engine, but host work of a request
+        with profiling.span("engine.split_frames"):
+            camera_cond["K"] = np.stack(camera_cond["K"]).astype(np.float32)
+            all_c2ws = np.asarray(camera_cond["c2w"], np.float32)
+            if traj_prior_Ks is not None:
+                traj_prior_Ks = self._prepare_prior_Ks(traj_prior_Ks, img_size)
 
-        input_indices = list(image_cond["input_indices"])
-        input_imgs, input_imgs_clip = imgs[input_indices], imgs_clip[input_indices]
-        input_c2ws, input_Ks = all_c2ws[input_indices], camera_cond["K"][input_indices]
-        test_indices = [i for i in range(len(imgs)) if i not in input_indices]
-        test_imgs, test_imgs_clip = imgs[test_indices], imgs_clip[test_indices]
-        test_c2ws, test_Ks = all_c2ws[test_indices], camera_cond["K"][test_indices]
+            input_indices = list(image_cond["input_indices"])
+            input_imgs, input_imgs_clip = imgs[input_indices], imgs_clip[input_indices]
+            input_c2ws, input_Ks = all_c2ws[input_indices], camera_cond["K"][input_indices]
+            test_indices = [i for i in range(len(imgs)) if i not in input_indices]
+            test_imgs, test_imgs_clip = imgs[test_indices], imgs_clip[test_indices]
+            test_c2ws, test_Ks = all_c2ws[test_indices], camera_cond["K"][test_indices]
 
         if save_path is not None and options.get("save_input", True):
             save_output({"/image": input_imgs}, save_path=osp.join(save_path, "input"), video_save_fps=2)
@@ -897,7 +900,7 @@ class SceneEngine:
                 zip(plan1.input_inds_per_chunk, plan1.input_sels_per_chunk,
                     plan1.test_inds_per_chunk, plan1.test_sels_per_chunk)
             ):
-                with stage("first_pass_build"):
+                with profiling.span("first_pass_build"):
                     curr_input_sels, _, curr_input_maps, curr_prior_maps = planner.pad_indices(
                         c_in_sels, c_pri_sels, T=T_first,
                         padding_mode=options.get("t_padding_mode", "last"),
@@ -922,7 +925,7 @@ class SceneEngine:
                     len(guiders) > 1 and options.get("ltr_first_pass", False)
                     and strategy1 != "gt" and i > 0
                 )
-                with stage("first_pass_sample"):
+                with profiling.span("first_pass_sample"):
                     samples = sample_chunk(
                         bundle, values, num_steps=num_steps, cfg=_cfg_at(cfg_opt, 0),
                         guider_type=guiders[1] if use_second_sampler else guiders[0],
@@ -932,12 +935,12 @@ class SceneEngine:
                     )
                 if samples is None:
                     return
-                with stage("first_pass_decode_extend"):
+                with profiling.span("first_pass_decode_extend"):
                     extend_dict(all_samples, decode_output(samples, T_first, c_pri_sels))
                 all_prior_inds.extend(c_pri_inds)
 
             if options.get("save_first_pass", True):
-                with stage("first_pass_save"):
+                with profiling.span("first_pass_save"):
                     if save_path is None:
                         first_pass = to_uint8(get_k_from_dict(all_samples, "samples-rgb"))
                     else:
@@ -989,7 +992,7 @@ class SceneEngine:
             test_indices2 = [test_indices[j] for j in keep]
             test_imgs2, test_imgs_clip2 = test_imgs[keep], test_imgs_clip[keep]
             test_c2ws2, test_Ks2 = test_c2ws[keep], test_Ks[keep]
-            with stage("second_pass_plan"):
+            with profiling.span("second_pass_plan"):
                 plan2 = planner.chunk_input_and_test(
                     T_second, traj_prior_c2ws, test_c2ws2, prior_indices, test_indices2,
                     options=options, task=task, chunk_strategy=strategy2,
@@ -1006,7 +1009,7 @@ class SceneEngine:
             # every chunk's work first: second-pass chunks depend only on the
             # fixed anchors, so they can run one by one or in groups
             work = []
-            with stage("second_pass_build"):
+            with profiling.span("second_pass_build"):
                 for i, (c_pri_inds, c_pri_sels, c_test_inds, c_test_sels) in enumerate(
                     zip(plan2.input_inds_per_chunk, plan2.input_sels_per_chunk,
                         plan2.test_inds_per_chunk, plan2.test_sels_per_chunk)
@@ -1043,11 +1046,8 @@ class SceneEngine:
                         raise f.exception()
 
             cleanup.append(stop_flushes)
-            # the flush's own stage: no device synchronize on its thread
-            flush_stage = _stages(timer, torch.device("cpu"))
-
             def flush(fetch, i, c_test_sels, c_test_inds, curr):
-                with flush_stage("second_pass_flush"):
+                with profiling.span("second_pass_flush"):
                     curr_imgs, _, curr_c2ws, curr_Ks = curr
                     samples = decode_output(fetch(), T_second, c_test_sels)
                     if save_path is not None and options.get("save_second_pass", False):
@@ -1065,7 +1065,7 @@ class SceneEngine:
                         sp_writer.submit(final_inds, samples["samples-rgb/image"])
 
             def submit_flush(frames, *item):
-                flush_futs.append(flush_pool.submit(flush, _host_copy_later(frames), *item))
+                flush_futs.append(flush_pool.submit(profiling.carry(flush), _host_copy_later(frames), *item))
 
             # without per-step progress, independent chunks run in groups:
             # the mesh's data rows take one each (sample_many), or without a
@@ -1085,7 +1085,7 @@ class SceneEngine:
                     return
                 group = work[g : g + width]
                 padded = group + [group[-1]] * (width - len(group))
-                with stage("second_pass_conditioning"):
+                with profiling.span("second_pass_conditioning"):
                     conds, shape = [], None
                     for item in padded:
                         cond, shape = build_chunk_conditioning(
@@ -1098,7 +1098,7 @@ class SceneEngine:
                         lambda step, _i=item[0]: noise(2, _i, step, shape, dev).to(dev, torch.float32)
                         for item in padded
                     ]
-                with stage("second_pass_sample_many"):
+                with profiling.span("second_pass_sample_many"):
                     xs = sample_many(bundle, [d(None) for d in draws], bundle.plan(num_steps), conds, draws)
                 for item, x in zip(group, xs):
                     submit_flush(bundle.vae.decode(x, dec_t, uint8=True, host=False), *item[:4])
@@ -1108,23 +1108,19 @@ class SceneEngine:
             # dispatch; a slot is dropped once its chunk is dispatched
             serial = work[n_grouped:]
             prefetch = max(1, int(options.get("prefetch_chunks", 3) or 1))
-            # the builds in the loop are host work and non-blocking uploads:
-            # their stage closes without a device synchronize
-            build_stage = _stages(timer, torch.device("cpu"))
-
             def build(values):
                 return build_chunk_conditioning(
                     bundle, values, cfg=cfg2, guider_type=guider2, cfg_min=cfg_min,
                     encoding_t=enc_t, latent_downsample=F,
                 )
 
-            with stage("second_pass_conditioning"):
+            with profiling.span("second_pass_conditioning"):
                 for item in serial:
                     prime_chunk_conditioning(bundle, item[4], enc_t)
                 staged = [build(item[4]) for item in serial[:prefetch]]
             for pos, (i, c_test_sels, c_test_inds, curr, values) in enumerate(serial):
                 prebuilt, staged[pos] = staged[pos], None
-                with stage("second_pass_sample"):
+                with profiling.span("second_pass_sample"):
                     samples = sample_chunk(
                         bundle, values, num_steps=num_steps, cfg=cfg2, guider_type=guider2,
                         cfg_min=cfg_min, noise_fn=noise, pass_id=2, chunk_id=i,
@@ -1137,9 +1133,9 @@ class SceneEngine:
                     return
                 submit_flush(samples, i, c_test_sels, c_test_inds, curr)
                 if pos + prefetch < len(serial):
-                    with build_stage("second_pass_conditioning"):
+                    with profiling.span("second_pass_conditioning"):
                         staged.append(build(serial[pos + prefetch][4]))
-            with stage("second_pass_flush_join"):
+            with profiling.span("second_pass_flush_join"):
                 for f in flush_futs:
                     f.result()  # in order; re-raises a flush's error
                 flush_pool.shutdown(wait=True)
@@ -1153,7 +1149,7 @@ class SceneEngine:
             order = np.argsort(all_test_inds, kind="stable")
             all_samples = {key: value[order] for key, value in all_samples.items()}
 
-        with stage("final_save"):
+        with profiling.span("final_save"):
             if options.get("replace_or_include_input", False):
                 all_samples = replace_or_include_input_for_dict(
                     all_samples, test_indices, imgs.copy(),

@@ -39,6 +39,7 @@ from stable_virtual_camera_tpu_torch.sampling.discretization import (
     DDPMDiscretization,
     sigma_to_idx,
 )
+from stable_virtual_camera_tpu_torch.utils import profiling
 
 NoiseFn = Callable[..., torch.Tensor]
 NetworkFn = Callable[..., torch.Tensor]
@@ -185,14 +186,17 @@ def run_steps(
     abort_event=None,
 ) -> torch.Tensor | None:
     """The host loop: x = noise * init_scale, then `step(x, eps, scalars,
-    t_index)` for every step of the plan, with `progress_cb(i + 1, n)` and
-    an `abort_event` poll after each. Returns None when aborted."""
+    t_index)` for every step of the plan (a `sample.step` span: the host's
+    time in it, its enqueue and any wait on the launch queue), with
+    `progress_cb(i + 1, n)` and an `abort_event` poll after each. Returns
+    None when aborted."""
     x = noise * float(np.float32(plan.init_scale))
     scalars = step_scalars(plan)
     t_indices = torch.as_tensor(plan.t_indices.astype(np.int64), device=noise.device)
     n = plan.num_steps
     for i in range(n):
-        x = step(x, step_noise(i), scalars[i], t_indices[i])
+        with profiling.span("sample.step"):
+            x = step(x, step_noise(i), scalars[i], t_indices[i])
         if progress_cb is not None:
             progress_cb(i + 1, n)
         if abort_event is not None and abort_event.is_set():

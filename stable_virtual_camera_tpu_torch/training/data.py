@@ -29,6 +29,7 @@ from stable_virtual_camera_tpu_torch.core.transforms import transform_img_and_K
 from stable_virtual_camera_tpu_torch.data.dataset import Dataset
 from stable_virtual_camera_tpu_torch.engine.value_dict import ChunkValues, build_chunk_values
 from stable_virtual_camera_tpu_torch.training.train_step import TrainBatch
+from stable_virtual_camera_tpu_torch.utils import profiling
 
 
 def train_batch_from_values(
@@ -131,21 +132,31 @@ def device_prefetch(batches: Iterable[TrainBatch], device, size: int = 2) -> Ite
     """Overlap host batch construction with device compute: a background
     thread builds batches and moves them to `device`, `size` deep ahead of
     consumption. The bounded queue bounds host memory; an exception in the
-    producer re-raises at the consumer."""
+    producer re-raises at the consumer. Spans: `data.batch` on the
+    producer, around each batch's build and move (the thread serves every
+    step, so it carries no step's request); `data.wait` at the consumer,
+    around the wait for the next batch."""
     q: queue.Queue = queue.Queue(maxsize=size)
     end = object()
 
     def produce():
         try:
-            for b in batches:
-                q.put(b.to(device))
-            q.put(end)
+            it = iter(batches)
+            while True:
+                with profiling.span("data.batch"):
+                    b = next(it, end)
+                    if b is not end:
+                        b = b.to(device)
+                q.put(b)
+                if b is end:
+                    return
         except BaseException as e:  # noqa: BLE001 - re-raised at the consumer
             q.put(_ProducerError(e))
 
     threading.Thread(target=produce, daemon=True).start()
     while True:
-        item = q.get()
+        with profiling.span("data.wait"):
+            item = q.get()
         if item is end:
             return
         if isinstance(item, _ProducerError):

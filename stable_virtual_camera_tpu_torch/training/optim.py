@@ -32,6 +32,8 @@ from typing import Callable, Iterable
 
 import torch
 
+from stable_virtual_camera_tpu_torch.utils import profiling
+
 Schedule = Callable[[int], float]
 
 
@@ -81,13 +83,15 @@ class AdamW:
         self.lr = torch.optim.lr_scheduler.LambdaLR(self.opt, schedule)
 
     def step(self) -> None:
-        """Apply one update from the parameters' gradients, then clear them."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        self.opt.step()
-        self.lr.step()
-        self.opt.zero_grad(set_to_none=True)
+        """Apply one update from the parameters' gradients, then clear them
+        (a `train.optimizer` span)."""
+        with profiling.span("train.optimizer"):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self.opt.step()
+            self.lr.step()
+            self.opt.zero_grad(set_to_none=True)
 
     def replicate(self, params: Iterable[torch.Tensor]) -> "AdamW":
         """A fresh AdamW with the same schedule and decay over `params`."""

@@ -59,6 +59,7 @@ from stable_virtual_camera_tpu_torch.parallel.param_sharding import tree_shardin
 from stable_virtual_camera_tpu_torch.parallel.sharding import frames_of
 from stable_virtual_camera_tpu_torch.sampling.discretization import DDPMDiscretization
 from stable_virtual_camera_tpu_torch.training.optim import concat_state, map_param_state, slice_state
+from stable_virtual_camera_tpu_torch.utils import profiling
 
 Draw = Callable[[tuple[int, ...]], tuple[torch.Tensor, torch.Tensor]]
 
@@ -255,7 +256,9 @@ def make_train_step(
     ema_decay: float | None = None,
 ):
     """Returns `step(batch, draw=None, ema_params=None) -> loss`: one loss,
-    backward and optimizer update of `unet`'s parameters in place
+    backward and optimizer update of `unet`'s parameters in place (spans
+    `train.step`, and in it `train.loss`, `train.backward` and the
+    optimizer's `train.optimizer`)
     (`optimizer` is a training.optim AdamW or MultiSteps over them), and,
     with `ema_decay`, the EMA update of `ema_params` (see `ema_init`). The
     loss is the detached fp32 scalar. Without `draw`, timesteps and noise
@@ -271,17 +274,20 @@ def make_train_step(
     def step(batch: TrainBatch, draw: Draw | None = None, ema_params=None) -> torch.Tensor:
         if ema_decay is not None and ema_params is None:
             raise ValueError("a step with ema_decay needs ema_params (training.train_step.ema_init)")
-        if draw is None:
-            if not default_draw:
-                device = next(unet.parameters()).device
-                default_draw.append(torch_draw(torch.Generator(device=device).manual_seed(0)))
-            draw = default_draw[0]
-        loss = loss_fn(batch, draw)
-        loss.backward()
-        optimizer.step()
-        if ema_decay is not None:
-            ema_update(ema_params, dict(unet.named_parameters()), ema_decay)
-        return loss.detach()
+        with profiling.span("train.step"):
+            if draw is None:
+                if not default_draw:
+                    device = next(unet.parameters()).device
+                    default_draw.append(torch_draw(torch.Generator(device=device).manual_seed(0)))
+                draw = default_draw[0]
+            with profiling.span("train.loss"):
+                loss = loss_fn(batch, draw)
+            with profiling.span("train.backward"):
+                loss.backward()
+            optimizer.step()
+            if ema_decay is not None:
+                ema_update(ema_params, dict(unet.named_parameters()), ema_decay)
+            return loss.detach()
 
     return step
 

@@ -113,7 +113,7 @@ def test_trace_analysis_reads_a_kineto_trace(tmp_path):
 def test_trace_on_the_cpu_writes_what_summarize_reads(tmp_path):
     x = torch.randn(64, 64, generator=torch.Generator().manual_seed(0))
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("matmul"):
+        with profiling.span("matmul"):
             (x @ x).sum()
     assert any(e.key == "matmul" for e in prof.key_averages())
     events = trace_analysis.load_trace(str(tmp_path))
